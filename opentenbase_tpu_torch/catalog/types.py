@@ -1,0 +1,160 @@
+"""SQL type system.
+
+Reference analog: PostgreSQL's pg_type + src/backend/utils/adt. Re-designed
+columnar/TPU-first:
+
+- Every column is stored as a fixed-width numpy array (host) that stages
+  directly into a device buffer: no varlena on device.
+- DECIMAL(p, s) is a scaled int64 ("money" style) so aggregates are exact and
+  run on the MXU-friendly integer path instead of emulated float64.
+- DATE is int32 days since 1970-01-01 (comparisons/EXTRACT become integer ops).
+- CHAR/VARCHAR/TEXT columns are dictionary-encoded: int32 codes on device,
+  the dictionary (list of python strings) host-side.  String predicates
+  (LIKE, =, <) are evaluated against the dictionary host-side and become
+  code-set membership masks on device — the reference's equivalent hot path is
+  per-tuple varlena compares in execExprInterp.c.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import numpy as np
+
+
+class TypeKind(enum.Enum):
+    BOOL = "bool"
+    INT32 = "int32"
+    INT64 = "int64"
+    FLOAT64 = "float64"
+    DECIMAL = "decimal"
+    DATE = "date"
+    TEXT = "text"    # dictionary-encoded
+    VECTOR = "vector"  # fixed-dim float32 (pgvector analog)
+    NULL = "null"    # the type of a bare NULL literal before coercion
+    # (reference: UNKNOWNOID untyped literals, parse_coerce.c)
+
+
+@dataclasses.dataclass(frozen=True)
+class SqlType:
+    kind: TypeKind
+    precision: int = 0  # DECIMAL only
+    scale: int = 0      # DECIMAL only: value = int64 * 10**-scale
+    max_len: int = 0    # CHAR/VARCHAR declared length; VECTOR dimension
+
+    # ---- storage dtype of the physical column array ----
+    @property
+    def np_dtype(self) -> np.dtype:
+        return {
+            TypeKind.BOOL: np.dtype(np.bool_),
+            TypeKind.INT32: np.dtype(np.int32),
+            TypeKind.INT64: np.dtype(np.int64),
+            TypeKind.FLOAT64: np.dtype(np.float64),
+            TypeKind.DECIMAL: np.dtype(np.int64),
+            TypeKind.DATE: np.dtype(np.int32),
+            TypeKind.TEXT: np.dtype(np.int32),   # dictionary code
+            TypeKind.VECTOR: np.dtype(np.float32),
+            TypeKind.NULL: np.dtype(np.int64),  # placeholder storage
+        }[self.kind]
+
+    @property
+    def dim(self) -> int:
+        """Column array trailing dimension: VECTOR columns are 2D."""
+        return self.max_len if self.kind == TypeKind.VECTOR else 0
+
+    @property
+    def shape_suffix(self) -> tuple:
+        return (self.max_len,) if self.kind == TypeKind.VECTOR else ()
+
+    @property
+    def is_numeric(self) -> bool:
+        return self.kind in (TypeKind.INT32, TypeKind.INT64,
+                             TypeKind.FLOAT64, TypeKind.DECIMAL)
+
+    @property
+    def is_string(self) -> bool:
+        return self.kind == TypeKind.TEXT
+
+    def __str__(self) -> str:
+        if self.kind == TypeKind.DECIMAL:
+            return f"decimal({self.precision},{self.scale})"
+        return self.kind.value
+
+
+BOOL = SqlType(TypeKind.BOOL)
+INT32 = SqlType(TypeKind.INT32)
+INT64 = SqlType(TypeKind.INT64)
+FLOAT64 = SqlType(TypeKind.FLOAT64)
+DATE = SqlType(TypeKind.DATE)
+TEXT = SqlType(TypeKind.TEXT)
+NULLT = SqlType(TypeKind.NULL)
+
+
+def decimal(precision: int = 15, scale: int = 2) -> SqlType:
+    return SqlType(TypeKind.DECIMAL, precision=precision, scale=scale)
+
+
+_NAME_MAP = {
+    "bool": BOOL, "boolean": BOOL,
+    "int": INT32, "integer": INT32, "int4": INT32, "smallint": INT32,
+    "bigint": INT64, "int8": INT64,
+    "float": FLOAT64, "float8": FLOAT64, "double": FLOAT64, "real": FLOAT64,
+    "date": DATE,
+    "text": TEXT,
+}
+
+
+def type_from_name(name: str, args: tuple[int, ...] = ()) -> SqlType:
+    """Resolve a SQL type name (+ optional parens args) to a SqlType."""
+    name = name.lower()
+    if name in ("decimal", "numeric"):
+        p = args[0] if args else 15
+        s = args[1] if len(args) > 1 else 0
+        return decimal(p, s)
+    if name in ("char", "varchar", "character"):
+        return SqlType(TypeKind.TEXT, max_len=args[0] if args else 0)
+    if name == "vector":
+        if not args:
+            raise ValueError("vector type requires a dimension")
+        return SqlType(TypeKind.VECTOR, max_len=args[0])
+    if name == "double precision":
+        return FLOAT64
+    if name in _NAME_MAP:
+        return _NAME_MAP[name]
+    raise ValueError(f"unknown type name: {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# value conversion helpers (python literal <-> stored representation)
+# ---------------------------------------------------------------------------
+
+_EPOCH = np.datetime64("1970-01-01", "D")
+
+
+def date_to_days(iso: str) -> int:
+    """'1995-03-15' -> int32 days since epoch."""
+    return int((np.datetime64(iso, "D") - _EPOCH).astype(np.int64))
+
+
+def days_to_date(days: int) -> str:
+    return str(_EPOCH + np.timedelta64(int(days), "D"))
+
+
+def decimal_to_int(value, scale: int) -> int:
+    """Parse a decimal literal into its scaled-int64 representation."""
+    s = str(value)
+    neg = s.startswith("-")
+    if neg:
+        s = s[1:]
+    if "." in s:
+        whole, frac = s.split(".", 1)
+    else:
+        whole, frac = s, ""
+    frac = (frac + "0" * scale)[:scale]
+    iv = int(whole or "0") * 10**scale + (int(frac) if frac else 0)
+    return -iv if neg else iv
+
+
+def int_to_decimal(iv: int, scale: int) -> float:
+    return iv / 10**scale

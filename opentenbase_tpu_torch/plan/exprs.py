@@ -1,0 +1,392 @@
+"""Typed expression trees.
+
+Reference analog: PostgreSQL's Expr nodes (src/include/nodes/primnodes.h)
+compiled at ExecInitExpr time into the EEOP_* opcode program interpreted by
+`ExecInterpExpr` (src/backend/executor/execExprInterp.c:14-41) or JITed by
+LLVM (src/backend/jit/llvm/llvmjit_expr.c).  In this rebuild the opcode
+interpreter AND the LLVM tier collapse into one thing: expressions compile to
+jax-traceable closures that XLA fuses into the surrounding scan kernel
+(exec/expr_compile.py).
+
+Type/scale discipline for DECIMAL (scaled int64):
+- add/sub/compare: operands rescaled to the larger scale
+- mul: result scale = s1 + s2 (per-row products stay well inside int64)
+- div: lowered to FLOAT64
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+from ..catalog.types import (BOOL, FLOAT64, INT32, INT64, SqlType, TypeKind,
+                             decimal as decimal_t)
+
+
+class ExprError(Exception):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class Expr:
+    """Base: every node carries its result SqlType in `.type`."""
+    type: SqlType = dataclasses.field(init=False, default=INT64)
+
+    def children(self) -> Sequence["Expr"]:
+        return ()
+
+
+def _fields(**kw):
+    return kw
+
+
+@dataclasses.dataclass(frozen=True)
+class Col(Expr):
+    name: str
+    col_type: SqlType
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", self.col_type)
+
+
+@dataclasses.dataclass(frozen=True)
+class Lit(Expr):
+    """Literal already in storage representation (scaled int for DECIMAL,
+    days for DATE).  TEXT literals never appear here — string predicates are
+    resolved against dictionaries at compile time (StrPred).  value=None is
+    the SQL NULL literal (reference: Const.constisnull, primnodes.h)."""
+    value: object
+    lit_type: SqlType
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", self.lit_type)
+
+    @property
+    def is_null(self) -> bool:
+        return self.value is None
+
+
+_NUM_RANK = {TypeKind.INT32: 0, TypeKind.INT64: 1, TypeKind.DECIMAL: 2,
+             TypeKind.FLOAT64: 3}
+
+
+def _common_numeric(a: SqlType, b: SqlType) -> SqlType:
+    if not (a.is_numeric and b.is_numeric):
+        raise ExprError(f"non-numeric operands {a} {b}")
+    if TypeKind.FLOAT64 in (a.kind, b.kind):
+        return FLOAT64
+    if TypeKind.DECIMAL in (a.kind, b.kind):
+        return decimal_t(30, max(a.scale, b.scale))
+    if TypeKind.INT64 in (a.kind, b.kind):
+        return INT64
+    return INT32
+
+
+@dataclasses.dataclass(frozen=True)
+class Arith(Expr):
+    op: str  # + - * /
+    left: Expr
+    right: Expr
+
+    def __post_init__(self):
+        a, b = self.left.type, self.right.type
+        if self.op == "/":
+            t = FLOAT64
+        elif self.op == "%":
+            if TypeKind.DECIMAL in (a.kind, b.kind) or \
+                    TypeKind.FLOAT64 in (a.kind, b.kind):
+                raise ExprError("modulo requires integer operands")
+            t = _common_numeric(a, b)
+        elif self.op == "*" and TypeKind.DECIMAL in (a.kind, b.kind) \
+                and TypeKind.FLOAT64 not in (a.kind, b.kind):
+            t = decimal_t(30, a.scale + b.scale)
+        else:
+            t = _common_numeric(a, b)
+        object.__setattr__(self, "type", t)
+
+    def children(self):
+        return (self.left, self.right)
+
+
+@dataclasses.dataclass(frozen=True)
+class Neg(Expr):
+    arg: Expr
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", self.arg.type)
+
+    def children(self):
+        return (self.arg,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cmp(Expr):
+    op: str  # = <> < <= > >=
+    left: Expr
+    right: Expr
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", BOOL)
+
+    def children(self):
+        return (self.left, self.right)
+
+
+@dataclasses.dataclass(frozen=True)
+class BoolOp(Expr):
+    op: str  # and | or
+    args: tuple[Expr, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", BOOL)
+
+    def children(self):
+        return self.args
+
+
+@dataclasses.dataclass(frozen=True)
+class Not(Expr):
+    arg: Expr
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", BOOL)
+
+    def children(self):
+        return (self.arg,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Case(Expr):
+    whens: tuple[tuple[Expr, Expr], ...]
+    else_: Optional[Expr]
+    case_type: SqlType
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", self.case_type)
+
+    def children(self):
+        out = []
+        for c, v in self.whens:
+            out += [c, v]
+        if self.else_ is not None:
+            out.append(self.else_)
+        return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class InList(Expr):
+    """value IN (numeric literals) — storage-representation values."""
+    arg: Expr
+    values: tuple
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", BOOL)
+
+    def children(self):
+        return (self.arg,)
+
+
+@dataclasses.dataclass(frozen=True)
+class TextExpr(Expr):
+    """A TEXT-valued expression: an underlying dictionary-coded column with
+    pure string->string transforms (e.g. substring) applied *to the
+    dictionary*, not the rows — codes pass through unchanged, the decode
+    table changes.  This is how substring(c_phone from 1 for 2) (TPC-H Q22)
+    stays an integer column on device."""
+    col: Col
+    transforms: tuple = ()   # (("substring", start, length|None), ...)
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", self.col.col_type)
+
+    def children(self):
+        return (self.col,)
+
+    def apply(self, s: str) -> str:
+        for t in self.transforms:
+            if t[0] == "substring":
+                start, length = t[1], t[2]
+                lo = start - 1          # SQL positions are 1-based;
+                if length is None:      # clip at the string start like PG
+                    s = s[max(lo, 0):]
+                else:
+                    s = s[max(lo, 0):max(lo + length, 0)]
+            else:
+                raise ExprError(f"unknown text transform {t[0]}")
+        return s
+
+
+@dataclasses.dataclass(frozen=True)
+class StrPred(Expr):
+    """A predicate over a TEXT column (possibly transformed), described
+    abstractly; the compiler resolves it against the store's dictionary into
+    a device code-set mask.
+    kind: 'eq' | 'ne' | 'like' | 'not_like' | 'in' | 'not_in' | 'lt' | 'le' |
+    'gt' | 'ge'
+    """
+    col: Expr                 # Col or TextExpr over a TEXT column
+    kind: str
+    patterns: tuple[str, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", BOOL)
+
+    def children(self):
+        return (self.col,)
+
+
+@dataclasses.dataclass(frozen=True)
+class IsNull(Expr):
+    """expr IS [NOT] NULL — non-strict: consumes the null mask, never
+    produces one (reference: ExecEvalNullTest, execExprInterp.c)."""
+    arg: Expr
+    negated: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", BOOL)
+
+    def children(self):
+        return (self.arg,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Coalesce(Expr):
+    """COALESCE(a, b, ...) — first non-null argument (non-strict)."""
+    args: tuple[Expr, ...]
+    out_type: SqlType
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", self.out_type)
+
+    def children(self):
+        return self.args
+
+
+@dataclasses.dataclass(frozen=True)
+class NullIf(Expr):
+    """NULLIF(a, b): NULL when a = b, else a."""
+    left: Expr
+    right: Expr
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", self.left.type)
+
+    def children(self):
+        return (self.left, self.right)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistExpr(Expr):
+    """Vector distance: col <metric> constant-query (pgvector's
+    <-> / <=> / <#> operators).  type FLOAT64."""
+    metric: str              # 'l2' | 'cosine' | 'ip'
+    col: Col                 # VECTOR column
+    query: tuple             # query vector as a tuple of floats
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", FLOAT64)
+
+    def children(self):
+        return (self.col,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Extract(Expr):
+    """EXTRACT(field FROM date) -> INT32.  field: year|month|day."""
+    field: str
+    arg: Expr
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", INT32)
+
+    def children(self):
+        return (self.arg,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cast(Expr):
+    arg: Expr
+    to: SqlType
+
+    def __post_init__(self):
+        object.__setattr__(self, "type", self.to)
+
+    def children(self):
+        return (self.arg,)
+
+
+# ---------------------------------------------------------------------------
+# aggregates (consumed by the Agg operator, not by the row-wise compiler)
+# ---------------------------------------------------------------------------
+
+AGG_FUNCS = ("sum", "count", "avg", "min", "max")
+
+WINDOW_FUNCS = ("row_number", "rank", "dense_rank", "lag",
+                "lead", "first_value", "last_value") + AGG_FUNCS
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowCall(Expr):
+    """func(arg) OVER (PARTITION BY ... ORDER BY ... [frame]) — consumed
+    by the Window operator (reference: WindowFunc + nodeWindowAgg.c).
+    With an ORDER BY and no explicit frame, aggregate functions use the
+    SQL default frame (RANGE UNBOUNDED PRECEDING..CURRENT ROW): running
+    values, peers equal.  frame = (mode, (kind, n), (kind, n)) parsed
+    from ROWS/RANGE BETWEEN (gram.y frame_clause)."""
+    func: str
+    arg: Optional[Expr]
+    partition: tuple[Expr, ...]
+    order: tuple[tuple[Expr, bool], ...]   # (expr, desc)
+    offset: int = 1                        # lag/lead row offset
+    default: Optional[Expr] = None         # lag/lead: None = SQL NULL
+    frame: Optional[tuple] = None
+
+    def __post_init__(self):
+        if self.func not in WINDOW_FUNCS:
+            raise ExprError(f"unknown window function {self.func}")
+        if self.func in ("row_number", "rank", "dense_rank"):
+            t = INT64
+        elif self.func == "count":
+            t = INT64
+        elif self.func == "avg":
+            t = FLOAT64
+        else:
+            t = self.arg.type
+        object.__setattr__(self, "type", t)
+
+    def children(self):
+        out = list(self.partition) + [e for e, _ in self.order]
+        if self.arg is not None:
+            out.append(self.arg)
+        return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class AggCall(Expr):
+    func: str                  # sum|count|avg|min|max
+    arg: Optional[Expr]        # None for count(*)
+    distinct: bool = False
+
+    def __post_init__(self):
+        if self.func not in AGG_FUNCS:
+            raise ExprError(f"unknown aggregate {self.func}")
+        if self.func == "count":
+            t = INT64
+        elif self.func == "avg":
+            t = FLOAT64
+        else:
+            t = self.arg.type
+        object.__setattr__(self, "type", t)
+
+    def children(self):
+        return (self.arg,) if self.arg is not None else ()
+
+
+def walk(e: Expr):
+    yield e
+    for c in e.children():
+        yield from walk(c)
+
+
+def contains_agg(e: Expr) -> bool:
+    return any(isinstance(x, AggCall) for x in walk(e))

@@ -1,0 +1,270 @@
+"""Physical plan nodes.
+
+Reference analog: the Plan node tree of include/nodes/plannodes.h (SeqScan,
+HashJoin, Agg, Sort, Limit ...) plus the XC additions RemoteSubplan /
+RemoteQuery (include/pgxc/planner.h).  Differences by design:
+
+- Operators consume/produce whole columnar batches, not tuples.
+- There is no separate Hash node: the join's build side is its right child.
+- Exchange operators (Redistribute/Broadcast/Gather) are the RemoteSubplan
+  analog: they mark fragment boundaries for the distributed executor and map
+  onto XLA collectives (all_to_all / all_gather / device->host).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from ..catalog.schema import TableDef
+from . import exprs as E
+
+
+@dataclasses.dataclass
+class PhysNode:
+    def children(self) -> list["PhysNode"]:
+        return []
+
+    def title(self) -> str:
+        return type(self).__name__
+
+
+@dataclasses.dataclass
+class SeqScan(PhysNode):
+    """Fused scan+visibility+filter+project over a table's chunks.
+    Reference: ExecSeqScan + ExecQual/ExecProject (execScan.c) — one kernel
+    here."""
+    table: TableDef
+    alias: str
+    filters: list[E.Expr]
+    # output qualified-name -> expr over the table's columns; None = all cols
+    outputs: Optional[list[tuple[str, E.Expr]]] = None
+
+    def title(self):
+        f = f" filter={len(self.filters)}" if self.filters else ""
+        return f"SeqScan {self.table.name} as {self.alias}{f}"
+
+
+@dataclasses.dataclass
+class Filter(PhysNode):
+    child: PhysNode = None
+    quals: list[E.Expr] = dataclasses.field(default_factory=list)
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class Project(PhysNode):
+    child: PhysNode = None
+    outputs: list[tuple[str, E.Expr]] = dataclasses.field(default_factory=list)
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class HashJoin(PhysNode):
+    """Equi-join; right child is the build side.  kind:
+    inner|left|semi|anti.  Multi-key joins hash-combine with a residual
+    equality recheck (reference nodeHashjoin.c keeps hashes + recheck too).
+    Reference: ExecHashJoin (nodeHashjoin.c) over a chained hash table;
+    here sort+searchsorted (ops/kernels.py join_*)."""
+    left: PhysNode = None
+    right: PhysNode = None
+    left_keys: list[E.Expr] = dataclasses.field(default_factory=list)
+    right_keys: list[E.Expr] = dataclasses.field(default_factory=list)
+    kind: str = "inner"
+    residual: list[E.Expr] = dataclasses.field(default_factory=list)
+
+    def children(self):
+        return [self.left, self.right]
+
+    def title(self):
+        return f"HashJoin {self.kind} on {len(self.left_keys)} key(s)"
+
+
+@dataclasses.dataclass
+class Agg(PhysNode):
+    """Grouped aggregation.  mode: 'single' | 'partial' | 'final' —
+    partial/final split mirrors RemoteQuery.rq_finalise_aggs
+    (include/pgxc/planner.h:135)."""
+    child: PhysNode = None
+    group_keys: list[tuple[str, E.Expr]] = dataclasses.field(
+        default_factory=list)
+    aggs: list[tuple[str, E.AggCall]] = dataclasses.field(default_factory=list)
+    mode: str = "single"
+
+    def children(self):
+        return [self.child]
+
+    def title(self):
+        return (f"Agg {self.mode} keys={len(self.group_keys)} "
+                f"aggs={len(self.aggs)}")
+
+
+@dataclasses.dataclass
+class Sort(PhysNode):
+    child: PhysNode = None
+    keys: list[tuple[E.Expr, bool]] = dataclasses.field(default_factory=list)
+    limit: Optional[int] = None      # top-k fusion
+
+    def children(self):
+        return [self.child]
+
+    def title(self):
+        lim = f" limit={self.limit}" if self.limit is not None else ""
+        return f"Sort keys={len(self.keys)}{lim}"
+
+
+@dataclasses.dataclass
+class Limit(PhysNode):
+    child: PhysNode = None
+    count: Optional[int] = None
+    offset: int = 0
+
+    def children(self):
+        return [self.child]
+
+
+# ---- exchange operators (fragment boundaries; reference RemoteSubplan) ----
+
+@dataclasses.dataclass
+class Redistribute(PhysNode):
+    """Hash-redistribute rows across datanodes by key — the reference's
+    RemoteSubplan with distributionType=HASH streaming FnPages
+    (execFragment.c FragmentRedistributeData); on TPU one all_to_all."""
+    child: PhysNode = None
+    keys: list[E.Expr] = dataclasses.field(default_factory=list)
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class Broadcast(PhysNode):
+    """Replicate child output to all datanodes (FragmentSendTupleBroadcast
+    analog; all_gather on TPU)."""
+    child: PhysNode = None
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class Gather(PhysNode):
+    """Collect child output on the coordinator (device->host stream)."""
+    child: PhysNode = None
+    sort_keys: list[tuple[E.Expr, bool]] = dataclasses.field(
+        default_factory=list)   # merge-sorted gather (SimpleSort analog)
+    one: bool = False           # replicated child: read a single node
+    limit: Optional[int] = None  # per-DN top-k cut before shipping
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class Append(PhysNode):
+    """Concatenate children with positionally-aligned columns (set ops,
+    partition append — reference nodeAppend.c)."""
+    inputs: list[PhysNode] = dataclasses.field(default_factory=list)
+
+    def children(self):
+        return list(self.inputs)
+
+
+@dataclasses.dataclass
+class IndexScan(PhysNode):
+    """Point/range scan through a btree-equivalent sorted index
+    (reference: nbtree + ExecIndexScan): host binary search selects the
+    candidate rows, only those stage to device; the full filter list
+    re-verifies on the staged subset (bounds are a pre-selection)."""
+    table: object = None
+    alias: str = ""
+    key_col: str = ""          # plain column name
+    lo: object = None          # storage-representation bounds
+    hi: object = None
+    lo_strict: bool = False
+    hi_strict: bool = False
+    filters: list = dataclasses.field(default_factory=list)
+    outputs: list = dataclasses.field(default_factory=list)
+
+    def title(self):
+        return f"IndexScan {self.table.name} as {self.alias} " \
+               f"key={self.key_col}"
+
+
+@dataclasses.dataclass
+class Window(PhysNode):
+    """Window-function computation: adds one column per call, rows
+    pass through (reference: nodeWindowAgg.c — sorted partitions,
+    per-frame aggregation; here sort + segment scans in one kernel)."""
+    child: Optional[PhysNode] = None
+    calls: list = dataclasses.field(default_factory=list)
+    # [(output name, E.WindowCall)]
+
+    def children(self):
+        return [self.child]
+
+    def title(self):
+        return f"Window calls={len(self.calls)}"
+
+
+@dataclasses.dataclass
+class SetOp(PhysNode):
+    """INTERSECT / EXCEPT [ALL] over two positionally-aligned inputs
+    (reference: nodeSetOp.c — hashed set-op counting per input side)."""
+    inputs: list[PhysNode] = dataclasses.field(default_factory=list)
+    op: str = "intersect"          # 'intersect' | 'except'
+    all: bool = False
+    names: list[str] = dataclasses.field(default_factory=list)
+    types: list = dataclasses.field(default_factory=list)
+
+    def children(self):
+        return list(self.inputs)
+
+    def title(self):
+        return f"SetOp {self.op}{' all' if self.all else ''}"
+
+
+@dataclasses.dataclass
+class AnnSearch(PhysNode):
+    """Top-k nearest-neighbor scan over a VECTOR column (pgvector's
+    `ORDER BY vec <-> q LIMIT k` IVFFlat/seq path as one fused node)."""
+    table: TableDef = None
+    alias: str = ""
+    filters: list[E.Expr] = dataclasses.field(default_factory=list)
+    outputs: list[tuple[str, E.Expr]] = dataclasses.field(
+        default_factory=list)
+    vec_col: str = ""            # qualified column name
+    metric: str = "l2"
+    query: tuple = ()
+    k: int = 10
+    dist_name: str = "__dist"    # emitted distance column
+
+    def title(self):
+        return (f"AnnSearch {self.table.name} {self.metric} "
+                f"k={self.k}")
+
+
+@dataclasses.dataclass
+class Result(PhysNode):
+    """Constant/empty-input result (SELECT without FROM)."""
+    outputs: list[tuple[str, E.Expr]] = dataclasses.field(default_factory=list)
+
+
+def explain(node: PhysNode, indent: int = 0, out: Optional[list] = None,
+            annotate=None) -> str:
+    """Render a plan tree.  ``annotate(node) -> str`` (optional)
+    appends per-node text — EXPLAIN ANALYZE actual rows/timings."""
+    top = out is None
+    if out is None:
+        out = []
+    extra = annotate(node) if annotate is not None else ""
+    out.append("  " * indent + ("-> " if indent else "")
+               + node.title() + (extra or ""))
+    for c in node.children():
+        if c is not None:
+            explain(c, indent + 1, out, annotate)
+    return "\n".join(out) if top else ""

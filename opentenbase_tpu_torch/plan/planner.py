@@ -1,0 +1,1054 @@
+"""Planner: BoundQuery -> physical plan.
+
+Reference analog: src/backend/optimizer (standard_planner path) plus the XC
+distributed planning in src/backend/pgxc/plan/planner.c and
+optimizer/util/pgxcship.c.  This module covers the single-fragment (local)
+plan shape; distribution decisions (FQS vs fragments with exchanges) are
+layered on in plan/distribute.py.
+
+Subquery strategy (the reference's v2.2 headline feature was exactly this
+rewrite family — "subquery -> correlated query rewrite + DN pushdown"):
+- EXISTS / IN (subquery)           -> semi / anti HashJoin
+- uncorrelated scalar subquery     -> init plan (executed once, substituted)
+- correlated scalar aggregate      -> decorrelation: grouped derived table
+                                      joined on the correlation keys
+Join order: greedy connection-aware ordering over the equi-join conjunct
+graph (no cross joins unless forced), left-deep, new table as build side.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Optional
+
+import numpy as np
+
+from ..catalog.catalog import Catalog
+from ..catalog import types as T
+from ..catalog.types import TypeKind
+from . import exprs as E
+from . import physical as P
+from .query import BoundQuery, JoinStep, RTE, SubLink
+
+
+class PlanError(Exception):
+    pass
+
+
+@dataclasses.dataclass
+class InitPlan:
+    name: str
+    plan: P.PhysNode
+    type: T.SqlType
+
+
+@dataclasses.dataclass
+class PlannedStmt:
+    plan: P.PhysNode
+    init_plans: list[InitPlan]
+    output_names: list[str]
+    # join order the planner chose for the main query (alias sequence)
+    # — what an SPM baseline captures (optimizer/spm/spm.c semantics)
+    join_order_chosen: list = dataclasses.field(default_factory=list)
+
+
+# ---------------------------------------------------------------------------
+# expression utilities
+# ---------------------------------------------------------------------------
+
+def expr_cols(e: E.Expr) -> set[str]:
+    out = set()
+    for x in E.walk(e):
+        if isinstance(x, E.Col):
+            out.add(x.name)
+    return out
+
+
+def rewrite(e: E.Expr, fn) -> E.Expr:
+    """Bottom-up rewrite; fn(node) returns replacement or None."""
+    def rec(x: E.Expr) -> E.Expr:
+        r = fn(x)
+        if r is not None:
+            return r
+        if isinstance(x, E.Arith):
+            return E.Arith(x.op, rec(x.left), rec(x.right))
+        if isinstance(x, E.Neg):
+            return E.Neg(rec(x.arg))
+        if isinstance(x, E.Cmp):
+            return E.Cmp(x.op, rec(x.left), rec(x.right))
+        if isinstance(x, E.BoolOp):
+            return E.BoolOp(x.op, tuple(rec(a) for a in x.args))
+        if isinstance(x, E.Not):
+            return E.Not(rec(x.arg))
+        if isinstance(x, E.Case):
+            return E.Case(tuple((rec(c), rec(v)) for c, v in x.whens),
+                          rec(x.else_) if x.else_ is not None else None,
+                          x.case_type)
+        if isinstance(x, E.InList):
+            return E.InList(rec(x.arg), x.values)
+        if isinstance(x, E.Extract):
+            return E.Extract(x.field, rec(x.arg))
+        if isinstance(x, E.Cast):
+            return E.Cast(rec(x.arg), x.to)
+        if isinstance(x, E.AggCall):
+            return E.AggCall(x.func, rec(x.arg) if x.arg is not None
+                             else None, x.distinct)
+        if isinstance(x, E.WindowCall):
+            return E.WindowCall(
+                x.func, rec(x.arg) if x.arg is not None else None,
+                tuple(rec(p) for p in x.partition),
+                tuple((rec(o), d) for o, d in x.order),
+                x.offset,
+                rec(x.default) if x.default is not None else None,
+                x.frame)
+        if isinstance(x, E.Coalesce):
+            return E.Coalesce(tuple(rec(a) for a in x.args), x.out_type)
+        if isinstance(x, E.NullIf):
+            return E.NullIf(rec(x.left), rec(x.right))
+        if isinstance(x, E.IsNull):
+            return E.IsNull(rec(x.arg), x.negated)
+        return x
+    return rec(e)
+
+
+def _hoist_or_common(q: E.Expr) -> list[E.Expr]:
+    """(a AND x AND ...) OR (a AND y AND ...) -> [a, (x... OR y...)]."""
+    if not (isinstance(q, E.BoolOp) and q.op == "or" and len(q.args) > 1):
+        return [q]
+    from ..sql.analyze import split_conjuncts
+    branch_sets = [split_conjuncts(a) for a in q.args]
+    common = [c for c in branch_sets[0]
+              if all(any(c == d for d in bs) for bs in branch_sets[1:])]
+    if not common:
+        return [q]
+    rest_branches = []
+    for bs in branch_sets:
+        rest = [d for d in bs if not any(d == c for c in common)]
+        if not rest:
+            return common  # one branch fully covered: OR is implied true
+        rest_branches.append(rest[0] if len(rest) == 1
+                             else E.BoolOp("and", tuple(rest)))
+    return common + [E.BoolOp("or", tuple(rest_branches))]
+
+
+def _strpred_plain(p: E.StrPred) -> str:
+    c = p.col.col if isinstance(p.col, E.TextExpr) else p.col
+    return c.name.split(".", 1)[-1]
+
+
+def _is_equi_pair(e: E.Expr):
+    """conjunct of form Col = Col -> (left_col, right_col) exprs."""
+    if isinstance(e, E.Cmp) and e.op == "=" \
+            and isinstance(e.left, E.Col) and isinstance(e.right, E.Col):
+        return e.left, e.right
+    return None
+
+
+# ---------------------------------------------------------------------------
+# planner
+# ---------------------------------------------------------------------------
+
+class Planner:
+    def __init__(self, catalog: Catalog):
+        self.catalog = catalog
+        self._ip_counter = itertools.count()
+
+    # -- public ------------------------------------------------------------
+    def plan(self, bq, forced_order=None) -> PlannedStmt:
+        from .query import BoundSetOp
+        init_plans: list[InitPlan] = []
+        if isinstance(bq, BoundSetOp):
+            plan, names = self._plan_setop(bq, init_plans)
+            return PlannedStmt(plan, init_plans, names)
+        self._forced_order = list(forced_order) if forced_order else None
+        self._order_chosen: list = []
+        self._pq_calls = 0
+        plan = self._plan_query(bq, init_plans)
+        # a baseline is only trustworthy for single-query statements:
+        # subqueries plan through the same walk and would interleave
+        # their join order into the capture (and could wrongly consume
+        # a forced order meant for the main query)
+        chosen = self._order_chosen if self._pq_calls == 1 else []
+        return PlannedStmt(plan, init_plans,
+                           [n for n, _ in bq.targets],
+                           join_order_chosen=chosen)
+
+    def _plan_setop(self, so, init_plans):
+        from .query import BoundSetOp
+
+        def child_plan(c):
+            if isinstance(c, BoundSetOp):
+                p, names_, = self._plan_setop(c, init_plans)
+                return p, names_, c.target_types
+            p = self._plan_query(c, init_plans)
+            return p, [n for n, _ in c.targets], [e.type for _, e
+                                                  in c.targets]
+
+        names = so.target_names
+        inputs = []
+        for child in (so.left, so.right):
+            p, cnames, ctypes = child_plan(child)
+            # positional rename onto the combined output names, coercing
+            # decimal scales so appended values share a representation
+            outs = []
+            for i in range(len(names)):
+                e = E.Col(cnames[i], ctypes[i])
+                t = so.target_types[i]
+                if ctypes[i].kind == TypeKind.NULL \
+                        and t.kind != TypeKind.NULL:
+                    # an all-NULL branch column (grouping-sets expansion)
+                    # takes the combined type so TEXT decode/dict merge
+                    # and numeric widths line up across branches
+                    e = E.Lit(None, t)
+                elif t.kind == ctypes[i].kind and \
+                        t.scale != ctypes[i].scale:
+                    e = E.Cast(e, t)
+                outs.append((names[i], e))
+            inputs.append(P.Project(p, outs))
+        if so.op in ("intersect", "except"):
+            plan = P.SetOp(inputs=inputs, op=so.op, all=so.all,
+                           names=list(names),
+                           types=list(so.target_types))
+        else:
+            plan = P.Append(inputs=inputs)
+            if not so.all:
+                plan = P.Agg(plan, [(n, E.Col(n, t)) for n, t in
+                                    zip(names, so.target_types)], [],
+                             "single")
+        if so.order_by:
+            keys = [(E.Col(names[i], so.target_types[i]), desc)
+                    for i, desc in so.order_by]
+            plan = P.Sort(plan, keys,
+                          (so.limit + so.offset)
+                          if so.limit is not None else None)
+        if so.limit is not None or so.offset:
+            plan = P.Limit(plan, so.limit, so.offset)
+        return plan, names
+
+    # -- query planning ----------------------------------------------------
+    def _plan_query(self, bq: BoundQuery,
+                    init_plans: list[InitPlan]) -> P.PhysNode:
+        self._pq_calls = getattr(self, "_pq_calls", 0) + 1
+        bq = self._rewrite_sublinks(bq, init_plans)
+
+        # classify conjuncts
+        rte_cols = {}
+        for rte in bq.rtable:
+            rte_cols[rte.alias] = {q for q, _ in rte.columns.values()}
+        semijoins = getattr(bq, "_semijoins", [])
+
+        scan_filters: dict[str, list[E.Expr]] = {r.alias: [] for r in bq.rtable}
+        join_edges: list[tuple[str, str, E.Expr, E.Expr]] = []
+        residual: list[E.Expr] = []
+
+        def owner_of(cols: set[str]) -> Optional[str]:
+            owners = {a for a, cs in rte_cols.items() if cols & cs}
+            if len(owners) == 1:
+                return owners.pop()
+            return None
+
+        # factor conjuncts common to every OR branch (TPC-H Q19: the join
+        # key equality lives inside each bracket) — the reference optimizer
+        # does the same via extract_restriction_or_clauses
+        where = []
+        for q in bq.where:
+            where.extend(_hoist_or_common(q))
+
+        all_cols = set()
+        for cs_ in rte_cols.values():
+            all_cols |= cs_
+        param_filters = []   # reference no table column (init-plan probes)
+
+        # WHERE quals touching the NULL-EXTENDED side of an outer join
+        # must filter the JOIN OUTPUT: pushed into the scan they would
+        # run before null-extension (a row failing them comes back as a
+        # null-extended row), and as join residual they would get ON
+        # semantics.  (Reference: reduce_outer_joins/qual placement in
+        # initsplan.c — PG pushes only after proving strictness and
+        # converting the join to inner; we keep the join and filter
+        # above, which is always correct.)
+        nullable_side: set[str] = set()
+        for st_ in bq.join_order:
+            if st_.kind == "left":
+                nullable_side.add(bq.rtable[st_.rte_index].alias)
+            elif st_.kind == "full":
+                nullable_side = set(rte_cols)
+                break
+        nullable_cols = set()
+        for a in nullable_side:
+            nullable_cols |= rte_cols[a]
+        post_filters: list[E.Expr] = []
+
+        for q in where:
+            cols = expr_cols(q)
+            if not (cols & all_cols):
+                param_filters.append(q)
+                continue
+            if cols & nullable_cols:
+                post_filters.append(q)
+                continue
+            own = owner_of(cols)
+            if own is not None:
+                scan_filters[own].append(q)
+                continue
+            pair = _is_equi_pair(q)
+            if pair is not None:
+                lo = owner_of({pair[0].name})
+                ro = owner_of({pair[1].name})
+                if lo and ro and lo != ro:
+                    join_edges.append((lo, ro, pair[0], pair[1]))
+                    continue
+            residual.append(q)
+
+        # build scans
+        scans: dict[str, P.PhysNode] = {}
+        for rte in bq.rtable:
+            scans[rte.alias] = self._plan_rte(rte, scan_filters[rte.alias],
+                                              init_plans)
+
+        plan, avail = self._join_tables(bq, scans, rte_cols, join_edges,
+                                        residual, semijoins, init_plans)
+
+        # leftover residual quals
+        still = [q for q in residual if not expr_cols(q) <= avail]
+        if still:
+            raise PlanError(f"unplaceable predicates: {still}")
+        if post_filters:
+            missing = [q for q in post_filters
+                       if not expr_cols(q) <= avail]
+            if missing:
+                raise PlanError(f"unplaceable predicates: {missing}")
+            plan = P.Filter(plan, post_filters)
+        if param_filters:
+            plan = P.Filter(plan, param_filters)
+
+        # aggregation / projection
+        plan, out_names = self._plan_agg_project(bq, plan)
+        return plan
+
+    # -- RTE scan ----------------------------------------------------------
+    def _plan_rte(self, rte: RTE, filters, init_plans) -> P.PhysNode:
+        if rte.kind == "table":
+            # scan emits qualified names
+            outputs = [(q, E.Col(q, t)) for _, (q, t) in rte.columns.items()]
+            scan = self._try_index_scan(rte, filters, outputs)
+            if scan is None:
+                scan = P.SeqScan(rte.table, rte.alias, filters, outputs)
+            # estimate rides on the node for the distributed planner's
+            # broadcast-vs-redistribute choice
+            scan.est_rows = self._est_scan(rte, filters)
+            return scan
+        from .query import BoundSetOp
+        if isinstance(rte.subquery, BoundSetOp):
+            sub, _names = self._plan_setop(rte.subquery, init_plans)
+        else:
+            sub = self._plan_query(rte.subquery, init_plans)
+        return _RenameHelper.wrap(sub, rte, filters)
+
+    def _try_index_scan(self, rte: RTE, filters,
+                        outputs) -> Optional[P.PhysNode]:
+        """Rewrite a scan into an IndexScan when a filter bounds an
+        indexed column (reference: create_index_paths +
+        ExecIndexBuildScanKeys).  Bounds are converted into the storage
+        representation; the filter list stays intact and re-verifies."""
+        indexed = self.catalog.btree_cols.get(rte.table.name) or set()
+        if not indexed:
+            return None
+        best = None
+        for q in filters:
+            if not (isinstance(q, E.Cmp) and isinstance(q.left, E.Col)
+                    and isinstance(q.right, E.Lit)
+                    and q.right.value is not None):
+                continue
+            plain = q.left.name.split(".", 1)[-1]
+            if plain not in indexed:
+                continue
+            col = rte.table.column(plain)
+            if col.type.kind == TypeKind.TEXT:
+                continue   # codes are unordered; text btree is a follow-up
+            v = self._storage_bound(col.type, q.right)
+            if v is None:
+                continue
+            b = best
+            if b is None:
+                b = {"col": plain, "lo": None, "hi": None,
+                     "lo_strict": False, "hi_strict": False}
+            elif b["col"] != plain:
+                continue    # one index per scan for now
+            op = q.op
+            if op == "=":
+                b["lo"] = v if b["lo"] is None else max(b["lo"], v)
+                b["hi"] = v if b["hi"] is None else min(b["hi"], v)
+            elif op in (">", ">="):
+                if b["lo"] is None or v >= b["lo"]:
+                    b["lo"], b["lo_strict"] = v, (op == ">")
+            elif op in ("<", "<="):
+                if b["hi"] is None or v <= b["hi"]:
+                    b["hi"], b["hi_strict"] = v, (op == "<")
+            else:
+                continue
+            best = b
+        if best is None or (best["lo"] is None and best["hi"] is None):
+            return None
+        return P.IndexScan(rte.table, rte.alias, best["col"],
+                           best["lo"], best["hi"], best["lo_strict"],
+                           best["hi_strict"], filters, outputs)
+
+    @staticmethod
+    def _storage_bound(ct, lit: E.Lit):
+        """Literal -> the column's storage representation for index
+        comparison; None when not convertible."""
+        from ..catalog import types as T
+        v, lt = lit.value, lit.lit_type
+        k = ct.kind
+        try:
+            if k == TypeKind.DECIMAL:
+                if lt.kind == TypeKind.DECIMAL:
+                    diff = ct.scale - lt.scale
+                    return int(v) * 10 ** diff if diff >= 0 else \
+                        int(v) / 10 ** (-diff)
+                if isinstance(v, (int, np.integer)):
+                    return int(v) * 10 ** ct.scale
+                return T.decimal_to_int(str(v), ct.scale)
+            if k == TypeKind.DATE:
+                return T.date_to_days(v) if isinstance(v, str) else int(v)
+            if k == TypeKind.FLOAT64:
+                if lt.kind == TypeKind.DECIMAL:
+                    return int(v) / 10 ** lt.scale
+                return float(v)
+            if k in (TypeKind.INT32, TypeKind.INT64):
+                if lt.kind == TypeKind.DECIMAL:
+                    # fractional bound against an int column: keep the
+                    # float (searchsorted handles mixed compare)
+                    return int(v) / 10 ** lt.scale if lt.scale else int(v)
+                return int(v)
+        except (TypeError, ValueError):
+            return None
+        return None
+
+    # -- statistics / cost estimation --------------------------------------
+    DEFAULT_ROWS = 1000.0
+
+    def _table_stats(self, rte: RTE) -> Optional[dict]:
+        if rte.kind != "table":
+            return None
+        return self.catalog.stats.get(rte.table.name)
+
+    def _est_scan(self, rte: RTE, filters) -> Optional[float]:
+        """Estimated scan output rows, or None without ANALYZE stats
+        (reference: costsize.c set_baserel_size_estimates +
+        clause_selectivity)."""
+        st = self._table_stats(rte)
+        if st is None:
+            return None
+        rows = float(max(st["rows"], 1))
+        for q in filters:
+            sel = 0.33
+            if isinstance(q, E.Cmp) and isinstance(q.left, E.Col) \
+                    and isinstance(q.right, E.Lit):
+                plain = q.left.name.split(".", 1)[-1]
+                cst = st["cols"].get(plain)
+                if q.op == "=":
+                    sel = 1.0 / max(cst["ndv"], 1) if cst else 0.1
+                elif cst and cst.get("min") is not None and \
+                        q.op in ("<", "<=", ">", ">="):
+                    v = self._storage_bound(
+                        rte.table.column(plain).type, q.right)
+                    if v is not None:
+                        hist = cst.get("hist")
+                        if hist:
+                            # equi-depth quantile interpolation: each
+                            # bucket holds 1/(len-1) of the rows, so
+                            # the bound's insertion position IS the
+                            # cumulative fraction (skew-robust;
+                            # reference: ineq_histogram_selectivity)
+                            import numpy as _np
+                            frac = float(
+                                _np.searchsorted(_np.asarray(hist),
+                                                 float(v))
+                                / (len(hist) - 1))
+                        else:
+                            span = max(cst["max"] - cst["min"], 1e-9)
+                            frac = (float(v) - cst["min"]) / span
+                        frac = min(max(frac, 0.0), 1.0)
+                        sel = frac if q.op in ("<", "<=") else 1.0 - frac
+            elif isinstance(q, E.StrPred):
+                cst = st["cols"].get(_strpred_plain(q))
+                if q.kind in ("eq", "in"):
+                    k = len(q.patterns)
+                    sel = k / max(cst["ndv"], 1) if cst else 0.1
+                elif q.kind in ("like",):
+                    sel = 0.1
+                else:
+                    sel = 0.33
+            elif isinstance(q, E.InList):
+                sel = 0.2
+            rows *= max(sel, 1e-6)
+        return max(rows, 1.0)
+
+    def _edge_ndv(self, expr: E.Expr, alias_rtes: dict) -> float:
+        if isinstance(expr, E.Col) and "." in expr.name:
+            alias, plain = expr.name.split(".", 1)
+            rte = alias_rtes.get(alias)
+            st = self._table_stats(rte) if rte is not None else None
+            if st and plain in st["cols"]:
+                return float(max(st["cols"][plain]["ndv"], 1))
+        return 0.0
+
+    # -- join ordering -----------------------------------------------------
+    def _join_tables(self, bq, scans, rte_cols, join_edges, residual,
+                     semijoins, init_plans):
+        order = [s.rte_index for s in bq.join_order]
+        aliases = [bq.rtable[i].alias for i in order]
+        outer_steps = {bq.rtable[s.rte_index].alias: s
+                       for s in bq.join_order if s.kind in ("left",
+                                                            "full")}
+        alias_rtes = {bq.rtable[i].alias: bq.rtable[i] for i in order}
+
+        joined: list[str] = []
+        plan: Optional[P.PhysNode] = None
+        avail: set[str] = set()
+        remaining = list(aliases)
+
+        def edges_between(cand: str):
+            out = []
+            for lo, ro, le, re_ in join_edges:
+                if ro == cand and lo in joined:
+                    out.append((le, re_))
+                elif lo == cand and ro in joined:
+                    out.append((re_, le))
+            return out
+
+        # cost mode needs every base table ANALYZEd (reference:
+        # costsize.c falls back to defaults; we fall back to the greedy
+        # FROM-order walk, the round-1 behavior)
+        base_est = {a: self._est_scan(alias_rtes[a],
+                                      getattr(scans[a], "filters", []))
+                    for a in aliases}
+        cost_mode = all(v is not None for v in base_est.values()) \
+            and len(aliases) > 1
+        cur_est = 0.0
+
+        def join_est(cand: str) -> float:
+            edges = edges_between(cand)
+            if not edges:
+                return cur_est * base_est[cand]  # cross
+            sel = 1.0
+            for le, re_ in edges:
+                ndv = max(self._edge_ndv(le, alias_rtes),
+                          self._edge_ndv(re_, alias_rtes))
+                if ndv <= 0:
+                    ndv = max(cur_est, base_est[cand], 1.0)
+                sel *= 1.0 / ndv
+            return max(cur_est * base_est[cand] * sel, 1.0)
+
+        forced = list(getattr(self, "_forced_order", None) or [])
+        if forced and (set(forced) != set(aliases) or outer_steps
+                       or semijoins):
+            forced = []          # stale/ineligible baseline: ignore
+        while remaining:
+            cand = None
+            if forced:
+                cand = forced[len(joined)]
+            # outer joins are not reorderable past inner candidates:
+            # take the next FROM-order outer step as soon as it appears
+            elif remaining[0] in outer_steps and plan is not None:
+                cand = remaining[0]
+            elif cost_mode and plan is None:
+                # starting table = one side of the cheapest join pair
+                # (Selinger's level-2 seed, costsize.c-style)
+                best_cost = None
+                for lo_a, ro_a, le, re_ in join_edges:
+                    if lo_a in outer_steps or ro_a in outer_steps:
+                        continue
+                    ndv = max(self._edge_ndv(le, alias_rtes),
+                              self._edge_ndv(re_, alias_rtes)) or \
+                        max(base_est[lo_a], base_est[ro_a], 1.0)
+                    c = base_est[lo_a] * base_est[ro_a] / ndv
+                    if best_cost is None or c < best_cost:
+                        best_cost = c
+                        cand = lo_a if base_est[lo_a] >= base_est[ro_a] \
+                            else ro_a
+            elif cost_mode and plan is not None:
+                best_cost = None
+                for a in remaining:
+                    if a in outer_steps:
+                        continue
+                    if not edges_between(a) and len(remaining) > 1:
+                        continue   # delay cross joins
+                    c = join_est(a)
+                    if best_cost is None or c < best_cost:
+                        best_cost, cand = c, a
+            if cand is None:
+                for a in remaining:
+                    # an outer step may only fire in FROM order — its
+                    # null-preserved left side must already be joined
+                    if plan is None or edges_between(a) \
+                            or (a in outer_steps and a == remaining[0]):
+                        cand = a
+                        break
+            if cand is None:
+                cand = remaining[0]      # forced cross join
+            remaining.remove(cand)
+            joined_order = getattr(self, "_order_chosen", None)
+            if joined_order is not None:
+                joined_order.append(cand)
+            if cost_mode:
+                cur_est = base_est[cand] if plan is None \
+                    else join_est(cand)
+            right = scans[cand]
+            if plan is None:
+                plan = right
+            else:
+                step = outer_steps.get(cand)
+                if step is not None:
+                    lk, rk, res = self._outer_keys(step.on, avail,
+                                                   rte_cols[cand])
+                    if step.kind == "full" and res:
+                        raise PlanError("FULL JOIN supports only "
+                                        "equi-key ON conditions")
+                    plan = P.HashJoin(plan, right, lk, rk, step.kind,
+                                      res)
+                else:
+                    edges = edges_between(cand)
+                    if edges:
+                        lk = [le for le, _ in edges]
+                        rk = [re_ for _, re_ in edges]
+                        plan = P.HashJoin(plan, right, lk, rk, "inner", [])
+                    else:
+                        plan = P.HashJoin(plan, right, [], [], "cross", [])
+            joined.append(cand)
+            avail |= rte_cols[cand]
+            # attach residual quals that just became evaluable
+            now = [q for q in residual if expr_cols(q) <= avail]
+            for q in now:
+                residual.remove(q)
+                plan = P.Filter(plan, [q])
+            # attach semi/anti joins whose outer cols are now available
+            for sj in list(semijoins):
+                if sj["outer_cols"] <= avail:
+                    semijoins.remove(sj)
+                    plan = P.HashJoin(plan, sj["plan"], sj["outer_keys"],
+                                      sj["inner_keys"], sj["kind"],
+                                      sj["residual"])
+        if plan is None:
+            plan = P.Result(outputs=[])
+        return plan, avail
+
+    def _outer_keys(self, on: E.Expr, avail: set[str], right_cols: set[str]):
+        from ..sql.analyze import split_conjuncts
+        lk, rk, res = [], [], []
+        for q in split_conjuncts(on):
+            pair = _is_equi_pair(q)
+            if pair is not None:
+                a, b = pair
+                if a.name in avail and b.name in right_cols:
+                    lk.append(a)
+                    rk.append(b)
+                    continue
+                if b.name in avail and a.name in right_cols:
+                    lk.append(b)
+                    rk.append(a)
+                    continue
+            res.append(q)
+        if not lk:
+            raise PlanError("outer join requires at least one equi-key")
+        return lk, rk, res
+
+    # -- sublink rewrites --------------------------------------------------
+    def _rewrite_sublinks(self, bq: BoundQuery,
+                          init_plans: list[InitPlan]) -> BoundQuery:
+        semijoins = []
+        new_where = []
+
+        def scalar_replacement(sl: SubLink) -> E.Expr:
+            if sl.query.correlated_cols:
+                return self._decorrelate_scalar(sl, bq, init_plans)
+            name = f"__initplan{next(self._ip_counter)}"
+            sub = self._plan_query(sl.query, init_plans)
+            t = sl.query.targets[0][1].type
+            init_plans.append(InitPlan(name, sub, t))
+            return E.Col(name, t)
+
+        def rewrite_scalars(e: E.Expr) -> E.Expr:
+            return rewrite(e, lambda x: scalar_replacement(x)
+                           if isinstance(x, SubLink)
+                           and x.link_kind == "scalar" else None)
+
+        def uncorrelated_exists(sl: SubLink) -> E.Expr:
+            """EXISTS with no outer reference: one-row init plan probing
+            whether any row exists, folded to a boolean."""
+            probe = dataclasses.replace(
+                sl.query, targets=[("__one", E.Lit(1, T.INT64))],
+                group_by=[], having=[], order_by=[], limit=1, offset=None)
+            name = f"__initplan{next(self._ip_counter)}"
+            init_plans.append(InitPlan(name, self._plan_query(probe,
+                                                              init_plans),
+                                       T.INT64))
+            op = "<>" if sl.negated else "="
+            return E.Cmp(op, E.Col(name, T.INT64), E.Lit(1, T.INT64))
+
+        for q in bq.where:
+            if isinstance(q, E.Not) and isinstance(q.arg, SubLink) \
+                    and q.arg.link_kind in ("exists", "in"):
+                q = SubLink(q.arg.link_kind, q.arg.query, q.arg.test_expr,
+                            q.arg.cmp_op, not q.arg.negated)
+            if isinstance(q, SubLink) and q.link_kind in ("exists", "in"):
+                if q.link_kind == "exists" and not q.query.correlated_cols:
+                    new_where.append(uncorrelated_exists(q))
+                    continue
+                sj = self._sublink_to_semijoin(q, init_plans)
+                semijoins.append(sj)
+                new_where.extend(sj.pop("extra_quals"))
+                continue
+            new_where.append(rewrite_scalars(q))
+
+        bq = dataclasses.replace(bq, where=new_where)
+        bq.targets = [(n, rewrite_scalars(e)) for n, e in bq.targets]
+        bq.having = [rewrite_scalars(e) for e in bq.having]
+        bq._semijoins = semijoins
+        return bq
+
+    def _sublink_to_semijoin(self, sl: SubLink, init_plans) -> dict:
+        sub = sl.query
+        kind = "anti" if sl.negated else "semi"
+        outer_keys: list[E.Expr] = []
+        inner_keys: list[E.Expr] = []
+        residual: list[E.Expr] = []
+        extra_quals: list[E.Expr] = []
+
+        if sl.link_kind == "in":
+            if sub.correlated_cols:
+                raise PlanError("correlated IN subquery unsupported")
+            if len(sub.targets) != 1:
+                raise PlanError("IN subquery must return one column")
+            tname, texpr = sub.targets[0]
+            outer_keys.append(sl.test_expr)
+            inner_keys.append(E.Col(f"__sub.{tname}", texpr.type))
+            if kind == "anti":
+                # SQL 3VL NOT IN: x NOT IN (S) is TRUE only when S is
+                # empty, or x IS NOT NULL ∧ S has no NULL ∧ no match
+                # (reference: the negated ANY sublink semantics of
+                # ExecScanSubPlan / nodeSubplan.c — a NULL on either
+                # side makes the result UNKNOWN, filtered like FALSE).
+                # Two scalar init plans probe |S| and |S ∩ NULL|; the
+                # anti join itself runs over the NULL-free inner rows so
+                # canonicalized NULL keys can never hash-match.
+                total = self._count_initplan(sub, tname, texpr.type,
+                                             only_null=False,
+                                             init_plans=init_plans)
+                nnull = self._count_initplan(sub, tname, texpr.type,
+                                             only_null=True,
+                                             init_plans=init_plans)
+                extra_quals.append(E.BoolOp("or", (
+                    E.Cmp("=", E.Col(total, T.INT64), E.Lit(0, T.INT64)),
+                    E.BoolOp("and", (
+                        E.IsNull(sl.test_expr, negated=True),
+                        E.Cmp("=", E.Col(nnull, T.INT64),
+                              E.Lit(0, T.INT64)))))))
+                sub = self._filter_null_keys(sub, tname, texpr.type)
+            inner_plan = self._plan_query(sub, init_plans)
+            inner_plan = _rename_outputs(inner_plan, sub, "__sub")
+        else:  # exists
+            corr = set(sub.correlated_cols)
+            if not corr:
+                raise PlanError("uncorrelated EXISTS unsupported (use limit)")
+            inner_where = []
+            for q in sub.where:
+                pair = _is_equi_pair(q)
+                if pair is not None:
+                    a, b = pair
+                    if a.name in corr and b.name not in corr:
+                        outer_keys.append(a)
+                        inner_keys.append(b)
+                        continue
+                    if b.name in corr and a.name not in corr:
+                        outer_keys.append(b)
+                        inner_keys.append(a)
+                        continue
+                cols = expr_cols(q)
+                if cols & corr:
+                    residual.append(q)   # evaluated over joined pairs
+                    continue
+                inner_where.append(q)
+            if not outer_keys:
+                raise PlanError("EXISTS without equality correlation "
+                                "unsupported")
+            sub2 = dataclasses.replace(sub, where=inner_where,
+                                       targets=self._exists_targets(
+                                           sub, inner_keys, residual))
+            inner_plan = self._plan_query(sub2, init_plans)
+
+        return {"kind": kind, "plan": inner_plan,
+                "outer_keys": outer_keys, "inner_keys": inner_keys,
+                "residual": residual, "extra_quals": extra_quals,
+                "outer_cols": set().union(*(expr_cols(k)
+                                            for k in outer_keys))}
+
+    def _derived_rte(self, sub: BoundQuery, alias: str) -> RTE:
+        return RTE(alias, "subquery", subquery=sub,
+                   columns={n: (f"{alias}.{n}", e.type)
+                            for n, e in sub.targets})
+
+    def _count_initplan(self, sub: BoundQuery, key: str, key_t,
+                        only_null: bool, init_plans) -> str:
+        """Scalar init plan counting the IN-subquery's rows (optionally
+        only its NULL keys), via a derived-table wrap so grouped
+        subqueries count groups, not input rows."""
+        import copy
+        alias = f"__nin{next(self._ip_counter)}"
+        rte = self._derived_rte(copy.deepcopy(sub), alias)
+        where = [E.IsNull(E.Col(f"{alias}.{key}", key_t))] \
+            if only_null else []
+        probe = BoundQuery(rtable=[rte], join_order=[JoinStep(0, "inner")],
+                           where=where,
+                           targets=[("__c", E.AggCall("count", None))],
+                           group_by=[], having=[], order_by=[])
+        name = f"__initplan{next(self._ip_counter)}"
+        init_plans.append(InitPlan(name, self._plan_query(probe,
+                                                          init_plans),
+                                   T.INT64))
+        return name
+
+    def _filter_null_keys(self, sub: BoundQuery, key: str,
+                          key_t) -> BoundQuery:
+        """NULL-free view of an IN subquery for the anti-join build side."""
+        alias = f"__ninf{next(self._ip_counter)}"
+        rte = self._derived_rte(sub, alias)
+        return BoundQuery(
+            rtable=[rte], join_order=[JoinStep(0, "inner")],
+            where=[E.IsNull(E.Col(f"{alias}.{key}", key_t),
+                            negated=True)],
+            targets=[(key, E.Col(f"{alias}.{key}", key_t))],
+            group_by=[], having=[], order_by=[])
+
+    def _exists_targets(self, sub: BoundQuery, inner_keys, residual):
+        """EXISTS subquery: project the join keys + any inner columns the
+        residual quals need."""
+        needed = {}
+        for k in inner_keys:
+            for c in expr_cols(k):
+                needed[c] = k.type if isinstance(k, E.Col) else T.INT64
+        for q in residual:
+            for x in E.walk(q):
+                if isinstance(x, E.Col):
+                    needed.setdefault(x.name, x.col_type)
+        corr = set(sub.correlated_cols)
+        return [(qname, E.Col(qname, t)) for qname, t in needed.items()
+                if qname not in corr]
+
+    def _decorrelate_scalar(self, sl: SubLink, outer_bq: BoundQuery,
+                            init_plans) -> E.Expr:
+        """Correlated scalar aggregate -> grouped derived table + join.
+
+        select ... where expr OP (select AGG(x) from T where T.k = outer.k
+        and quals)  becomes  derived = select T.k, AGG(x) from T where quals
+        group by T.k, joined on derived.k = outer.k; OP compares against
+        the agg column.  (The reference implements this family of rewrites
+        in its optimizer; v2.2 release note lines 3-4.)
+        """
+        sub = sl.query
+        corr = set(sub.correlated_cols)
+        inner_where, outer_keys, inner_keys = [], [], []
+        for q in sub.where:
+            pair = _is_equi_pair(q)
+            if pair is not None:
+                a, b = pair
+                if a.name in corr and b.name not in corr:
+                    outer_keys.append(a)
+                    inner_keys.append(b)
+                    continue
+                if b.name in corr and a.name not in corr:
+                    outer_keys.append(b)
+                    inner_keys.append(a)
+                    continue
+            if expr_cols(q) & corr:
+                raise PlanError("non-equality correlation in scalar "
+                                "subquery unsupported")
+            inner_where.append(q)
+        if not outer_keys:
+            raise PlanError("correlated scalar subquery without equality "
+                            "correlation")
+        val_name, val_expr = sub.targets[0]
+        targets = [("__val", val_expr)] + \
+            [(f"__k{i}", k) for i, k in enumerate(inner_keys)]
+        derived = dataclasses.replace(
+            sub, where=inner_where, targets=targets,
+            group_by=list(inner_keys), having=[], order_by=[],
+            limit=None, offset=None, correlated_cols=[])
+        alias = f"__dsq{next(self._ip_counter)}"
+        rte = RTE(alias, "subquery", subquery=derived,
+                  columns={"__val": (f"{alias}.__val", val_expr.type),
+                           **{f"__k{i}": (f"{alias}.__k{i}", k.type)
+                              for i, k in enumerate(inner_keys)}})
+        outer_bq.rtable.append(rte)
+        outer_bq.join_order.append(JoinStep(len(outer_bq.rtable) - 1,
+                                            "inner"))
+        for i, ok in enumerate(outer_keys):
+            outer_bq.where.append(E.Cmp("=", ok,
+                                        E.Col(f"{alias}.__k{i}",
+                                              inner_keys[i].type)))
+        return E.Col(f"{alias}.__val", val_expr.type)
+
+    # -- aggregation & projection ------------------------------------------
+    def _plan_agg_project(self, bq: BoundQuery, plan: P.PhysNode):
+        targets = bq.targets
+        out_names = [n for n, _ in targets]
+
+        if bq.has_aggs:
+            plan, repl = self._plan_aggregate(bq, plan)
+            proj = [(n, rewrite(e, repl)) for n, e in targets]
+            having = [rewrite(h, repl) for h in bq.having]
+            if having:
+                plan = P.Filter(plan, having)
+            order = [(rewrite(o, repl), d) for o, d in bq.order_by]
+        else:
+            proj = list(targets)
+            order = list(bq.order_by)
+
+        # window functions evaluate over the (post-aggregate) row set;
+        # each distinct call becomes a computed __winN column
+        wins: list[tuple[str, E.Expr]] = []
+
+        def wrepl(x: E.Expr):
+            if isinstance(x, E.WindowCall):
+                for wname, wc in wins:
+                    if wc == x:
+                        return E.Col(wname, x.type)
+                wname = f"__win{len(wins)}"
+                wins.append((wname, x))
+                return E.Col(wname, x.type)
+            return None
+
+        if any(isinstance(x, E.WindowCall)
+               for _, e in proj for x in E.walk(e)) or \
+           any(isinstance(x, E.WindowCall)
+               for o, _ in order for x in E.walk(o)):
+            proj = [(n, rewrite(e, wrepl)) for n, e in proj]
+            order = [(rewrite(o, wrepl), d) for o, d in order]
+            plan = P.Window(plan, wins)
+
+        # pgvector pattern: ORDER BY vec <metric> 'q' LIMIT k over a plain
+        # scan -> one fused AnnSearch node (top-k on device)
+        ann = self._try_ann_search(bq, plan, proj, order)
+        if ann is not None:
+            return ann, out_names
+
+        proj_node = P.Project(plan, proj)
+        plan = proj_node
+
+        if bq.distinct:
+            plan = P.Agg(plan, [(n, E.Col(n, e.type)) for n, e in proj], [],
+                         "single")
+
+        if order:
+            # sort keys over projected outputs; add hidden columns if needed
+            keys = []
+            extra = []
+            for oe, desc in order:
+                hit = None
+                for n, e in proj:
+                    if e == oe:
+                        hit = (E.Col(n, e.type), desc)
+                        break
+                if hit is None:
+                    hname = f"__sort{len(extra)}"
+                    extra.append((hname, oe))
+                    hit = (E.Col(hname, oe.type), desc)
+                keys.append(hit)
+            if extra:
+                if bq.distinct:
+                    raise PlanError("ORDER BY expression not in DISTINCT "
+                                    "select list")
+                proj_node.outputs = proj + extra
+            plan = P.Sort(plan, keys,
+                          limit=(bq.limit + (bq.offset or 0))
+                          if bq.limit is not None else None)
+        if bq.limit is not None or bq.offset:
+            plan = P.Limit(plan, bq.limit, bq.offset or 0)
+        return plan, out_names
+
+    def _try_ann_search(self, bq, plan, proj, order):
+        if (bq.has_aggs or bq.distinct or bq.limit is None or bq.offset
+                or len(order) != 1 or order[0][1]):
+            return None
+        oe = order[0][0]
+        if not isinstance(oe, E.DistExpr):
+            return None
+        # peel Filter wrappers down to a bare SeqScan
+        filters = []
+        node = plan
+        while isinstance(node, P.Filter):
+            filters = node.quals + filters
+            node = node.child
+        if not isinstance(node, P.SeqScan):
+            return None
+        filters = list(node.filters) + filters
+        outputs = list(proj)
+        dist_name = next((n for n, e in outputs if e == oe), None)
+        if dist_name is None:
+            dist_name = "__dist"
+            outputs = outputs + [(dist_name, oe)]
+        return P.AnnSearch(table=node.table, alias=node.alias,
+                           filters=filters, outputs=outputs,
+                           vec_col=oe.col.name, metric=oe.metric,
+                           query=oe.query, k=bq.limit,
+                           dist_name=dist_name)
+
+    def _plan_aggregate(self, bq: BoundQuery, plan: P.PhysNode):
+        group_keys = [(f"__gk{i}", g) for i, g in enumerate(bq.group_by)]
+        aggs: list[tuple[str, E.AggCall]] = []
+        # dedupe structurally: the same aggregate referenced from targets
+        # and ORDER BY/HAVING may be distinct (but equal) objects
+        agg_names: list[tuple[E.AggCall, str]] = []
+
+        def find(x):
+            for a, nm in agg_names:
+                if a == x:
+                    return nm
+            return None
+
+        def collect(e: E.Expr):
+            for x in E.walk(e):
+                if isinstance(x, E.AggCall) and find(x) is None:
+                    name = f"__agg{len(aggs)}"
+                    aggs.append((name, x))
+                    agg_names.append((x, name))
+
+        for _, e in bq.targets:
+            collect(e)
+        for h in bq.having:
+            collect(h)
+        for o, _ in bq.order_by:
+            collect(o)
+
+        plan = P.Agg(plan, group_keys, aggs, "single")
+
+        def repl(x: E.Expr):
+            if isinstance(x, E.AggCall):
+                return E.Col(find(x), x.type)
+            for name, g in group_keys:
+                if x == g:
+                    return E.Col(name, g.type)
+            return None
+        return plan, repl
+
+
+class _RenameHelper:
+    """Wrap a subquery plan so its outputs carry alias-qualified names."""
+    @staticmethod
+    def wrap(sub_plan: P.PhysNode, rte: RTE, filters) -> P.PhysNode:
+        outs = []
+        for plain, (qname, t) in rte.columns.items():
+            outs.append((qname, E.Col(plain, t)))
+        p = P.Project(sub_plan, outs)
+        if filters:
+            return P.Filter(p, filters)
+        return p
+
+
+def _rename_outputs(plan: P.PhysNode, sub: BoundQuery,
+                    alias: str) -> P.PhysNode:
+    outs = [(f"{alias}.{n}", E.Col(n, e.type)) for n, e in sub.targets]
+    return P.Project(plan, outs)

@@ -1,0 +1,962 @@
+"""Parse analysis: raw AST -> typed BoundQuery against the catalog.
+
+Reference analog: src/backend/parser/analyze.c + parse_expr.c/parse_relation.c
+(transformStmt and friends).  Responsibilities: range-table construction,
+name/scope resolution (incl. correlated references into outer queries),
+type checking with decimal-scale discipline, string-predicate rewriting onto
+dictionary-coded columns, constant folding of date/interval arithmetic,
+aggregate detection, and star expansion.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from ..catalog.catalog import Catalog, CatalogError
+from ..catalog import types as T
+from ..catalog.types import SqlType, TypeKind
+from ..plan import exprs as E
+from ..plan.query import BoundQuery, JoinStep, RTE, SubLink
+from . import ast as A
+
+
+class BindError(Exception):
+    pass
+
+
+class Scope:
+    def __init__(self, rtable: list[RTE]):
+        self.rtable = rtable
+
+    def lookup(self, parts: tuple[str, ...]) -> Optional[tuple[str, SqlType]]:
+        if len(parts) == 2:
+            tbl, col = parts
+            for rte in self.rtable:
+                if rte.alias == tbl and col in rte.columns:
+                    return rte.columns[col]
+            return None
+        (col,) = parts
+        hits = [rte.columns[col] for rte in self.rtable if col in rte.columns]
+        if len(hits) > 1:
+            raise BindError(f"ambiguous column {col!r}")
+        return hits[0] if hits else None
+
+
+def _qualify_cols(node, alias: str, colnames: set):
+    """Qualify bare column refs in a mask expression with the table
+    alias so it binds in any join scope."""
+    return A.rewrite(
+        node,
+        lambda x: A.ColRef((alias, x.parts[0]))
+        if isinstance(x, A.ColRef) and len(x.parts) == 1
+        and x.parts[0] in colnames else None)
+
+
+class Binder:
+    def __init__(self, catalog: Catalog, param_types: dict = None,
+                 apply_masks: bool = False):
+        self.catalog = catalog
+        # $n -> SqlType, from PREPARE's declared type list: $n binds to a
+        # runtime parameter column (reference: ParamRef -> Param with
+        # paramtype from the prepared statement, parse_param.c)
+        self.param_types = param_types or {}
+        # column masking (exec/security.py): user-facing SELECT paths
+        # opt in; internal DML/constraint/trigger reads must see (and
+        # write back) REAL values, so the default is off
+        self.apply_masks = apply_masks
+
+    # ------------------------------------------------------------------
+    def _append_subquery_rte(self, rtable, sub, alias: str):
+        """Common tail for CTE / view / derived-table references."""
+        self._check_dup_alias(rtable, alias)
+        if isinstance(sub, BoundQuery):
+            cols = {n: (f"{alias}.{n}", e.type) for n, e in sub.targets}
+        else:                      # set-operation body
+            cols = {n: (f"{alias}.{n}", t)
+                    for n, t in zip(sub.target_names, sub.target_types)}
+        rtable.append(RTE(alias, "subquery", subquery=sub, columns=cols))
+
+    def bind_select(self, stmt: A.SelectStmt,
+                    outer: list[Scope] = ()) -> BoundQuery:
+        if stmt.group_sets:
+            from .rewrite import expand_grouping_sets
+            return self.bind_select(expand_grouping_sets(stmt), outer)
+        saved_ctes = getattr(self, "_ctes", {})
+        if stmt.ctes:
+            # non-recursive WITH: each CTE sees only the ones declared
+            # before it (reference: transformWithClause, parse_cte.c) —
+            # snapshot the visible map per declaration
+            m = dict(saved_ctes)
+            for name, col_aliases, sub in stmt.ctes:
+                m[name] = (sub, col_aliases, dict(m))
+            self._ctes = m
+        try:
+            return self._bind_select_body(stmt, outer)
+        finally:
+            self._ctes = saved_ctes
+
+    def _bind_select_body(self, stmt: A.SelectStmt,
+                          outer: list[Scope] = ()) -> BoundQuery:
+        if stmt.setop is not None:
+            return self._bind_setop(stmt, outer)
+        rtable: list[RTE] = []
+        join_order: list[JoinStep] = []
+        where: list[E.Expr] = []
+        correlated: list[str] = []
+        scope = Scope(rtable)
+        scopes = [scope, *outer]
+
+        def add_rte(item, kind_for_step="cross", on_ast=None):
+            if isinstance(item, A.TableRef) and \
+                    item.name in getattr(self, "_ctes", {}):
+                sub_stmt, col_aliases, visible = self._ctes[item.name]
+                hold, self._ctes = self._ctes, visible
+                try:
+                    # a CTE body is an independent query: no correlation
+                    # into the referencing scope (matches PG)
+                    sub = self.bind_select(sub_stmt)
+                finally:
+                    self._ctes = hold
+                if col_aliases:
+                    names = sub.targets if isinstance(sub, BoundQuery) \
+                        else None
+                    if names is not None:
+                        if len(col_aliases) != len(names):
+                            raise BindError(
+                                f"CTE {item.name!r} column alias count")
+                        sub.targets = [(a, e) for a, (_, e)
+                                       in zip(col_aliases, sub.targets)]
+                    else:
+                        if len(col_aliases) != len(sub.target_names):
+                            raise BindError(
+                                f"CTE {item.name!r} column alias count")
+                        sub.target_names = list(col_aliases)
+                self._append_subquery_rte(rtable, sub,
+                                          item.alias or item.name)
+            elif isinstance(item, A.TableRef) and \
+                    item.name in self.catalog.views and \
+                    item.name not in self.catalog.tables:
+                # view expansion (reference: the rewriter inlining the
+                # view rule, rewriteHandler.c): parse the stored text,
+                # bind as an independent subquery under the reference's
+                # alias
+                stack = getattr(self, "_view_stack", ())
+                if item.name in stack:
+                    raise BindError(
+                        f"infinite recursion in view {item.name!r}")
+                from .parser import parse_one
+                try:
+                    vstmt = parse_one(self.catalog.views[item.name])
+                except Exception as e:
+                    raise BindError(
+                        f"view {item.name!r} is invalid: {e}") from None
+                # a view's references were fixed at definition time:
+                # the caller's WITH names must not capture them (PG:
+                # view rules expand against base relations)
+                hold_ctes = getattr(self, "_ctes", {})
+                self._view_stack = (*stack, item.name)
+                self._ctes = {}
+                try:
+                    sub = self.bind_select(vstmt)
+                finally:
+                    self._view_stack = stack
+                    self._ctes = hold_ctes
+                self._append_subquery_rte(rtable, sub,
+                                          item.alias or item.name)
+            elif isinstance(item, A.TableRef) and \
+                    item.name in self.catalog.partitioned:
+                # partitioned parent: bind-time pruning (reference:
+                # partprune.c, here as static partition elimination).
+                # One survivor binds as a plain table — the FQS and
+                # device-mesh fast paths stay available; several bind
+                # as a UNION ALL over the children.
+                from ..parallel.partition import prune_partitions
+                pinfo = self.catalog.partitioned[item.name]
+                ptd = self._table(item.name)
+                key_t = ptd.column(pinfo["key"]).type
+                alias = item.alias or item.name
+                names = prune_partitions(pinfo, key_t, stmt.where,
+                                         alias)
+                if len(names) == 1:
+                    td = self._table(names[0])
+                    self._check_dup_alias(rtable, alias)
+                    cols = {c.name: (f"{alias}.{c.name}", c.type)
+                            for c in td.columns}
+                    rtable.append(RTE(alias, "table", table=td,
+                                      columns=cols))
+                elif not names:
+                    # nothing survives: the (empty) parent store scans
+                    self._check_dup_alias(rtable, alias)
+                    cols = {c.name: (f"{alias}.{c.name}", c.type)
+                            for c in ptd.columns}
+                    rtable.append(RTE(alias, "table", table=ptd,
+                                      columns=cols))
+                else:
+                    branches = [A.SelectStmt(
+                        items=[A.SelectItem(A.Star())],
+                        from_=[A.TableRef(nm)]) for nm in names]
+                    for cur, nxt in zip(branches, branches[1:]):
+                        cur.setop = ("union", True, nxt)
+                    sub = self.bind_select(branches[0])
+                    self._append_subquery_rte(rtable, sub, alias)
+            elif isinstance(item, A.TableRef):
+                td = self._table(item.name)
+                alias = item.alias or item.name
+                self._check_dup_alias(rtable, alias)
+                cols = {c.name: (f"{alias}.{c.name}", c.type)
+                        for c in td.columns}
+                rtable.append(RTE(alias, "table", table=td, columns=cols))
+            elif isinstance(item, A.SubqueryRef):
+                sub = self.bind_select(item.subquery, outer=scopes)
+                self._append_subquery_rte(rtable, sub, item.alias)
+            else:
+                raise BindError(f"unsupported FROM item {type(item).__name__}")
+            idx = len(rtable) - 1
+            step = JoinStep(idx, kind_for_step)
+            join_order.append(step)
+            return step
+
+        def walk_from(item):
+            if isinstance(item, A.JoinRef):
+                if item.kind == "right":
+                    # a RIGHT JOIN b == b LEFT JOIN a (reference: the
+                    # planner swaps via JOIN_RIGHT -> JOIN_LEFT too)
+                    if isinstance(item.left, A.JoinRef):
+                        raise BindError(
+                            "RIGHT JOIN after a join chain is not "
+                            "supported; rewrite as LEFT JOIN")
+                    item = A.JoinRef("left", item.right, item.left,
+                                     item.on)
+                walk_from(item.left)
+                if isinstance(item.right, A.JoinRef):
+                    raise BindError("parenthesized right-side joins "
+                                    "not supported")
+                step = add_rte(item.right,
+                               "inner" if item.kind == "cross"
+                               else item.kind)
+                if item.on is not None:
+                    bound = self.bind_expr(item.on, scopes, correlated)
+                    if item.kind == "inner":
+                        where.extend(split_conjuncts(bound))
+                        step.kind = "inner"
+                    else:
+                        step.on = bound
+            else:
+                add_rte(item)
+
+        for item in stmt.from_:
+            walk_from(item)
+
+        if stmt.where is not None:
+            where.extend(split_conjuncts(
+                self.bind_expr(stmt.where, scopes, correlated)))
+
+        # targets (with star expansion).  Output names are uniquified:
+        # the engine keys result columns by name (PG keeps duplicate
+        # resnames apart positionally; here 'count(a), count(b)' would
+        # silently collapse otherwise)
+        targets: list[tuple[str, E.Expr]] = []
+        used_names: set[str] = set()
+
+        def uniq(name: str) -> str:
+            if name not in used_names:
+                used_names.add(name)
+                return name
+            i = 1
+            while f"{name}_{i}" in used_names:
+                i += 1
+            used_names.add(f"{name}_{i}")
+            return f"{name}_{i}"
+
+        for it in stmt.items:
+            if isinstance(it.expr, A.Star):
+                for rte in rtable:
+                    if it.expr.table and rte.alias != it.expr.table:
+                        continue
+                    for plain, (qname, t) in rte.columns.items():
+                        targets.append((uniq(plain), E.Col(qname, t)))
+                continue
+            bound = self.bind_expr(it.expr, scopes, correlated)
+            name = it.alias or self._default_name(it.expr, len(targets))
+            targets.append((uniq(name), bound))
+
+        group_by = [self._bind_groupref(g, scopes, correlated, targets)
+                    for g in stmt.group_by]
+        having = split_conjuncts(self.bind_expr(
+            stmt.having, scopes, correlated)) if stmt.having else []
+
+        order_by = []
+        for si in stmt.order_by:
+            order_by.append((self._bind_orderref(si.expr, scopes, correlated,
+                                                 targets), si.desc))
+
+        limit = self._const_int(stmt.limit) if stmt.limit else None
+        offset = self._const_int(stmt.offset) if stmt.offset else None
+
+        if self.apply_masks and getattr(self.catalog, "masks", None):
+            targets = self._mask_targets(targets, rtable, scopes,
+                                         correlated)
+        return BoundQuery(rtable=rtable, join_order=join_order, where=where,
+                          targets=targets, group_by=group_by, having=having,
+                          order_by=order_by, limit=limit, offset=offset,
+                          distinct=stmt.distinct, correlated_cols=correlated)
+
+    def _mask_targets(self, targets, rtable, scopes, correlated):
+        """Projection rewrite for column masks (reference: datamask.c):
+        every E.Col in a target that resolves to a masked (table,
+        column) is replaced by the mask expression, bound under the
+        same table alias.  Predicates/join keys/GROUP BY keep real
+        values; only what leaves the projection is masked."""
+        from ..sql.parser import Parser
+        sub = {}
+        for rte in rtable:
+            if rte.kind != "table":
+                continue
+            for m in self.catalog.masks.values():
+                if m["table"] != rte.table.name:
+                    continue
+                col = m["column"]
+                if col not in rte.columns:
+                    continue
+                qname = rte.columns[col][0]
+                ast = Parser(m["expr"]).expr()
+                ast = _qualify_cols(ast, rte.alias,
+                                    set(rte.columns))
+                try:
+                    sub[qname] = self.bind_expr(ast, scopes,
+                                                correlated)
+                except BindError as e:
+                    raise BindError(
+                        f"mask on {m['table']}.{col} does not bind: "
+                        f"{e}") from None
+        if not sub:
+            return targets
+
+        def repl(e):
+            return A.rewrite(
+                e, lambda x: sub.get(x.name)
+                if isinstance(x, E.Col) else None)
+
+        return [(n, repl(e)) for n, e in targets]
+
+    def _bind_setop(self, stmt: A.SelectStmt, outer) -> "BoundSetOp":
+        """Set-operation chains.  Branches must agree in arity and column
+        kinds; ORDER BY/LIMIT/OFFSET of the outermost statement apply to
+        the combined result.  The parser nests rightward; SQL set ops
+        are LEFT-associative with INTERSECT binding tighter than
+        UNION/EXCEPT (a UNION b INTERSECT c == a UNION (b INTERSECT c)
+        — reference: gram.y set-op precedence), so flatten the chain,
+        group INTERSECT runs, then fold left."""
+        from ..plan.query import BoundSetOp
+
+        selects = []
+        links = []   # (op, all) between consecutive selects
+        cur = stmt
+        while True:
+            setop = cur.setop
+            selects.append(dataclasses.replace(
+                cur, setop=None, order_by=[], limit=None, offset=None))
+            if setop is None:
+                break
+            op, all_, rhs = setop
+            links.append((op, all_))
+            cur = rhs
+
+        def types_of(b):
+            if isinstance(b, BoundQuery):
+                return [e.type for _, e in b.targets]
+            return list(b.target_types)
+
+        def names_of(b):
+            if isinstance(b, BoundQuery):
+                return [n for n, _ in b.targets]
+            return list(b.target_names)
+
+        def combine(op, all_, acc, right):
+            lt, rt = types_of(acc), types_of(right)
+            if len(lt) != len(rt):
+                raise BindError(
+                    f"{op.upper()} branches have different column counts")
+            combined = []
+            for a, b in zip(lt, rt):
+                if a.kind == TypeKind.NULL:
+                    a = b
+                if b.kind == TypeKind.NULL:
+                    b = a
+                if a.kind != b.kind:
+                    raise BindError(
+                        f"{op.upper()} branch column types differ: "
+                        f"{a} vs {b}")
+                if a.kind == TypeKind.DECIMAL and a.scale != b.scale:
+                    combined.append(T.decimal(30, max(a.scale, b.scale)))
+                else:
+                    combined.append(a)
+            return BoundSetOp(op, all_, acc, right, names_of(acc),
+                              combined)
+
+        # precedence pass: fold INTERSECT runs into sub-nodes first
+        items: list = [self.bind_select(selects[0], outer)]
+        ops: list = []
+        for (op, all_), sel in zip(links, selects[1:]):
+            right = self.bind_select(sel, outer)
+            if op == "intersect":
+                items[-1] = combine(op, all_, items[-1], right)
+            else:
+                ops.append((op, all_))
+                items.append(right)
+        acc = items[0]
+        for (op, all_), it in zip(ops, items[1:]):
+            acc = combine(op, all_, acc, it)
+        names = names_of(acc)
+
+        order_by = []
+        for si in stmt.order_by:
+            if isinstance(si.expr, A.ColRef) and len(si.expr.parts) == 1 \
+                    and si.expr.parts[0] in names:
+                i = names.index(si.expr.parts[0])
+            elif isinstance(si.expr, A.Const) and si.expr.kind == "int":
+                i = int(si.expr.value) - 1
+                if not (0 <= i < len(names)):
+                    raise BindError(
+                        f"ORDER BY position {si.expr.value} is out of "
+                        f"range (1..{len(names)})")
+            else:
+                raise BindError("UNION ORDER BY must reference an output "
+                                "column")
+            order_by.append((i, si.desc))
+        acc.order_by = order_by
+        acc.limit = self._const_int(stmt.limit) if stmt.limit else None
+        acc.offset = self._const_int(stmt.offset) if stmt.offset else 0
+        return acc
+
+    # ------------------------------------------------------------------
+    def _table(self, name):
+        try:
+            return self.catalog.table(name)
+        except CatalogError as e:
+            raise BindError(str(e)) from None
+
+    @staticmethod
+    def _check_dup_alias(rtable, alias):
+        if any(r.alias == alias for r in rtable):
+            raise BindError(f"duplicate table alias {alias!r}")
+
+    @staticmethod
+    def _default_name(expr: A.Node, i: int) -> str:
+        if isinstance(expr, A.ColRef):
+            return expr.parts[-1]
+        if isinstance(expr, A.FuncCall):
+            return expr.name
+        return f"?column?{i}"
+
+    def _const_int(self, node) -> int:
+        if isinstance(node, A.Const) and node.kind == "int":
+            return int(node.value)
+        raise BindError("LIMIT/OFFSET must be integer literals")
+
+    def _bind_groupref(self, g, scopes, correlated, targets):
+        if isinstance(g, A.Const) and g.kind == "int":
+            return targets[int(g.value) - 1][1]
+        # allow referencing a target alias (common in practice)
+        if isinstance(g, A.ColRef) and len(g.parts) == 1:
+            try:
+                return self.bind_expr(g, scopes, correlated)
+            except BindError:
+                for name, e in targets:
+                    if name == g.parts[0]:
+                        return e
+                raise
+        return self.bind_expr(g, scopes, correlated)
+
+    def _bind_orderref(self, o, scopes, correlated, targets):
+        if isinstance(o, A.Const) and o.kind == "int":
+            return targets[int(o.value) - 1][1]
+        if isinstance(o, A.ColRef) and len(o.parts) == 1:
+            for name, e in targets:
+                if name == o.parts[0]:
+                    return e
+        return self.bind_expr(o, scopes, correlated)
+
+    # ------------------------------------------------------------------
+    # expressions
+    # ------------------------------------------------------------------
+    def bind_expr(self, node: A.Node, scopes: list[Scope],
+                  correlated: list[str]) -> E.Expr:
+        b = lambda n: self.bind_expr(n, scopes, correlated)
+
+        if isinstance(node, A.ColRef):
+            hit = scopes[0].lookup(node.parts)
+            if hit is not None:
+                return E.Col(*hit)
+            for sc in scopes[1:]:
+                hit = sc.lookup(node.parts)
+                if hit is not None:
+                    correlated.append(hit[0])
+                    return E.Col(*hit)
+            raise BindError(f"column {'.'.join(node.parts)!r} does not exist")
+
+        if isinstance(node, A.Const):
+            return self._bind_const(node)
+
+        if isinstance(node, A.TypedConst):
+            if node.type_name == "date":
+                return E.Lit(T.date_to_days(node.value), T.DATE)
+            raise BindError("interval literal outside date arithmetic")
+
+        if isinstance(node, A.BinOp):
+            return self._bind_binop(node, b)
+
+        if isinstance(node, A.UnaryOp):
+            if node.op == "-":
+                arg = b(node.arg)
+                if isinstance(arg, E.Lit):
+                    return E.Lit(-arg.value, arg.lit_type)
+                return E.Neg(arg)
+            return self._negate(b(node.arg))
+
+        if isinstance(node, A.BoolExpr):
+            return E.BoolOp(node.op, tuple(b(a) for a in node.args))
+
+        if isinstance(node, A.BetweenExpr):
+            lo = A.BinOp(">=", node.arg, node.low)
+            hi = A.BinOp("<=", node.arg, node.high)
+            e = E.BoolOp("and", (b(lo), b(hi)))
+            return self._negate(e) if node.negated else e
+
+        if isinstance(node, A.LikeExpr):
+            arg = b(node.arg)
+            if not isinstance(arg, (E.Col, E.TextExpr)) or \
+                    arg.type.kind != TypeKind.TEXT:
+                raise BindError("LIKE requires a text column")
+            if not (isinstance(node.pattern, A.Const)
+                    and node.pattern.kind == "str"):
+                raise BindError("LIKE pattern must be a string literal")
+            return E.StrPred(arg, "not_like" if node.negated else "like",
+                             (node.pattern.value,))
+
+        if isinstance(node, A.InExpr):
+            arg = b(node.arg)
+            if node.subquery is not None:
+                sub = self.bind_select(node.subquery, outer=scopes)
+                return SubLink("in", sub, test_expr=arg,
+                               negated=node.negated)
+            if arg.type.kind == TypeKind.TEXT:
+                vals = []
+                for it in node.items:
+                    if not (isinstance(it, A.Const) and it.kind == "str"):
+                        raise BindError("text IN list must be string literals")
+                    vals.append(it.value)
+                return E.StrPred(arg, "not_in" if node.negated else "in",
+                                 tuple(vals))
+            vals = []
+            has_null = False
+            for it in node.items:
+                lit = b(it)
+                if not isinstance(lit, E.Lit):
+                    raise BindError("IN list must be literals")
+                if lit.value is None:
+                    has_null = True
+                    continue
+                vals.append(self._to_storage(lit, arg.type))
+            e = E.InList(arg, tuple(vals))
+            if has_null:
+                # x IN (..., NULL) is true on a match, else UNKNOWN:
+                # OR-in an unknown term so Kleene logic (and NOT IN's
+                # never-true) falls out of the 3VL compiler
+                e = E.BoolOp("or", (e, E.Cmp("=", arg,
+                                             E.Lit(None, arg.type))))
+            return self._negate(e) if node.negated else e
+
+        if isinstance(node, A.NullTest):
+            return E.IsNull(b(node.arg), negated=not node.is_null)
+
+        if isinstance(node, A.ExistsExpr):
+            sub = self.bind_select(node.subquery, outer=scopes)
+            return SubLink("exists", sub, negated=node.negated)
+
+        if isinstance(node, A.ScalarSubquery):
+            sub = self.bind_select(node.subquery, outer=scopes)
+            if len(sub.targets) != 1:
+                raise BindError("scalar subquery must return one column")
+            return SubLink("scalar", sub)
+
+        if isinstance(node, A.QuantifiedCmp):
+            sub = self.bind_select(node.subquery, outer=scopes)
+            return SubLink(node.quantifier, sub, test_expr=b(node.arg),
+                           cmp_op=node.op)
+
+        if isinstance(node, A.CaseExpr):
+            whens = tuple((b(c), b(v)) for c, v in node.whens)
+            else_ = b(node.else_) if node.else_ is not None else None
+            # constant-fold literal WHEN conditions (the grouping-sets
+            # expansion emits `when 0 = 0 then col` / `when 1 = 0 ...`;
+            # reference: eval_const_expressions)
+            kept = []
+            cut = None
+            for c, v in whens:
+                tv = self._const_truth(c)
+                if tv is False:
+                    continue
+                if tv is True:
+                    cut = v
+                    break
+                kept.append((c, v))
+            if cut is not None and not kept:
+                return cut
+            if cut is not None:
+                else_, whens = cut, tuple(kept)
+            elif len(kept) != len(whens):
+                if not kept:
+                    return else_ if else_ is not None \
+                        else E.Lit(None, T.NULLT)
+                whens = tuple(kept)
+            if all(v.type.kind == TypeKind.NULL for _, v in whens) and \
+                    (else_ is None or else_.type.kind == TypeKind.NULL):
+                # every branch is NULL (grouping-sets folding produces
+                # these): the whole CASE is a typed-null constant
+                return E.Lit(None, T.NULLT)
+            t = self._common_case_type([v.type for _, v in whens]
+                                       + ([else_.type] if else_ else []))
+            whens, else_ = self._coerce_case(whens, else_, t)
+            return E.Case(whens, else_, t)
+
+        if isinstance(node, A.FuncCall):
+            return self._bind_func(node, b)
+
+        if isinstance(node, A.CastExpr):
+            to = T.type_from_name(node.type_name, node.type_args)
+            return E.Cast(b(node.arg), to)
+
+        if isinstance(node, A.ExtractExpr):
+            arg = b(node.arg)
+            if arg.type.kind != TypeKind.DATE:
+                raise BindError("EXTRACT requires a date argument")
+            if node.field not in ("year", "month", "day"):
+                raise BindError(f"EXTRACT field {node.field!r} unsupported")
+            return E.Extract(node.field, arg)
+
+        if isinstance(node, A.SubstringExpr):
+            arg = b(node.arg)
+            if not isinstance(arg, (E.Col, E.TextExpr)) \
+                    or arg.type.kind != TypeKind.TEXT:
+                raise BindError("substring requires a text column")
+            start = self._const_int(node.start)
+            length = self._const_int(node.length) \
+                if node.length is not None else None
+            base = arg if isinstance(arg, E.Col) else arg.col
+            prior = arg.transforms if isinstance(arg, E.TextExpr) else ()
+            return E.TextExpr(base, prior + (("substring", start, length),))
+
+        if isinstance(node, A.Param):
+            t = self.param_types.get(node.index)
+            if t is None:
+                raise BindError(
+                    f"parameter ${node.index} has no declared type "
+                    "(PREPARE name(type, ...) AS ...)")
+            if t.kind == TypeKind.TEXT:
+                # TEXT predicates resolve against dictionaries at compile
+                # time (StrPred) — a runtime TEXT value can't: the session
+                # falls back to literal substitution (custom-plan mode)
+                raise BindError("TEXT parameters require the "
+                                "substitution path")
+            # a runtime-parameter pseudo column: the executor substitutes
+            # the bound value from ctx.params (same mechanism init-plan
+            # results use), so one compiled program serves every binding
+            return E.Col(f"__bindparam{node.index}", t)
+
+        raise BindError(f"cannot bind {type(node).__name__}")
+
+    # ---- helpers ----
+    def _bind_const(self, node: A.Const) -> E.Expr:
+        if node.kind == "int":
+            return E.Lit(int(node.value), T.INT64)
+        if node.kind == "num":
+            s = str(node.value)
+            frac = len(s.split(".")[1]) if "." in s else 0
+            if "e" in s.lower():
+                return E.Lit(float(s), T.FLOAT64)
+            return E.Lit(T.decimal_to_int(s, frac), T.decimal(30, frac))
+        if node.kind == "bool":
+            return E.Lit(bool(node.value), T.BOOL)
+        if node.kind == "str":
+            # untyped string literal: type decided by coercion context;
+            # default TEXT marker
+            return E.Lit(node.value, T.TEXT)
+        if node.kind == "null":
+            return E.Lit(None, T.NULLT)
+        raise BindError(f"bad const kind {node.kind}")
+
+    @staticmethod
+    def _const_truth(e: E.Expr):
+        """True/False when a bound predicate is a literal comparison;
+        None when not statically decidable."""
+        if isinstance(e, E.Lit):
+            return bool(e.value) if e.value is not None else False
+        if isinstance(e, E.Cmp) and isinstance(e.left, E.Lit) \
+                and isinstance(e.right, E.Lit) \
+                and e.left.value is not None \
+                and e.right.value is not None:
+            import operator
+            ops = {"=": operator.eq, "<>": operator.ne,
+                   "<": operator.lt, "<=": operator.le,
+                   ">": operator.gt, ">=": operator.ge}
+            try:
+                return bool(ops[e.op](e.left.value, e.right.value))
+            except TypeError:
+                return None
+        return None
+
+    def _negate(self, e: E.Expr) -> E.Expr:
+        if isinstance(e, E.StrPred):
+            flip = {"in": "not_in", "not_in": "in", "like": "not_like",
+                    "not_like": "like", "eq": "ne", "ne": "eq"}
+            if e.kind in flip:
+                return E.StrPred(e.col, flip[e.kind], e.patterns)
+        return E.Not(e)
+
+    def _bind_binop(self, node: A.BinOp, b) -> E.Expr:
+        if node.op in ("<->", "<=>", "<#>"):
+            return self._bind_distance(node, b)
+        # date +/- interval constant folding (TPC-H uses literal arithmetic)
+        if node.op in ("+", "-"):
+            folded = self._try_fold_date(node, b)
+            if folded is not None:
+                return folded
+        left = b(node.left)
+        right = b(node.right)
+        if node.op in ("=", "<>", "<", "<=", ">", ">="):
+            return self._bind_cmp(node.op, left, right)
+        if node.op in ("+", "-", "*", "/", "%"):
+            left, right = self._coerce_pair(left, right)
+            return E.Arith(node.op, left, right)
+        if node.op == "||":
+            raise BindError("string concatenation unsupported on device "
+                            "columns")
+        raise BindError(f"operator {node.op!r} unsupported")
+
+    def _bind_distance(self, node: A.BinOp, b) -> E.Expr:
+        metric = {"<->": "l2", "<=>": "cosine", "<#>": "ip"}[node.op]
+        left, right = b(node.left), b(node.right)
+        # one side must be a VECTOR column, the other a '[...]' literal
+        if isinstance(right, E.Col) and right.type.kind == TypeKind.VECTOR:
+            left, right = right, left
+        if not (isinstance(left, E.Col)
+                and left.type.kind == TypeKind.VECTOR):
+            raise BindError(f"{node.op} requires a vector column operand")
+        if not (isinstance(right, E.Lit) and isinstance(right.value, str)):
+            raise BindError(f"{node.op} requires a vector literal "
+                            "('[1,2,...]')")
+        s = right.value.strip()
+        if not (s.startswith("[") and s.endswith("]")):
+            raise BindError(f"malformed vector literal {right.value!r} "
+                            "(expected '[x,y,...]')")
+        try:
+            q = tuple(float(x) for x in s[1:-1].split(","))
+        except ValueError:
+            raise BindError(f"malformed vector literal {right.value!r}")
+        if len(q) != left.type.dim:
+            raise BindError(f"vector literal dim {len(q)} != column dim "
+                            f"{left.type.dim}")
+        return E.DistExpr(metric, left, q)
+
+    def _try_fold_date(self, node: A.BinOp, b) -> Optional[E.Expr]:
+        rl = node.right
+        if not (isinstance(rl, A.TypedConst) and rl.type_name == "interval"):
+            return None
+        left = b(node.left)
+        if not (isinstance(left, E.Lit) and left.type.kind == TypeKind.DATE):
+            raise BindError("interval arithmetic only on date literals")
+        import numpy as np
+        base = np.datetime64(T.days_to_date(left.value), "D")
+        qty = rl.qty if node.op == "+" else -rl.qty
+        if rl.unit == "day":
+            out = base + np.timedelta64(qty, "D")
+        elif rl.unit == "month":
+            m = (base.astype("datetime64[M]") + np.timedelta64(qty, "M"))
+            out = m.astype("datetime64[D]") + (base
+                                               - base.astype("datetime64[M]"))
+        elif rl.unit == "year":
+            m = (base.astype("datetime64[M]") + np.timedelta64(12 * qty, "M"))
+            out = m.astype("datetime64[D]") + (base
+                                               - base.astype("datetime64[M]"))
+        else:
+            raise BindError(f"interval unit {rl.unit!r} unsupported")
+        return E.Lit(T.date_to_days(str(out)), T.DATE)
+
+    def _bind_cmp(self, op: str, left: E.Expr, right: E.Expr) -> E.Expr:
+        lt, rt = left.type, right.type
+        # text predicates -> dictionary-resolved
+        if lt.kind == TypeKind.TEXT or rt.kind == TypeKind.TEXT:
+            if isinstance(right, E.Lit) and rt.kind == TypeKind.TEXT \
+                    and isinstance(left, (E.Col, E.TextExpr)) \
+                    and lt.kind == TypeKind.TEXT:
+                kind = {"=": "eq", "<>": "ne", "<": "lt", "<=": "le",
+                        ">": "gt", ">=": "ge"}[op]
+                return E.StrPred(left, kind, (right.value,))
+            if isinstance(left, E.Lit) and lt.kind == TypeKind.TEXT \
+                    and isinstance(right, (E.Col, E.TextExpr)) \
+                    and rt.kind == TypeKind.TEXT:
+                swap = {"=": "=", "<>": "<>", "<": ">", "<=": ">=",
+                        ">": "<", ">=": "<="}[op]
+                return self._bind_cmp(swap, right, left)
+            if lt.kind == TypeKind.TEXT and rt.kind == TypeKind.TEXT:
+                if op in ("=", "<>") and \
+                        isinstance(left, (E.Col, E.TextExpr)) and \
+                        isinstance(right, (E.Col, E.TextExpr)):
+                    # compiled as a cross-dictionary string-hash compare
+                    return E.Cmp(op, left, right)
+                raise BindError("text-to-text comparison supports only "
+                                "=/<> between columns")
+        left, right = self._coerce_pair(left, right)
+        return E.Cmp(op, left, right)
+
+    def _coerce_pair(self, left: E.Expr, right: E.Expr):
+        """Insert coercions for str-lit vs date, NULL literal typing, etc."""
+        lt, rt = left.type, right.type
+        # a bare NULL literal takes the other operand's type (reference:
+        # UNKNOWN-type coercion, parse_coerce.c)
+        if lt.kind == TypeKind.NULL and rt.kind != TypeKind.NULL:
+            left = E.Lit(None, rt)
+            lt = rt
+        elif rt.kind == TypeKind.NULL and lt.kind != TypeKind.NULL:
+            right = E.Lit(None, lt)
+            rt = lt
+        if lt.kind == TypeKind.DATE and rt.kind == TypeKind.TEXT \
+                and isinstance(right, E.Lit):
+            right = E.Lit(T.date_to_days(right.value), T.DATE)
+        elif rt.kind == TypeKind.DATE and lt.kind == TypeKind.TEXT \
+                and isinstance(left, E.Lit):
+            left = E.Lit(T.date_to_days(left.value), T.DATE)
+        return left, right
+
+    def _to_storage(self, lit: E.Lit, target: SqlType):
+        v = lit.value
+        if target.kind == TypeKind.DECIMAL:
+            if lit.type.kind == TypeKind.DECIMAL:
+                return v * 10 ** max(0, target.scale - lit.type.scale)
+            return int(v) * 10 ** target.scale
+        if target.kind == TypeKind.DATE and isinstance(v, str):
+            return T.date_to_days(v)
+        return int(v)
+
+    def _common_case_type(self, types: list[SqlType]) -> SqlType:
+        types = [u for u in types if u.kind != TypeKind.NULL]
+        if not types:
+            raise BindError("cannot resolve a type: all branches are NULL")
+        t = types[0]
+        for u in types[1:]:
+            if u.kind == t.kind and u.scale == t.scale:
+                continue
+            if t.is_numeric and u.is_numeric:
+                if TypeKind.FLOAT64 in (t.kind, u.kind):
+                    t = T.FLOAT64
+                elif TypeKind.DECIMAL in (t.kind, u.kind):
+                    t = T.decimal(30, max(t.scale, u.scale))
+                else:
+                    t = T.INT64
+            else:
+                raise BindError("CASE branches have incompatible types")
+        return t
+
+    def _coerce_case(self, whens, else_, t: SqlType):
+        def fix(e: E.Expr) -> E.Expr:
+            if isinstance(e, E.Lit) and e.value is None:
+                return E.Lit(None, t)
+            if e.type.kind == t.kind and e.type.scale == t.scale:
+                return e
+            return E.Cast(e, t)
+        whens = tuple((c, fix(v)) for c, v in whens)
+        return whens, (fix(else_) if else_ is not None else None)
+
+    def _bind_func(self, node: A.FuncCall, b) -> E.Expr:
+        name = node.name
+        if node.over is not None:
+            if name not in E.WINDOW_FUNCS:
+                raise BindError(f"window function {name!r} unsupported")
+            arg = None
+            offset, default = 1, None
+            if node.star and name != "count":
+                raise BindError(f"{name}(*) is not allowed")
+            if name in ("lag", "lead"):
+                if not 1 <= len(node.args) <= 3:
+                    raise BindError(f"{name} takes 1-3 arguments")
+                arg = b(node.args[0])
+                if len(node.args) > 1:
+                    off = b(node.args[1])
+                    if not (isinstance(off, E.Lit)
+                            and isinstance(off.value, int)):
+                        raise BindError(
+                            f"{name} offset must be an integer literal")
+                    offset = int(off.value)
+                if len(node.args) > 2:
+                    default = b(node.args[2])
+                    if isinstance(default, E.Lit) and default.is_null:
+                        default = None
+                    elif arg.type.kind == TypeKind.TEXT:
+                        # the output shares the source column's decode
+                        # dictionary; an arbitrary default string has no
+                        # code there
+                        raise BindError(
+                            f"{name} over a text column supports only "
+                            "a NULL default")
+                    elif default.type.kind != arg.type.kind or \
+                            default.type.scale != arg.type.scale:
+                        default = E.Cast(default, arg.type)
+            elif name in ("first_value", "last_value"):
+                if len(node.args) != 1:
+                    raise BindError(f"{name} takes one argument")
+                arg = b(node.args[0])
+            elif name in E.AGG_FUNCS and not node.star:
+                if len(node.args) != 1:
+                    raise BindError(f"{name} takes one argument")
+                arg = b(node.args[0])
+            elif name not in E.AGG_FUNCS and node.args:
+                raise BindError(f"{name}() takes no arguments")
+            part = tuple(b(p) for p in node.over.partition_by)
+            order = tuple((b(si.expr), bool(si.desc))
+                          for si in node.over.order_by)
+            frame = node.over.frame
+            if frame is not None:
+                mode, fs, fe = frame
+                if mode == "range" and (fs[1] is not None
+                                        or fe[1] is not None):
+                    raise BindError("RANGE with a numeric offset is "
+                                    "unsupported (use ROWS BETWEEN)")
+                if name not in E.AGG_FUNCS and \
+                        name not in ("first_value", "last_value"):
+                    frame = None   # ranking funcs ignore the frame (PG)
+            return E.WindowCall(name, arg, part, order, offset, default,
+                                frame)
+        if name in E.AGG_FUNCS:
+            if node.star:
+                return E.AggCall("count", None)
+            if len(node.args) != 1:
+                raise BindError(f"{name} takes one argument")
+            return E.AggCall(name, b(node.args[0]), distinct=node.distinct)
+        if name == "coalesce":
+            if not node.args:
+                raise BindError("coalesce takes at least one argument")
+            args = [b(a) for a in node.args]
+            t = self._common_case_type([a.type for a in args])
+            fixed, _ = self._coerce_case(
+                tuple((E.Lit(True, T.BOOL), a) for a in args), None, t)
+            return E.Coalesce(tuple(v for _, v in fixed), t)
+        if name == "nullif":
+            if len(node.args) != 2:
+                raise BindError("nullif takes two arguments")
+            left, right = self._coerce_pair(b(node.args[0]),
+                                            b(node.args[1]))
+            return E.NullIf(left, right)
+        raise BindError(f"function {name!r} unsupported")
+
+
+def split_conjuncts(e: Optional[E.Expr]) -> list[E.Expr]:
+    if e is None:
+        return []
+    if isinstance(e, E.BoolOp) and e.op == "and":
+        out = []
+        for a in e.args:
+            out.extend(split_conjuncts(a))
+        return out
+    return [e]

@@ -1,0 +1,744 @@
+"""Columnar shard store — the datanode's table storage.
+
+Reference analog: heap storage (src/backend/access/heap) + buffer manager
+(src/backend/storage/buffer).  Re-designed columnar/TPU-first:
+
+- A table on a datanode is a list of fixed-capacity columnar Chunks
+  (column arrays in host RAM; device HBM is a staging cache, never the
+  source of truth — SURVEY.md §7.1).
+- MVCC lives in four per-row int64/int32 columns: xmin_ts / xmax_ts
+  (commit GTS of creator/deleter — the reference embeds exactly these two
+  8-byte GTS fields in every heap tuple header,
+  include/access/htup_details.h:126-144) and xmin_txid / xmax_txid for
+  in-progress/own-transaction checks.  Visibility is a vector compare
+  (reference: per-tuple HeapTupleSatisfiesMVCC, utils/time/tqual.c:1203).
+- Every row stores its shard id (reference: HeapTupleHeader t_shardid,
+  htup_details.h:191; extents are shard-pure, extentmapping.h:129).
+- TEXT columns are dictionary-encoded per store; the dictionary maps
+  code -> str and is node-local (joins are never on raw strings; group-by
+  results are decoded before crossing nodes).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Iterator, Optional
+
+import numpy as np
+
+from ..catalog.schema import TableDef
+from ..catalog.types import TypeKind
+from ..utils import locks
+
+INF_TS = np.int64(1 << 62)        # "not yet deleted" / "not yet committed"
+ABORTED_TS = np.int64((1 << 62) + 1)  # creator aborted: never visible
+NO_TXID = np.int64(0)
+
+CHUNK_CAP = 1 << 16
+
+
+def _decimal_str(v: int, scale: int) -> str:
+    """Storage-scaled int -> exact decimal string ('-3.25' for -325/2)."""
+    if scale == 0:
+        return str(v)
+    sign = "-" if v < 0 else ""
+    a = abs(v)
+    return f"{sign}{a // 10 ** scale}.{a % 10 ** scale:0{scale}d}"
+
+
+class WriteConflict(Exception):
+    """Concurrent write-write conflict.  Carries the holding txid so the
+    datanode's lock manager can wait for it (reference: the updater xid
+    a blocked heap_update waits on, XactLockTableWait)."""
+
+    def __init__(self, msg: str, holder: int = 0):
+        super().__init__(msg)
+        self.holder = int(holder)
+
+
+class SerializationConflict(Exception):
+    """The row version this txn targeted was replaced by a COMMITTED
+    concurrent writer (reference: 'could not serialize access due to
+    concurrent update').  Implicit single-statement transactions retry
+    with a fresh snapshot; explicit transactions surface the error."""
+
+
+import itertools as _itertools
+
+# process-global version source: values never repeat across stores, so a
+# device-cache entry keyed by a recycled id(store) can never alias a new
+# store's version
+_VERSION_COUNTER = _itertools.count(1)
+
+
+class StringDict:
+    """Append-only code<->string dictionary for one TEXT column."""
+
+    def __init__(self):
+        self.values: list[str] = []
+        self._index: dict[str, int] = {}
+
+    def encode_one(self, s: str) -> int:
+        code = self._index.get(s)
+        if code is None:
+            code = len(self.values)
+            self.values.append(s)
+            self._index[s] = code
+        return code
+
+    def encode(self, strings) -> np.ndarray:
+        return np.fromiter((self.encode_one(s) for s in strings),
+                           dtype=np.int32, count=len(strings))
+
+    def encode_array(self, arr: np.ndarray) -> np.ndarray:
+        """Vectorized encode for numpy string/bytes arrays: unique once
+        (C speed), register only the uniques, map back by inverse."""
+        uniq, inv = np.unique(arr, return_inverse=True)
+        base = np.empty(len(uniq), dtype=np.int32)
+        for i, u in enumerate(uniq):
+            s = u.decode("utf-8", "replace") if isinstance(u, bytes) \
+                else str(u)
+            base[i] = self.encode_one(s)
+        return base[inv.reshape(-1)].astype(np.int32)
+
+    def decode(self, codes: np.ndarray) -> list[str]:
+        return [self.values[int(c)] for c in codes]
+
+    def codes_matching(self, pred) -> np.ndarray:
+        """All codes whose string satisfies `pred` — string predicates are
+        evaluated once against the dictionary, then become device-side code
+        membership masks."""
+        return np.asarray([i for i, v in enumerate(self.values) if pred(v)],
+                          dtype=np.int32)
+
+
+@dataclasses.dataclass
+class Chunk:
+    columns: dict[str, np.ndarray]
+    xmin_ts: np.ndarray
+    xmax_ts: np.ndarray
+    xmin_txid: np.ndarray
+    xmax_txid: np.ndarray
+    shardid: np.ndarray
+    nrows: int
+    cap: int
+    # per-column null bitmaps, allocated lazily on the first NULL
+    # (reference: the per-tuple null bitmap in HeapTupleHeader,
+    # include/access/htup_details.h t_bits)
+    nulls: dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    # row locks (SELECT FOR UPDATE), allocated lazily — transient, not
+    # checkpointed/WAL-logged: a crash aborts every holder anyway
+    # (reference: xmax LOCK_ONLY infomask bits, heapam.c)
+    lock_txid: np.ndarray = None
+
+    def lock_array(self) -> np.ndarray:
+        if self.lock_txid is None:
+            self.lock_txid = np.full(self.cap, NO_TXID, dtype=np.int64)
+        return self.lock_txid
+
+    @staticmethod
+    def empty(td: TableDef, cap: int = CHUNK_CAP) -> "Chunk":
+        cols = {c.name: np.empty((cap, *c.type.shape_suffix),
+                                 dtype=c.type.np_dtype)
+                for c in td.columns}
+        return Chunk(
+            columns=cols,
+            xmin_ts=np.empty(cap, dtype=np.int64),
+            xmax_ts=np.empty(cap, dtype=np.int64),
+            xmin_txid=np.empty(cap, dtype=np.int64),
+            xmax_txid=np.empty(cap, dtype=np.int64),
+            shardid=np.empty(cap, dtype=np.int32),
+            nrows=0, cap=cap)
+
+    def null_mask_for(self, name: str) -> np.ndarray:
+        """The column's null bitmap, allocating a cleared one on demand."""
+        m = self.nulls.get(name)
+        if m is None:
+            m = self.nulls[name] = np.zeros(len(self.columns[name]),
+                                            dtype=bool)
+        return m
+
+    @property
+    def free(self) -> int:
+        return self.cap - self.nrows
+
+
+# "no existing row touched" marker for the mutation log (pure append)
+NO_ROW = 1 << 62
+
+
+class TableStore:
+    """All chunks of one table on one datanode."""
+
+    def __init__(self, td: TableDef):
+        self.td = td
+        self.chunks: list[Chunk] = []
+        # serializes check-then-set row marking and chunk appends: DN
+        # host ops run concurrently across sessions (the reference gets
+        # per-tuple atomicity from buffer-page locks, bufmgr.c)
+        self._mu = locks.RLock("storage.store.TableStore._mu")
+        self.version = next(_VERSION_COUNTER)  # bumped on any mutation
+        # prefix-mutation log: (version, lowest scan-order row touched)
+        # for every mutation that rewrote EXISTING rows.  The device
+        # buffer pool replays it to prove a cached snapshot's prefix is
+        # still byte-exact (no entry past the cached version touches a
+        # row below the cached count) and stage just the appended tail
+        # (storage/bufferpool.py).  Pure tail appends are never logged —
+        # they cannot invalidate any earlier prefix — so arbitrarily
+        # long append bursts stay provable; _trim_floor marks how far
+        # back the bounded log still covers, and the row high-water mark
+        # forces logging of appends that follow a shrink (truncate/
+        # vacuum), whose base may undercut an older snapshot's count.
+        self._dirty_log: list[tuple[int, int]] = []
+        self._trim_floor = 0
+        self._rows_high_water = 0
+        self.dicts: dict[str, StringDict] = {
+            c.name: StringDict() for c in td.columns
+            if c.type.kind == TypeKind.TEXT}
+        # columns that hold at least one NULL anywhere (drives null-mask
+        # staging into the device cache; empty for NOT NULL workloads)
+        self.null_columns: set[str] = set()
+        # ANN indexes over VECTOR columns: col -> {"centroids", "metric",
+        # "nprobe", "_assign_cache"} (contrib/pgvector IVFFlat analog)
+        self.ann_indexes: dict[str, dict] = {}
+        # btree-equivalent indexes: col -> {"keys": sorted values,
+        # "pos": live-row positions, "version": built-at store version}
+        # (reference: nbtree — here a sorted array + binary search, the
+        # pointer-free TPU-era shape of the same idea)
+        self.btree_indexes: dict[str, dict] = {}
+
+    # ------------------------------------------------------------------
+    def _note_mutation(self, min_row: int) -> None:
+        """Bump the store version; log the mutation when it could
+        invalidate some snapshot's prefix (it touched a row below the
+        high-water row count — pure appends at the current tail never
+        do, so they stay unlogged and cost O(1))."""
+        self.version = next(_VERSION_COUNTER)
+        hw = max(self._rows_high_water, self.row_count())
+        if min_row < hw:
+            self._dirty_log.append((self.version, int(min_row)))
+            if len(self._dirty_log) > 128:
+                drop = len(self._dirty_log) - 128
+                self._trim_floor = self._dirty_log[drop - 1][0]
+                del self._dirty_log[:drop]
+        self._rows_high_water = hw
+
+    def _chunk_start(self, ci: int) -> int:
+        """Scan-order position of chunk `ci`'s first row.  Stable under
+        append-only history (inserts only extend the last chunk / append
+        new ones); the ops that DO shift it (vacuum, truncate) log
+        min_row=0 and force a full restage anyway."""
+        return sum(c.nrows for c in self.chunks[:ci])
+
+    def _spans_min_row(self, spans) -> int:
+        """Lowest scan-order row in a backfill span list [(ci, lo, hi)]."""
+        m = NO_ROW
+        for ci, lo, _hi in spans:
+            m = min(m, self._chunk_start(ci) + lo)
+        return m
+
+    def _idx_spans_min_row(self, spans) -> int:
+        """Lowest scan-order row in a delete span list [(ci, idx)]."""
+        m = NO_ROW
+        for ci, idx in spans:
+            if len(idx):
+                m = min(m, self._chunk_start(ci) + int(idx.min()))
+        return m
+
+    def appended_only_since(self, version: int, nrows: int) -> bool:
+        """True when every mutation after `version` touched only rows
+        at scan positions >= nrows — i.e. a snapshot of the first
+        `nrows` rows taken at `version` is still byte-exact and only
+        the tail needs (re)staging.  Conservative: returns False when
+        the bounded log no longer covers the gap (prefix entries were
+        trimmed past the asked-for version)."""
+        if self.version == version:
+            return True
+        if version < self._trim_floor:
+            return False      # entries in the gap may have been dropped
+        for v, r in self._dirty_log:
+            if v > version and r < nrows:
+                return False
+        return True
+
+    def row_count(self) -> int:
+        return sum(c.nrows for c in self.chunks)
+
+    def split_nulls(self, name: str, values):
+        """Split python None entries out of a raw value sequence:
+        returns (clean_values, mask|None).  NULL positions take a
+        DETERMINISTIC type-default fill (""/0/epoch) — never a value from
+        the batch — so NULL distribution-key rows always route to the
+        same shard regardless of batch contents (matches the
+        dist_session routing fill)."""
+        if isinstance(values, np.ndarray) and values.dtype.kind != "O":
+            return values, None
+        mask = np.fromiter((v is None for v in values), dtype=bool,
+                           count=len(values))
+        if not mask.any():
+            return values, None
+        ct = self.td.column(name).type
+        k = ct.kind
+        if k == TypeKind.TEXT:
+            fill = ""
+        elif k == TypeKind.VECTOR:
+            fill = [0.0] * ct.dim
+        elif k == TypeKind.DATE and any(
+                isinstance(v, str) for v in values if v is not None):
+            fill = "1970-01-01"  # string-modal date batch: epoch string
+        else:
+            fill = 0
+        clean = [fill if v is None else v for v in values]
+        return clean, mask
+
+    def encode_column(self, name: str, values) -> np.ndarray:
+        """Convert python/raw values into the stored array representation."""
+        col = self.td.column(name)
+        k = col.type.kind
+        if k == TypeKind.TEXT:
+            if isinstance(values, np.ndarray) and values.dtype.kind in "SU":
+                return self.dicts[name].encode_array(values)
+            return self.dicts[name].encode([str(v) for v in values])
+        arr = np.asarray(values)
+        if k == TypeKind.DECIMAL:
+            from .loader import _PreScaled
+            if isinstance(values, _PreScaled):
+                return np.asarray(values).astype(np.int64)
+            scale = col.type.scale
+            if arr.dtype.kind in "iu":
+                return arr.astype(np.int64) * np.int64(10 ** scale)
+            if arr.dtype.kind == "f":
+                return np.round(arr * 10 ** scale).astype(np.int64)
+            from ..catalog.types import decimal_to_int
+            return np.asarray([decimal_to_int(v, scale)
+                               for v in values], dtype=np.int64)
+        if k == TypeKind.DATE and arr.dtype.kind in "UO":
+            from ..catalog.types import date_to_days
+            return np.asarray([date_to_days(str(v)) for v in values],
+                              dtype=np.int32)
+        if k == TypeKind.VECTOR:
+            if arr.dtype.kind in "UO":
+                # pgvector text form: '[1,2,3]'
+                arr = np.asarray([
+                    np.array(str(v).strip().strip("[]").split(","),
+                             dtype=np.float32)
+                    if isinstance(v, str) else np.asarray(v, np.float32)
+                    for v in values])
+            arr = arr.astype(np.float32)
+            if arr.ndim != 2 or arr.shape[1] != col.type.dim:
+                raise ValueError(
+                    f"vector column {name!r} expects dim {col.type.dim}")
+            return arr
+        return arr.astype(col.type.np_dtype)
+
+    def insert(self, columns: dict[str, np.ndarray], nrows: int,
+               txid: int, shardids: Optional[np.ndarray] = None,
+               commit_ts: Optional[int] = None,
+               nulls: Optional[dict[str, np.ndarray]] = None
+               ) -> list[tuple[int, int, int]]:
+        """Append rows (already encoded).  Returns [(chunk_idx, start, end)]
+        spans for the transaction's backfill list.  If commit_ts is given the
+        rows are born committed (bulk load fast path, like the reference's
+        COPY FREEZE).  `nulls` maps column -> bool mask of NULL positions
+        (value arrays hold type-default fill there)."""
+        if nrows == 0:
+            return []
+        self._mu.acquire()
+        try:
+            return self._insert_locked(columns, nrows, txid, shardids,
+                                       commit_ts, nulls)
+        finally:
+            self._mu.release()
+
+    def _insert_locked(self, columns, nrows, txid, shardids,
+                       commit_ts, nulls):
+        # pure append: the lowest affected row is where the new rows
+        # begin (nothing before it changes)
+        self._note_mutation(self.row_count())
+        spans = []
+        done = 0
+        born_ts = INF_TS if commit_ts is None else np.int64(commit_ts)
+        live_nulls = {n: m for n, m in (nulls or {}).items()
+                      if np.any(m)}
+        self.null_columns |= set(live_nulls)
+        while done < nrows:
+            if not self.chunks or self.chunks[-1].free == 0:
+                self.chunks.append(Chunk.empty(self.td, CHUNK_CAP))
+            ch = self.chunks[-1]
+            take = min(ch.free, nrows - done)
+            lo, hi = ch.nrows, ch.nrows + take
+            for name, arr in columns.items():
+                ch.columns[name][lo:hi] = arr[done:done + take]
+            for name, m in live_nulls.items():
+                ch.null_mask_for(name)[lo:hi] = m[done:done + take]
+            for name in ch.nulls:
+                # a chunk that already tracks nulls for a column must
+                # clear the bits for rows inserted without nulls
+                if name not in live_nulls:
+                    ch.nulls[name][lo:hi] = False
+            ch.xmin_ts[lo:hi] = born_ts
+            ch.xmax_ts[lo:hi] = INF_TS
+            ch.xmin_txid[lo:hi] = txid
+            ch.xmax_txid[lo:hi] = NO_TXID
+            ch.shardid[lo:hi] = (shardids[done:done + take]
+                                 if shardids is not None else -1)
+            ch.nrows = hi
+            spans.append((len(self.chunks) - 1, lo, hi))
+            done += take
+        return spans
+
+    def mark_delete(self, chunk_idx: int, row_mask: np.ndarray,
+                    txid: int) -> tuple[int, np.ndarray]:
+        """Stamp xmax_txid for rows being deleted by txn (pending until
+        commit backfills xmax_ts).  Raises on write-write conflict with
+        another in-progress deleter (the reference blocks on the first
+        updater's xid; we use first-deleter-wins + error, serializable-lite).
+        Returns a (chunk_idx, row_indexes) span for the txn's backfill list.
+        """
+        with self._mu:
+            ch = self.chunks[chunk_idx]
+            idx = np.nonzero(row_mask[:ch.nrows])[0]
+            other = ch.xmax_txid[idx]
+            conflict = (other != NO_TXID) & (other != txid)
+            if conflict.any():
+                raise WriteConflict(
+                    f"row already deleted by in-progress txn "
+                    f"{int(other[conflict][0])}",
+                    holder=other[conflict][0])
+            if ch.lock_txid is not None:
+                lk = ch.lock_txid[idx]
+                lconf = (lk != NO_TXID) & (lk != txid)
+                if lconf.any():
+                    raise WriteConflict(
+                        f"row locked by in-progress txn "
+                        f"{int(lk[lconf][0])}", holder=lk[lconf][0])
+            ch.xmax_txid[idx] = txid
+            self._note_mutation(self._idx_spans_min_row(
+                [(chunk_idx, idx)]))
+            return (chunk_idx, idx)
+
+    def lock_rows(self, chunk_idx: int, row_mask: np.ndarray,
+                  txid: int) -> tuple[int, np.ndarray]:
+        """SELECT FOR UPDATE: stamp row locks without deleting
+        (reference: heap_lock_tuple with LockTupleExclusive — xmax used
+        as a lock marker, HEAP_XMAX_LOCK_ONLY).  Conflicts with other
+        in-progress deleters AND other lockers; same wait protocol as
+        mark_delete.  Returns a (chunk_idx, row_indexes) span cleared at
+        txn end."""
+        with self._mu:
+            ch = self.chunks[chunk_idx]
+            idx = np.nonzero(row_mask[:ch.nrows])[0]
+            other = ch.xmax_txid[idx]
+            conflict = (other != NO_TXID) & (other != txid)
+            if conflict.any():
+                raise WriteConflict(
+                    f"row being deleted by in-progress txn "
+                    f"{int(other[conflict][0])}",
+                    holder=other[conflict][0])
+            la = ch.lock_array()
+            lk = la[idx]
+            lconf = (lk != NO_TXID) & (lk != txid)
+            if lconf.any():
+                raise WriteConflict(
+                    f"row locked by in-progress txn "
+                    f"{int(lk[lconf][0])}", holder=lk[lconf][0])
+            la[idx] = txid
+            return (chunk_idx, idx)
+
+    def truncate(self):
+        """Drop every row immediately (reference: ExecuteTruncate —
+        non-MVCC, the relfilenode swap).  Dictionaries survive (codes
+        may be referenced by WAL records not yet checkpointed).  Takes
+        the store mutex: concurrent host-op inserts must never append
+        into a chunk list being replaced."""
+        with self._mu:
+            self.chunks = []
+            self.ann_indexes = {}
+            self.btree_indexes = {}
+            self.null_columns = set()
+            self._note_mutation(0)
+
+    def clear_locks(self, spans):
+        for ci, idx in spans:
+            ch = self.chunks[ci]
+            if ch.lock_txid is not None:
+                ch.lock_txid[idx] = NO_TXID
+
+    # -- commit/abort backfill (the CSN-log analog: we resolve commit
+    #    timestamps into the hint columns eagerly, host-side; reference
+    #    defers via csnlog.c + tqual.c hint-bit stamping).  All backfills
+    #    are span-driven: commit cost is O(rows touched), not O(table). --
+    def backfill_insert(self, spans, ts: np.int64):
+        self._note_mutation(self._spans_min_row(spans))
+        for ci, lo, hi in spans:
+            self.chunks[ci].xmin_ts[lo:hi] = ts
+
+    def abort_insert(self, spans):
+        self._note_mutation(self._spans_min_row(spans))
+        for ci, lo, hi in spans:
+            self.chunks[ci].xmin_ts[lo:hi] = ABORTED_TS
+
+    def backfill_delete(self, spans, ts: np.int64):
+        self._note_mutation(self._idx_spans_min_row(spans))
+        for ci, idx in spans:
+            self.chunks[ci].xmax_ts[idx] = ts
+
+    def revert_delete(self, spans):
+        self._note_mutation(self._idx_spans_min_row(spans))
+        for ci, idx in spans:
+            self.chunks[ci].xmax_txid[idx] = NO_TXID
+
+    # ------------------------------------------------------------------
+    # ALTER TABLE column surgery (reference: tablecmds.c ATExecAddColumn
+    # / ATExecDropColumn / renameatt — here columnar, so a column op is
+    # a per-chunk array-dict edit, never a rewrite)
+    def alter_add_column(self, cd) -> None:
+        """Existing rows read NULL in the new column (typed zero fill +
+        all-set null bitmap, the t_bits analog)."""
+        if not self.td.has_column(cd.name):
+            self.td.columns.append(cd)
+        from ..catalog.types import TypeKind as _TK
+        if cd.type.kind == _TK.TEXT and cd.name not in self.dicts:
+            self.dicts[cd.name] = StringDict()
+        filled = False
+        for ch in self.chunks:
+            if cd.name not in ch.columns:
+                ch.columns[cd.name] = np.zeros(
+                    (ch.cap, *cd.type.shape_suffix),
+                    dtype=cd.type.np_dtype)
+                ch.nulls[cd.name] = np.ones(ch.cap, dtype=bool)
+                filled = True
+        if filled:
+            self.null_columns.add(cd.name)
+        self._note_mutation(0)
+
+    def alter_drop_column(self, name: str) -> None:
+        self.td.columns = [c for c in self.td.columns if c.name != name]
+        for ch in self.chunks:
+            ch.columns.pop(name, None)
+            ch.nulls.pop(name, None)
+        self.dicts.pop(name, None)
+        self.null_columns.discard(name)
+        self._note_mutation(0)
+
+    def alter_rename_column(self, old: str, new: str) -> None:
+        for c in self.td.columns:
+            if c.name == old:
+                c.name = new
+        for ch in self.chunks:
+            if old in ch.columns:
+                ch.columns[new] = ch.columns.pop(old)
+            if old in ch.nulls:
+                ch.nulls[new] = ch.nulls.pop(old)
+        if old in self.dicts:
+            self.dicts[new] = self.dicts.pop(old)
+        if old in self.null_columns:
+            self.null_columns.discard(old)
+            self.null_columns.add(new)
+        self._note_mutation(0)
+
+    # ------------------------------------------------------------------
+    def scan_chunks(self) -> Iterator[tuple[int, Chunk]]:
+        for i, ch in enumerate(self.chunks):
+            if ch.nrows:
+                yield i, ch
+
+    def vacuum(self, cutoff_ts: int) -> int:
+        """Reclaim dead rows: drop versions deleted before cutoff_ts and
+        aborted inserts; compact chunks (reference: lazy vacuum +
+        shard-granular vacuum, pgxc/shard/shard_vacuum.c).  Returns rows
+        reclaimed."""
+        reclaimed = 0
+        new_chunks: list[Chunk] = []
+        for ch in self.chunks:
+            n = ch.nrows
+            if n == 0:
+                continue
+            dead = ((ch.xmax_ts[:n] <= cutoff_ts)
+                    | (ch.xmin_ts[:n] == ABORTED_TS))
+            keep = ~dead
+            reclaimed += int(dead.sum())
+            if keep.all():
+                new_chunks.append(ch)
+                continue
+            idx = np.nonzero(keep)[0]
+            kept = Chunk(
+                columns={name: arr[:n][idx].copy()
+                         for name, arr in ch.columns.items()},
+                xmin_ts=ch.xmin_ts[:n][idx].copy(),
+                xmax_ts=ch.xmax_ts[:n][idx].copy(),
+                xmin_txid=ch.xmin_txid[:n][idx].copy(),
+                xmax_txid=ch.xmax_txid[:n][idx].copy(),
+                shardid=ch.shardid[:n][idx].copy(),
+                nrows=len(idx), cap=len(idx) if len(idx) else 1,
+                nulls={name: m[:n][idx].copy()
+                       for name, m in ch.nulls.items()})
+            if kept.nrows:
+                new_chunks.append(kept)
+        self.chunks = new_chunks
+        self._note_mutation(0)
+        return reclaimed
+
+    def rows_of_shards(self, shard_ids: set) -> dict:
+        """Extract live rows belonging to the given shard ids (for online
+        shard movement, reference: pgxc/locator/redistrib.c).  NULL
+        positions come back as python None in the value lists (the wire
+        form re-splits them at the destination)."""
+        sel_cols: dict[str, list] = {c.name: [] for c in self.td.columns}
+        sids = []
+        masks = []
+        for ci, ch in self.scan_chunks():
+            n = ch.nrows
+            m = np.isin(ch.shardid[:n], list(shard_ids)) & \
+                (ch.xmax_ts[:n] == INF_TS) & (ch.xmin_ts[:n] < INF_TS)
+            masks.append((ci, m))
+            if m.any():
+                for name in sel_cols:
+                    vals = ch.columns[name][:n][m]
+                    ct = self.td.column(name).type
+                    if ct.kind == TypeKind.TEXT:
+                        out = self.dicts[name].decode(vals)
+                    elif ct.kind == TypeKind.DECIMAL:
+                        # exact decimal strings: the raw-insert path at
+                        # the destination re-scales python ints, which
+                        # would multiply stored (already-scaled) values
+                        # by 10^scale again
+                        out = [_decimal_str(int(v), ct.scale)
+                               for v in vals.tolist()]
+                    else:
+                        out = vals.tolist()
+                    nm = ch.nulls.get(name)
+                    if nm is not None:
+                        out = [None if isnull else v for v, isnull
+                               in zip(out, nm[:n][m])]
+                    sel_cols[name].extend(out)
+                sids.extend(ch.shardid[:n][m].tolist())
+        n_out = len(sids)
+        return {"columns": sel_cols, "shardids":
+                np.asarray(sids, dtype=np.int32), "n": n_out,
+                "masks": masks}
+
+    def build_btree_index(self, col: str) -> int:
+        """(Re)build the sorted index over one column.  Positions address
+        the live-row concatenation order scans use.  Rebuilds are lazy:
+        lookups rebuild when the store version moved (write-heavy
+        workloads amortize; incremental maintenance is a follow-up —
+        reference nbtree inserts keys per tuple)."""
+        cd = self.td.column(col)
+        if cd.type.kind == TypeKind.VECTOR:
+            raise ValueError("btree index unsupported on vector columns")
+        parts = [ch.columns[col][:ch.nrows] for _, ch in
+                 self.scan_chunks()]
+        arr = np.concatenate(parts) if parts else \
+            np.empty(0, cd.type.np_dtype)
+        order = np.argsort(arr, kind="stable")
+        self.btree_indexes[col] = {
+            "keys": np.ascontiguousarray(arr[order]),
+            "pos": order.astype(np.int64),
+            "version": self.version,
+        }
+        return len(arr)
+
+    def btree_lookup(self, col: str, lo=None, hi=None,
+                     lo_strict: bool = False,
+                     hi_strict: bool = False) -> Optional[np.ndarray]:
+        """Live-row positions whose `col` value is within [lo, hi]
+        (bounds optional, strictness per side); None when no index."""
+        idx = self.btree_indexes.get(col)
+        if idx is None:
+            return None
+        if idx["version"] != self.version:
+            self.build_btree_index(col)
+            idx = self.btree_indexes[col]
+        keys = idx["keys"]
+        a = 0 if lo is None else int(np.searchsorted(
+            keys, lo, side="right" if lo_strict else "left"))
+        b = len(keys) if hi is None else int(np.searchsorted(
+            keys, hi, side="left" if hi_strict else "right"))
+        return np.sort(idx["pos"][a:b])
+
+    def host_live_columns(self, colnames,
+                          start: int = 0) -> dict[str, np.ndarray]:
+        """Live-row concatenation (scan order) of the given value
+        columns plus MVCC sys columns and null masks — the ONE host
+        source the staging tiers (spill slabs/partitions, mesh sharding,
+        index-scan subsets) slice from.  With `start`, only rows at scan
+        positions >= start are returned — the buffer pool's incremental
+        tail-staging path (appended_only_since proves the prefix is
+        already resident, so only the tail ever touches the host)."""
+        want = set(colnames)
+        nullcols = {c for c in want if c in self.null_columns}
+        host: dict[str, np.ndarray] = {}
+        chunks: list[tuple[Chunk, int]] = []   # (chunk, row offset)
+        cum = 0
+        for _, ch in self.scan_chunks():
+            lo = max(0, start - cum)
+            cum += ch.nrows
+            if lo < ch.nrows:
+                chunks.append((ch, lo))
+        for name in want:
+            cd = self.td.column(name)
+            arrs = [ch.columns[name][lo:ch.nrows] for ch, lo in chunks]
+            host[name] = np.concatenate(arrs) if arrs else \
+                np.empty((0, *cd.type.shape_suffix), cd.type.np_dtype)
+        for sys in ("xmin_ts", "xmax_ts", "xmin_txid", "xmax_txid"):
+            arrs = [getattr(ch, sys)[lo:ch.nrows] for ch, lo in chunks]
+            host[f"__{sys}"] = np.concatenate(arrs) if arrs else \
+                np.empty(0, np.int64)
+        for name in nullcols:
+            arrs = [ch.nulls[name][lo:ch.nrows] if name in ch.nulls
+                    else np.zeros(ch.nrows - lo, bool)
+                    for ch, lo in chunks]
+            host[f"__null.{name}"] = np.concatenate(arrs) if arrs else \
+                np.zeros(0, bool)
+        return host
+
+    def gather_rows(self, positions: np.ndarray,
+                    colnames) -> dict[str, np.ndarray]:
+        """Host gather of specific live rows (positions in scan
+        concatenation order) — O(k + chunks), the index-scan staging
+        path.  Returns value columns + MVCC sys columns + null masks."""
+        chunks = [ch for _, ch in self.scan_chunks()]
+        starts = np.cumsum([0] + [ch.nrows for ch in chunks])
+        ci = np.searchsorted(starts, positions, side="right") - 1
+        off = positions - starts[ci]
+        out: dict[str, np.ndarray] = {}
+        names = list(colnames)
+        nullcols = [c for c in names if c in self.null_columns]
+        k = len(positions)
+        for name in names:
+            cd = self.td.column(name)
+            buf = np.empty((k, *cd.type.shape_suffix), cd.type.np_dtype)
+            for i, ch in enumerate(chunks):
+                m = ci == i
+                if m.any():
+                    buf[m] = ch.columns[name][off[m]]
+            out[name] = buf
+        for sys in ("xmin_ts", "xmax_ts", "xmin_txid", "xmax_txid"):
+            buf = np.empty(k, np.int64)
+            for i, ch in enumerate(chunks):
+                m = ci == i
+                if m.any():
+                    buf[m] = getattr(ch, sys)[off[m]]
+            out[f"__{sys}"] = buf
+        for name in nullcols:
+            buf = np.zeros(k, bool)
+            for i, ch in enumerate(chunks):
+                m = ci == i
+                if m.any() and name in ch.nulls:
+                    buf[m] = ch.nulls[name][off[m]]
+            out[f"__null.{name}"] = buf
+        return out
+
+    def visible_mask(self, ch: Chunk, snap_ts: int, my_txid: int) -> np.ndarray:
+        """Host-side reference implementation of the visibility rule; the
+        device kernel in ops/visibility.py computes the same mask fused into
+        scans (reference: HeapTupleSatisfiesMVCC, tqual.c:1203,2133)."""
+        n = ch.nrows
+        xmin_ts = ch.xmin_ts[:n]
+        xmax_ts = ch.xmax_ts[:n]
+        ins_visible = (xmin_ts <= snap_ts) | (
+            (ch.xmin_txid[:n] == my_txid) & (xmin_ts != ABORTED_TS))
+        del_visible = (xmax_ts <= snap_ts) | (ch.xmax_txid[:n] == my_txid)
+        return ins_visible & ~del_visible
