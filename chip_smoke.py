@@ -1,13 +1,21 @@
 """Chip smoke test of the PyTorch/CUDA port (opentenbase_tpu_torch).
 
-Drives the port's main path on one CUDA card: CREATE the TPC-H schema,
-bulk-load lineitem at SF1 (6.0 M rows), run TPC-H Q1 and Q6 through
-Session.query, and check the rows against a numpy oracle computed here
-from the generated arrays.  Around that it builds the CUDA kernels from
-opentenbase_tpu_torch/csrc, holds each kernel against its plain PyTorch
-version on the inputs the main path gave it, shows from the launch
-counters that the path went through every kernel, and times the kernels,
-their plain versions and the queries.
+Drives the port's main paths on one CUDA card: CREATE the TPC-H schema,
+bulk-load all eight tables at SF1 (6.0 M lineitem rows), then
+- slice 1: TPC-H Q1 and Q6 through Session.query, checked against numpy
+  oracles computed here from the generated arrays;
+- slice 2: Q3 and Q5 (hash joins, late materialization, sort-based and
+  dense GROUP BY), checked against numpy oracles, and Q4, Q13 and Q22
+  (semi, left outer with a residual, anti joins), checked against the
+  same queries run by the port on the CPU over the same tables (the
+  plain versions, which the tests hold against the JAX package).
+Around that it builds the CUDA kernels from opentenbase_tpu_torch/csrc,
+holds each kernel against its plain PyTorch version on small inputs
+(every branch) and on the inputs the main paths gave it, shows from the
+launch counters (set to 0 before each path, read after it) that each
+path went through each of its kernels, and times the kernels, their
+plain versions, a PyTorch library call where one computes the same
+function, and the queries.
 
 Run from the repository root:  python3 chip_smoke.py  [--sf 1.0]
 It needs one CUDA card and fails (exit code != 0, no result line)
@@ -32,18 +40,46 @@ FP32_OPS_PER_S = 67e12           # H100 SXM non-tensor peak (ops bound)
 SUMF_RTOL = 1e-9                 # f64 atomics sum in another order
 REPS = 5                         # warm query runs behind each median
 DEVICE = "cuda"
+# kernel -> (source, the reference kernel it replaces, the query whose
+# main-path calls are timed)
 KERNEL_SOURCES = {
     "visibility_mask": ("opentenbase_tpu_torch/csrc/visibility.cu",
-                        "opentenbase_tpu/ops/kernels.py:40"),
+                        "opentenbase_tpu/ops/kernels.py:40", 1),
     "decode_column": ("opentenbase_tpu_torch/csrc/codec.cu",
-                      "opentenbase_tpu/ops/kernels.py:55"),
+                      "opentenbase_tpu/ops/kernels.py:55", 1),
     "cmp_on_codes": ("opentenbase_tpu_torch/csrc/codec.cu",
-                     "opentenbase_tpu/ops/kernels.py:69"),
+                     "opentenbase_tpu/ops/kernels.py:69", 1),
     "grouped_agg_dense": ("opentenbase_tpu_torch/csrc/grouped_agg.cu",
-                          "opentenbase_tpu/ops/kernels.py:133"),
+                          "opentenbase_tpu/ops/kernels.py:133", 1),
     "sort_rows": ("opentenbase_tpu_torch/csrc/sort.cu",
-                  "opentenbase_tpu/ops/kernels.py:488"),
+                  "opentenbase_tpu/ops/kernels.py:488", 1),
+    "grouped_agg_sort": ("opentenbase_tpu_torch/csrc/groupsort.cu",
+                         "opentenbase_tpu/ops/kernels.py:178", 3),
+    "join_build": ("opentenbase_tpu_torch/csrc/join.cu",
+                   "opentenbase_tpu/ops/kernels.py:306", 5),
+    "join_probe_counts": ("opentenbase_tpu_torch/csrc/join.cu",
+                          "opentenbase_tpu/ops/kernels.py:349", 5),
+    "join_expand": ("opentenbase_tpu_torch/csrc/join.cu",
+                    "opentenbase_tpu/ops/kernels.py:418", 5),
+    "compose_index": ("opentenbase_tpu_torch/csrc/join.cu",
+                      "opentenbase_tpu/ops/kernels.py:452", 5),
+    "semi_mask": ("opentenbase_tpu_torch/csrc/join.cu",
+                  "opentenbase_tpu/ops/kernels.py:463", 4),
+    "anti_mask": ("opentenbase_tpu_torch/csrc/join.cu",
+                  "opentenbase_tpu/ops/kernels.py:468", 22),
+    "hash_columns": ("opentenbase_tpu_torch/csrc/hash.cu",
+                     "opentenbase_tpu/utils/hashing.py:70", 5),
 }
+SLICE1 = ("visibility_mask", "decode_column", "cmp_on_codes",
+          "grouped_agg_dense", "sort_rows")
+SLICE1_QUERIES = (1, 6)
+# the kernels slice 2's path must reach (Q3 and Q5 on the card, then Q4,
+# Q13 and Q22)
+SLICE2 = ("visibility_mask", "decode_column", "grouped_agg_dense",
+          "grouped_agg_sort", "join_build", "join_probe_counts",
+          "join_expand", "compose_index", "semi_mask", "anti_mask",
+          "sort_rows", "hash_columns")
+SLICE2_QUERIES = (3, 5, 4, 13, 22)
 
 
 class SmokeFailure(RuntimeError):
@@ -146,6 +182,163 @@ def small_kernel_check(torch, K):
     say("kernels vs plain (small inputs and edge branches): ok")
 
 
+def join_cases(np, rng, n):
+    """Build / probe inputs that take each branch of the probe: dense
+    keys (the direct table) and keys spread over int64 (binary search),
+    with NULL keys (INT64_MAX), invalid rows and duplicates."""
+    imax = np.iinfo(np.int64).max
+    bvalid = rng.random(n) < 0.85
+    dense = rng.integers(-100, n // 3, n).astype(np.int64)
+    sparse = rng.integers(-10**15, 10**15, n).astype(np.int64)
+    sparse[::13] = imax
+    m = 4 * n
+    pvalid = rng.random(m) < 0.9
+    pdense = rng.integers(-200, n // 3 + 100, m).astype(np.int64)
+    psparse = rng.choice(sparse, m)
+    psparse[::5] = rng.integers(-10**15, 10**15, len(psparse[::5]))
+    psparse[::17] = imax
+    return [(dense, bvalid, pdense, pvalid, True),
+            (sparse, bvalid, psparse, pvalid, False)]
+
+
+def compare_probe(torch, got, want, what):
+    """Counts equal; lo equal where a row has a match (lo of a row
+    without one is unspecified)."""
+    check(torch.equal(got[1], want[1]), f"join_probe_counts counts differ "
+          f"({what})")
+    hit = want[1] > 0
+    check(torch.equal(got[0][hit], want[0][hit]),
+          f"join_probe_counts lo differs ({what})")
+
+
+def compare_expand(torch, got, want, what):
+    check(int(got[2]) == int(want[2]), f"join_expand total differs ({what})")
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"join_expand pairs differ ({what})")
+
+
+def compare_group(torch, got, want, kinds, what):
+    """Group keys, counts, ints exact; f64 sums within SUMF_RTOL."""
+    (gk, go, gn), (wk, wo, wn) = got, want
+    check(int(gn) == int(wn), f"grouped_agg_sort n_groups ({what})")
+    for g, w in zip(gk, wk):
+        eq = (g == w) | (torch.isnan(g) & torch.isnan(w)) \
+            if g.dtype.is_floating_point else g == w
+        check(g.dtype == w.dtype and bool(eq.all()),
+              f"grouped_agg_sort keys differ ({what})")
+    err = 0.0
+    for k, g, w in zip(kinds, go, wo):
+        check(g.dtype == w.dtype, f"grouped_agg_sort {k} dtype ({what})")
+        if g.dtype.is_floating_point and k in ("sum", "sumf"):
+            d = (g - w).abs()
+            check(bool((d <= SUMF_RTOL * w.abs()).all()),
+                  f"grouped_agg_sort {k} beyond rtol {SUMF_RTOL} ({what})")
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        else:
+            eq = (g == w) | (torch.isnan(g) & torch.isnan(w)) \
+                if g.dtype.is_floating_point else g == w
+            check(bool(eq.all()), f"grouped_agg_sort {k} differs ({what})")
+    return err
+
+
+GROUP_KINDS = ("sum", "sum", "sumf", "count", "min", "max", "min", "max",
+               "sum")
+
+
+def group_cases(np, rng, n):
+    """Key sets for each branch of grouped_agg_sort: packed (three
+    narrow keys), exact with a wrapping packed word (two full-range
+    keys), exact with one hashed key, floats with NaN / +-0.0 and a
+    null-flag key, and no valid row."""
+    imax = np.iinfo(np.int64)
+    valid = rng.random(n) < 0.85
+    a = rng.integers(imax.min, imax.max, 40, dtype=np.int64)
+    f = rng.choice([-1.5, -0.0, 0.0, 2.0, np.nan, -np.nan, np.inf], n)
+    nm = rng.random(n) < 0.2
+    return [
+        ((rng.integers(0, 40, n), rng.integers(8000, 8030, n).astype(
+            np.int32), rng.integers(0, 2, n)), valid),
+        ((rng.choice(a, n), rng.choice(a[:5], n)), valid),
+        ((rng.integers(imax.min, imax.max, n, dtype=np.int64) | 1,), valid),
+        ((f, np.where(nm, 0, rng.integers(0, 4, n)), nm.astype(np.int64)),
+         valid),
+        ((rng.integers(0, 4, n),), np.zeros(n, bool)),
+    ]
+
+
+def join_kernel_check(torch, K):
+    """The join, group-by and hash kernels on small and large inputs,
+    every branch, against their plain versions."""
+    import numpy as np
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(1)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    imin, imax = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+    for n in (1000, (1 << 20) + 7):
+        cols = [rng.integers(imin, imax, n, dtype=np.int64, endpoint=True),
+                rng.integers(-50, 50, n), rng.integers(0, 9, n)]
+        for k in (1, 2, 3):
+            tc = [t(c) for c in cols[:k]]
+            check(torch.equal(K.hash_columns(tc), K.hash_columns_plain(tc)),
+                  f"hash_columns differs ({k} columns, {n} rows)")
+    for n in (1000, (1 << 18) + 5):
+        for bk, bv, pk, pv, direct in join_cases(np, rng, n):
+            what = f"{'direct' if direct else 'search'}, {n} build rows"
+            got = K.join_build(t(bk), t(bv))
+            want = K.join_build_plain(t(bk), t(bv))
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  f"join_build differs ({what})")
+            sk, perm = got
+            lo, cnt = K.join_probe_counts(sk, t(pk), t(pv))
+            compare_probe(torch, (lo, cnt),
+                          K.join_probe_counts_plain(sk, t(pk), t(pv)), what)
+            for outer, pvt in ((False, None), (True, t(pv)), (True, None)):
+                eff = torch.clamp(cnt, min=1) if outer else cnt
+                if pvt is not None:
+                    eff = torch.where(pvt, eff, 0)
+                size = int(eff.sum()) + 100
+                compare_expand(
+                    torch, K.join_expand(lo, cnt, perm, size, outer, pvt),
+                    K.join_expand_plain(lo, cnt, perm, size, outer, pvt),
+                    f"{what}, left_outer={outer}")
+            take = t(rng.integers(0, n, 3 * n))
+            check(torch.equal(K.compose_index(perm, take),
+                              K.compose_index_plain(perm, take)),
+                  f"compose_index differs ({what})")
+            check(torch.equal(K.semi_mask(cnt), K.semi_mask_plain(cnt)),
+                  f"semi_mask differs ({what})")
+            check(torch.equal(K.anti_mask(cnt, t(pv)),
+                              K.anti_mask_plain(cnt, t(pv))),
+                  f"anti_mask differs ({what})")
+        allv = np.zeros(n, bool)
+        got = K.join_build(t(bk), t(allv))
+        want = K.join_build_plain(t(bk), t(allv))
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              "join_build differs (no valid row)")
+        compare_probe(torch, K.join_probe_counts(got[0], t(pk), t(pv)),
+                      K.join_probe_counts_plain(got[0], t(pk), t(pv)),
+                      "no valid build row")
+    for n in (700, 100_000):
+        ins = (rng.integers(-1000, 1000, n).astype(np.int32),
+               rng.integers(-10**12, 10**12, n), rng.normal(0, 1e3, n))
+        ins = tuple(t(x) for x in (ins[0], ins[1], ins[2], ins[1], ins[0],
+                                   ins[1], ins[2], ins[2], ins[2]))
+        for i, (keys, valid) in enumerate(group_cases(np, rng, n)):
+            tk = tuple(t(k) for k in keys)
+            args = (tk, t(valid), ins, 1 << (n - 1).bit_length(),
+                    GROUP_KINDS)
+            compare_group(torch, K.grouped_agg_sort(*args),
+                          K.grouped_agg_sort_plain(*args), GROUP_KINDS,
+                          f"case {i}, {n} rows")
+    torch.cuda.synchronize()
+    say("join / group-by / hash kernels vs plain (both branches, small and "
+        "large inputs): ok")
+
+
 def compare_agg(got, want, kinds, what):
     import torch
     (gouts, gp), (wouts, wp) = got, want
@@ -209,6 +402,89 @@ def oracle(li):
     return q1, q6
 
 
+def _scaled(a):
+    import numpy as np
+    return np.round(np.asarray(a) * 100).astype(np.int64)
+
+
+def _iso(days):
+    import numpy as np
+    return str(np.datetime64("1970-01-01", "D")
+               + np.timedelta64(int(days), "D"))
+
+
+def oracle_q3(data):
+    """Q3 rows with numpy: BUILDING customers' orders before the date,
+    their lineitems shipped after it, revenue per order in scaled int64,
+    top 10 by revenue desc, order date, then order key (the engine's
+    group order)."""
+    import numpy as np
+    c, o, li = data["customer"], data["orders"], data["lineitem"]
+    d = _days("1995-03-15")
+    ck = np.asarray(c["c_custkey"], np.int64)[
+        np.asarray(c["c_mktsegment"]) == "BUILDING"]
+    okey = np.asarray(o["o_orderkey"], np.int64)
+    odate = np.asarray(o["o_orderdate"], np.int64)
+    oship = np.asarray(o["o_shippriority"], np.int64)
+    osel = np.nonzero(np.isin(np.asarray(o["o_custkey"], np.int64), ck)
+                      & (odate < d))[0]
+    osel = osel[np.argsort(okey[osel])]
+    sk = okey[osel]
+    lk = np.asarray(li["l_orderkey"], np.int64)
+    pos = np.minimum(np.searchsorted(sk, lk), max(len(sk) - 1, 0))
+    lsel = (sk[pos] == lk) & (np.asarray(li["l_shipdate"], np.int64) > d)
+    rev = _scaled(li["l_extendedprice"])[lsel] * \
+        (100 - _scaled(li["l_discount"])[lsel])
+    uk, inv = np.unique(lk[lsel], return_inverse=True)
+    sums = np.zeros(len(uk), np.int64)
+    np.add.at(sums, inv, rev)
+    oi = osel[np.searchsorted(sk, uk)]
+    top = np.lexsort((uk, odate[oi], -sums))[:10]
+    return [(int(uk[i]), int(sums[i]) / 10**4, _iso(odate[oi][i]),
+             int(oship[oi][i])) for i in top]
+
+
+def oracle_q5(data):
+    """Q5 rows with numpy: 1994 orders, their lineitems whose supplier's
+    nation is the customer's and lies in ASIA, revenue per nation in
+    scaled int64, by revenue desc."""
+    import numpy as np
+    reg, nat = data["region"], data["nation"]
+    c, o, li, su = (data[t] for t in ("customer", "orders", "lineitem",
+                                      "supplier"))
+    asia = int(np.asarray(reg["r_regionkey"])[
+        np.asarray(reg["r_name"]) == "ASIA"][0])
+    nkey = np.asarray(nat["n_nationkey"], np.int64)
+    in_asia = np.zeros(int(nkey.max()) + 1, bool)
+    in_asia[nkey[np.asarray(nat["n_regionkey"]) == asia]] = True
+    names = dict(zip(nkey.tolist(), list(nat["n_name"])))
+
+    def lookup(keys, vals, want):
+        order = np.argsort(keys)
+        pos = np.minimum(np.searchsorted(keys[order], want), len(keys) - 1)
+        return keys[order][pos] == want, vals[order][pos]
+
+    odate = np.asarray(o["o_orderdate"], np.int64)
+    om = (odate >= _days("1994-01-01")) & (odate < _days("1995-01-01"))
+    _hit, o_cnat = lookup(np.asarray(c["c_custkey"], np.int64),
+                          np.asarray(c["c_nationkey"], np.int64),
+                          np.asarray(o["o_custkey"], np.int64)[om])
+    l_ok, l_cnat = lookup(np.asarray(o["o_orderkey"], np.int64)[om], o_cnat,
+                          np.asarray(li["l_orderkey"], np.int64))
+    s_ok, l_snat = lookup(np.asarray(su["s_suppkey"], np.int64),
+                          np.asarray(su["s_nationkey"], np.int64),
+                          np.asarray(li["l_suppkey"], np.int64))
+    m = l_ok & s_ok & (l_cnat == l_snat) & in_asia[l_snat]
+    rev = _scaled(li["l_extendedprice"])[m] * \
+        (100 - _scaled(li["l_discount"])[m])
+    sums = np.zeros(len(in_asia), np.int64)
+    np.add.at(sums, l_snat[m], rev)
+    seen = np.zeros(len(in_asia), bool)
+    seen[l_snat[m]] = True
+    rows = [(names[k], int(sums[k]) / 10**4) for k in np.nonzero(seen)[0]]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def rows_equal(got, want, what, approx=()):
     """Rows equal exactly, except the columns in `approx` (Q1's averages:
     the same exact f64 sum divided the same way, held to 1e-12)."""
@@ -260,13 +536,19 @@ def time_fn(torch, fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
+
+
+def plain_versions(K):
+    return {n: getattr(K, n + "_plain") for n in KERNEL_SOURCES}
+
+
 def timed_calls(K, plain, name, a, kw):
     """(kernel call, plain call) that time one recorded main-path call.
     The sort is timed at its launch (K.sort_perm on the order words of
     the recorded keys) against sort_perm_plain on the same words, without
     the wrapper's word building and payload gather.  The other wrappers
-    are the launch plus allocating its outputs (for grouped_agg_dense,
-    setting the workspace to its identities on the card)."""
+    are their launches plus allocating outputs and scratch (for the
+    aggregates, setting the workspace to its identities on the card)."""
     if name == "sort_rows":
         words = K.order_words(a[0], a[1], a[3])
         return (lambda: K.sort_perm(words)), \
@@ -279,9 +561,15 @@ def nbytes(t):
     return t.numel() * t.element_size()
 
 
-def call_bytes_ops(name, a, out):
+def _lg(n):
+    return max(int(n - 1).bit_length(), 1)
+
+
+def call_bytes_ops(name, a, kw, out):
     """(bytes each input read once + each output written once, ops) of
-    one kernel call, from this run's tensors."""
+    one kernel call, from this run's tensors.  Sorting work is counted
+    as n log2 n comparisons, the least a comparison sort needs; a
+    gather counts the entries it reads."""
     if name == "visibility_mask":
         n = a[0].shape[0]
         return sum(nbytes(t) for t in a[:4]) + n, 8 * n
@@ -303,6 +591,39 @@ def call_bytes_ops(name, a, out):
         words = (1 + len(keys)) * n * 8
         lg = max(m.bit_length() - 1, 1)
         return words + n * 8, (m // 2) * lg * (lg + 1) // 2 * (2 + len(keys))
+    if name == "grouped_agg_sort":
+        keys, valid, ins, g = a[0], a[1], a[2], int(a[3])
+        n = valid.shape[0]
+        gk, outs, _ng = out
+        by = sum(nbytes(t) for t in keys) + nbytes(valid) \
+            + sum(nbytes(t) for t in ins) + sum(nbytes(t) for t in gk) \
+            + sum(nbytes(t) for t in outs) + 8
+        return by, n * _lg(n) * len(keys) + n * len(ins)
+    if name == "join_build":
+        n = a[0].shape[0]
+        return nbytes(a[0]) + nbytes(a[1]) + 16 * n, n * _lg(n)
+    if name == "join_probe_counts":
+        # sorted keys and probe keys + valid read, lo and count written
+        nb, np_ = a[0].shape[0], a[1].shape[0]
+        return 8 * nb + 9 * np_ + 16 * np_, np_ * _lg(nb)
+    if name == "join_expand":
+        # lo, counts (+ probe_valid) read; each perm entry a pair needs,
+        # at most min(total, nb) of them, read once; the pairs and the
+        # total written
+        n, nb = a[1].shape[0], a[2].shape[0]
+        size = int(a[3])
+        total = int(out[2])
+        pv = 0 if kw.get("probe_valid") is None else n
+        return 16 * n + pv + 8 * min(total, nb) + 16 * size + 8, n + total
+    if name == "compose_index":
+        return 24 * a[1].shape[0], a[1].shape[0]
+    if name in ("semi_mask", "anti_mask"):
+        n = a[0].shape[0]
+        return 9 * n + (n if name == "anti_mask" else 0), n
+    if name == "hash_columns":
+        cols = a[0]
+        n = cols[0].shape[0]
+        return sum(nbytes(c) for c in cols) + 8 * n, 15 * n * len(cols)
     raise KeyError(name)
 
 
@@ -319,14 +640,61 @@ def result_err(torch, got, want):
     return err
 
 
+def compare_call(torch, K, plain, name, a, kw):
+    """Rerun one recorded main-path call through the kernel and through
+    its plain version on the same inputs; returns the max abs error."""
+    got = getattr(K, name)(*a, **kw)
+    want = plain[name](*a, **kw)
+    torch.cuda.synchronize()
+    if name == "grouped_agg_dense":
+        return compare_agg(got, want, a[4], "main path")
+    if name == "grouped_agg_sort":
+        return compare_group(torch, got, want, a[4], "main path")
+    if name == "join_probe_counts":
+        compare_probe(torch, got, want, "main path")
+        return 0.0
+    if name == "join_expand":
+        compare_expand(torch, got, want, "main path")
+        return 0.0
+    e = result_err(torch, got, want)
+    check(e == 0.0, f"{name} differs from its plain version on a main-path "
+          f"call (max err {e})")
+    return e
+
+
+def run_path(torch, K, s, queries, names):
+    """Drive one slice's path: record every kernel call of each query,
+    set the launch counters to 0 just before, read them just after.
+    Returns (rows, cold ms, calls per query, launches)."""
+    calls, restore = record_calls(K, names)
+    per_query, rows, cold = {}, {}, {}
+    K.reset_launches()
+    try:
+        for q in queries:
+            for c in calls.values():
+                c.clear()
+            t0 = time.perf_counter()
+            rows[q] = s.query(Q_TEXT[q])
+            torch.cuda.synchronize()
+            cold[q] = (time.perf_counter() - t0) * 1e3
+            per_query[q] = {n: list(c) for n, c in calls.items()}
+        launches = dict(K.LAUNCHES)
+    finally:
+        restore()
+    return rows, cold, per_query, launches
+
+
+Q_TEXT: dict = {}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor (default 1: about 6.0 M "
                     "lineitem rows)")
     ap.add_argument("--profile", action="store_true",
-                    help="also split warm Q1/Q6 into session phases and "
-                    "profile one of each (torch.profiler)")
+                    help="also split warm Q1/Q6/Q3/Q5 into session phases "
+                    "and profile one of each (torch.profiler)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "opentenbase_tpu_torch")):
         print("chip_smoke: opentenbase_tpu_torch/ not found beside this "
@@ -343,12 +711,14 @@ def main():
     from opentenbase_tpu_torch.tpch import datagen
     from opentenbase_tpu_torch.tpch.queries import Q
     from opentenbase_tpu_torch.tpch.schema import SCHEMA
+    Q_TEXT.update(Q)
 
     t_start = time.perf_counter()
     card = setup(torch)
     small_kernel_check(torch, K)
+    join_kernel_check(torch, K)
 
-    # ---- the slice ----
+    # ---- data: all eight tables ----
     t0 = time.perf_counter()
     data = datagen.generate(sf=args.sf)
     t_gen = time.perf_counter() - t0
@@ -358,64 +728,72 @@ def main():
     check(node.device.type == DEVICE, f"node on {node.device}")
     s = Session(node)
     s.execute(SCHEMA)
-    t0 = time.perf_counter()
-    datagen.load_into(s, {"lineitem": data["lineitem"]}, ("lineitem",))
-    t_load = time.perf_counter() - t0
-    say(f"load lineitem: {t_load:.1f} s")
+    t_load = 0.0
+    for tname in datagen.TABLES:
+        t0 = time.perf_counter()
+        datagen.load_into(s, data, (tname,))
+        dt = time.perf_counter() - t0
+        t_load += dt
+        say(f"load {tname}: {dt:.1f} s "
+            f"({len(next(iter(data[tname].values())))} rows)")
     want_q1, want_q6 = oracle(data["lineitem"])
-
+    want_q3, want_q5 = oracle_q3(data), oracle_q5(data)
     names = list(KERNEL_SOURCES)
-    calls, restore = record_calls(K, names)
-    K.reset_launches()
-    t0 = time.perf_counter()
-    got_q1 = s.query(Q[1])
-    torch.cuda.synchronize()
-    t_q1_cold = time.perf_counter() - t0
-    q1_calls = {n: list(c) for n, c in calls.items()}
-    for c in calls.values():
-        c.clear()
-    t0 = time.perf_counter()
-    got_q6 = s.query(Q[6])
-    torch.cuda.synchronize()
-    t_q6_cold = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    q6_calls = {n: list(c) for n, c in calls.items()}
-    restore()
-    say(f"main path launches (Q1 + Q6): {json.dumps(launches)}")
-    for n in names:
-        check(launches[n] > 0, f"kernel {n} was not launched on the main "
+    plain = plain_versions(K)
+
+    # ---- slice 1: Q1, Q6 ----
+    got1, cold1, calls1, launches1 = run_path(torch, K, s, SLICE1_QUERIES,
+                                              names)
+    say(f"slice 1 path launches (Q1 + Q6): {json.dumps(launches1)}")
+    for n in SLICE1:
+        check(launches1[n] > 0, f"kernel {n} was not launched on slice 1's "
               "path")
-    rows_equal(got_q1, want_q1, "Q1", approx=(6, 7, 8))
-    rows_equal(got_q6, want_q6, "Q6")
-    check(len(got_q1) == 4 and all(np.isfinite(v) for r in got_q1
-                                   for v in r[2:]), "Q1 result shape")
-    say(f"Q1 = numpy oracle ({len(got_q1)} groups); Q6 = numpy oracle "
-        f"(revenue {got_q6[0][0]})")
-    say(f"cold (first, staging included): Q1 {t_q1_cold * 1e3:.1f} ms, "
-        f"Q6 {t_q6_cold * 1e3:.1f} ms; staged "
-        f"{node.cache.uploaded_bytes / 1e6:.1f} MB to the card")
+    rows_equal(got1[1], want_q1, "Q1", approx=(6, 7, 8))
+    rows_equal(got1[6], want_q6, "Q6")
+    check(len(got1[1]) == 4 and all(np.isfinite(v) for r in got1[1]
+                                    for v in r[2:]), "Q1 result shape")
+    say(f"Q1 = numpy oracle ({len(got1[1])} groups); Q6 = numpy oracle "
+        f"(revenue {got1[6][0][0]})")
+    say(f"cold (first, staging included): Q1 {cold1[1]:.1f} ms, Q6 "
+        f"{cold1[6]:.1f} ms")
+
+    # ---- slice 2: Q3, Q5 (oracles), Q4, Q13, Q22 (the port on the CPU) ----
+    got2, cold2, calls2, launches2 = run_path(torch, K, s, SLICE2_QUERIES,
+                                              names)
+    say(f"slice 2 path launches (Q3 + Q5 + Q4 + Q13 + Q22): "
+        f"{json.dumps(launches2)}")
+    for n in SLICE2:
+        check(launches2[n] > 0, f"kernel {n} was not launched on slice 2's "
+              "path")
+    rows_equal(got2[3], want_q3, "Q3")
+    rows_equal(got2[5], want_q5, "Q5")
+    check(len(got2[3]) == 10 and len(got2[5]) == 5, "Q3/Q5 result shape")
+    say(f"Q3 = numpy oracle ({len(got2[3])} rows, top revenue "
+        f"{got2[3][0][1]}); Q5 = numpy oracle ({len(got2[5])} nations)")
+    cpu = LocalNode(device="cpu")
+    # the same tables (host stores, catalog, timestamps) behind a CPU
+    # buffer cache: the port's plain versions answer there
+    cpu.catalog, cpu.stores, cpu.gts = node.catalog, node.stores, node.gts
+    cs = Session(cpu)
+    for q in (4, 13, 22):
+        want = cs.query(Q[q])
+        rows_equal(got2[q], want, f"Q{q} (card vs the port on the CPU)")
+        check(len(want) > 0, f"Q{q} returned no rows")
+        say(f"Q{q} on the card = the port on the CPU ({len(want)} rows)")
+    say("cold (first, staging included): " + ", ".join(
+        f"Q{q} {cold2[q]:.1f} ms" for q in SLICE2_QUERIES))
+    say(f"staged {node.cache.uploaded_bytes / 1e6:.1f} MB to the card")
+    join_shapes(torch, calls2)
 
     # ---- kernels against their plain versions, main-path inputs ----
-    plain = {"visibility_mask": K.visibility_mask_plain,
-             "decode_column": K.decode_column_plain,
-             "cmp_on_codes": K.cmp_on_codes_plain,
-             "grouped_agg_dense": K.grouped_agg_dense_plain,
-             "sort_rows": K.sort_rows_plain}
     max_err = {n: 0.0 for n in names}
-    for qcalls in (q1_calls, q6_calls):
-        for n in names:
-            for a, kw in qcalls[n]:
-                got = getattr(K, n)(*a, **kw)
-                want = plain[n](*a, **kw)
-                torch.cuda.synchronize()
-                if n == "grouped_agg_dense":
-                    max_err[n] = max(max_err[n], compare_agg(
-                        got, want, a[4], "main path"))
-                    continue
-                e = result_err(torch, got, want)
-                check(e == 0.0, f"{n} differs from its plain version on "
-                      f"a main-path call (max err {e})")
-    say("kernels vs plain (main-path inputs): ok")
+    for calls in (calls1, calls2):
+        for qcalls in calls.values():
+            for n in names:
+                for a, kw in qcalls[n]:
+                    max_err[n] = max(max_err[n], compare_call(
+                        torch, K, plain, n, a, kw))
+    say("kernels vs plain (main-path inputs of both paths): ok")
 
     # sort at 2^20 rows: three keys with ties, NaN and +-0.0, and a limit
     rng = np.random.default_rng(7)
@@ -439,38 +817,42 @@ def main():
 
     # ---- times ----
     say(f"card: {card}")
-    q1_ms = statistics.median(
-        [_wall(torch, lambda: s.query(Q[1])) for _ in range(REPS)])
-    q6_ms = statistics.median(
-        [_wall(torch, lambda: s.query(Q[6])) for _ in range(REPS)])
-    say(f"Q1 warm median {q1_ms:.2f} ms ({n_li / q1_ms / 1e3:.1f} Mrows/s), "
-        f"Q6 warm median {q6_ms:.2f} ms ({n_li / q6_ms / 1e3:.1f} Mrows/s) "
-        f"over {REPS} runs [{card}]")
+    for q in (1, 6, 3, 5):
+        ms = statistics.median(
+            [_wall(torch, lambda: s.query(Q[q])) for _ in range(REPS)])
+        say(f"Q{q} warm median {ms:.2f} ms ({n_li / ms / 1e3:.1f} M "
+            f"lineitem rows/s) over {REPS} runs [{card}]")
+    qcalls = {**calls1, **calls2}
     records = []
     for n in names:
+        src, replaces, tq = KERNEL_SOURCES[n]
         ms = pms = bytes_ = ops = 0.0
-        for a, kw in q1_calls[n]:
+        for a, kw in qcalls[tq][n]:
             out = getattr(K, n)(*a, **kw)
             kernel_call, plain_call = timed_calls(K, plain, n, a, kw)
             ms += time_fn(torch, kernel_call)
             pms += time_fn(torch, plain_call)
-            b, o = call_bytes_ops(n, a, out)
+            b, o = call_bytes_ops(n, a, kw, out)
             bytes_ += b
             ops += o
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
-        lib_ms = _library_ms(torch, n, q1_calls[n])
-        src, replaces = KERNEL_SOURCES[n]
+        lib_ms = _library_ms(torch, K, n, qcalls[tq][n])
+        launches = launches1[n] + launches2[n]
         records.append({
             "name": n, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[n], "max_abs_err": max_err[n],
-            "ms": ms, "plain_ms": pms, "bound_ms": max(t_bytes, t_ops),
+            "launches": launches,
+            "launches_by_path": {"q1_q6": launches1[n],
+                                 "q3_q5_q4_q13_q22": launches2[n]},
+            "max_abs_err": max_err[n], "ms": ms, "plain_ms": pms,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms})
-        say(f"kernel {n}: {len(q1_calls[n])} call(s) per Q1, "
+            "library_ms": lib_ms, "timed_on": f"Q{tq}"})
+        say(f"kernel {n}: {len(qcalls[tq][n])} call(s) per Q{tq}, "
             f"{ms:.4f} ms, plain {pms:.4f} ms, bound {max(t_bytes, t_ops):.4f}"
             f" ms ({bytes_ / 1e6:.1f} MB), library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'} [{card}]")
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}; launches "
+            f"{launches1[n]} + {launches2[n]} [{card}]")
     # sort at 2^20 rows, one int64 key: the kernel against torch.sort
     key = torch.from_numpy(rng.integers(-10**12, 10**12, m)).to(dev)
     allv = torch.ones(m, dtype=torch.bool, device=dev)
@@ -494,14 +876,36 @@ def main():
     return 0
 
 
+def join_shapes(torch, calls):
+    """The shapes the joins and the sort-based aggregate saw."""
+    imax = (1 << 63) - 1
+    for q, qc in calls.items():
+        for a, _kw in qc["join_probe_counts"]:
+            sk, pv = a[0], a[2]
+            say(f"Q{q} join: build {sk.shape[0]} padded "
+                f"({int((sk != imax).sum())} live keys), probe "
+                f"{pv.shape[0]} padded ({int(pv.sum())} valid)")
+        for a, kw in qc["join_expand"]:
+            say(f"Q{q} join expansion: {a[1].shape[0]} probe rows, "
+                f"{int(a[1].sum())} matching pairs, output {int(a[3])} rows"
+                f"{' (left outer)' if kw.get('left_outer') else ''}")
+        for a, _kw in qc["grouped_agg_sort"]:
+            say(f"Q{q} sort-based GROUP BY: {a[1].shape[0]} rows "
+                f"({int(a[1].sum())} valid), {len(a[0])} keys, max_groups "
+                f"{int(a[3])}")
+        for a, _kw in qc["hash_columns"]:
+            say(f"Q{q} two-key join hash: {len(a[0])} columns x "
+                f"{a[0][0].shape[0]} rows")
+
+
 def host_phases(torch, s, Q, card, reps):
-    """Warm Q1/Q6 split into the session's phases, medians over `reps`:
+    """Warm queries split into the session's phases, medians over `reps`:
     parse + bind + plan, execute (to a synchronised device batch), and
     materialize (device -> host rows)."""
     from opentenbase_tpu_torch.exec.executor import (ExecContext, Executor,
                                                      materialize)
     from opentenbase_tpu_torch.sql.parser import parse_sql
-    for q in (1, 6):
+    for q in (1, 6, 3, 5):
         plan, run, mat = [], [], []
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -525,11 +929,11 @@ def host_phases(torch, s, Q, card, reps):
 
 
 def profile_queries(torch, s, Q, card):
-    """One warm Q1 and one warm Q6 under torch.profiler: device time by
+    """One warm run of each query under torch.profiler: device time by
     kernel and the device's busy share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for q in (1, 6):
+    for q in (1, 6, 3, 5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -564,19 +968,39 @@ def _wall(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def _library_ms(torch, name, calls):
+def _library_ms(torch, K, name, calls):
     """Time of one PyTorch call computing the same function on the same
-    inputs, where one exists: the int widening `.to()` for a pack-family
-    decode.  None for the others (no single call computes a visibility
-    mask, a code-space compare, Q1's eleven mixed aggregates or a
-    multi-key sort)."""
-    if name != "decode_column" or not calls:
+    inputs, where one exists, summed over the timed calls: the int
+    widening `.to()` of a pack-family decode; a stable torch.sort of the
+    masked build keys (join_build); two torch.searchsorted (the probe's
+    match ranges, without the table); index_select (compose_index);
+    `counts > 0` (semi_mask).  None for the others: no single call
+    computes a visibility mask, a code-space compare, Q1's eleven mixed
+    aggregates, a multi-key sort, a grouped aggregate, a pair expansion,
+    an anti mask or a splitmix64 hash."""
+    if not calls:
         return None
     total = 0.0
     for a, _kw in calls:
-        if a[2] != "pack":
+        if name == "decode_column":
+            if a[2] != "pack":
+                return None
+            fn = (lambda a=a: a[0].to(a[1].dtype))
+        elif name == "join_build":
+            masked = torch.where(a[1], a[0], K.INT64_MAX)
+            fn = (lambda m=masked: torch.sort(m, stable=True))
+        elif name == "join_probe_counts":
+            pk = torch.where(a[2], a[1], K.INT64_MAX - 1)
+            fn = (lambda sk=a[0], pk=pk: (torch.searchsorted(sk, pk),
+                                          torch.searchsorted(sk, pk,
+                                                             right=True)))
+        elif name == "compose_index":
+            fn = (lambda a=a: a[0].index_select(0, a[1]))
+        elif name == "semi_mask":
+            fn = (lambda a=a: a[0] > 0)
+        else:
             return None
-        total += time_fn(torch, lambda: a[0].to(a[1].dtype))
+        total += time_fn(torch, fn)
     return total
 
 

@@ -1,11 +1,11 @@
 """Fragment executor: runs a physical plan over one datanode's stores.
 
-The counterpart of opentenbase_tpu/exec/executor.py, for the operators of
-a single-node scan / filter / project / dense aggregate / sort / limit
-plan (TPC-H Q1 and Q6).  Each operator consumes and produces a DBatch:
-padded device tensors plus a validity mask.  Padding follows the buffer
-cache's size classes; padded rows are masked by the scan's row-count
-belt.
+The counterpart of opentenbase_tpu/exec/executor.py's eager tier, for
+single-node plans of scan / filter / project / hash join (inner, left,
+full, semi, anti, cross) / grouped aggregate (dense and sort-based) /
+sort / limit.  Each operator consumes and produces a DBatch: padded
+device tensors plus a validity mask.  Padding follows the buffer cache's
+size classes; padded rows are masked by the scan's row-count belt.
 
 The scan stages table columns through the node's device cache once per
 table version, decodes encoded columns with the codec kernel, computes
@@ -14,9 +14,18 @@ literal` filters on the codes (cmp_on_codes).  NULLs are per-column
 boolean masks (DBatch.nulls); expressions compile to (value, null-mask)
 pairs (exec/expr_compile.py).
 
-Operators outside the slice (joins, sort-based and distinct aggregates,
-windows, set operations, index and vector scans) raise
-NotImplementedError: nothing is done another way.
+Joins move indices, not payloads (late materialization, the reference's
+default): a join's output carries its inputs' columns as LazyCols behind
+the fresh pair indices, earlier indirections compose (one index gather
+per distinct index vector), and a column is gathered only when an
+expression, an aggregate, a sort or the result reads it.  Each eager
+join reads one value back to the host: its pair count, which sizes the
+output.
+
+Still raising NotImplementedError: final (combine) aggregation, DISTINCT
+aggregates, window functions, set operations, Append, index and vector
+scans, and the reference's fused / morsel / spill / work-sharing tiers.
+Nothing is done another way.
 """
 
 from __future__ import annotations
@@ -44,19 +53,127 @@ class ExecError(Exception):
 
 
 @dataclasses.dataclass
+class LazyCol:
+    """A deferred (late-materialized) column: `src` holds the payload in
+    SOURCE row space and `idx` maps output positions to source rows.
+    Joins compose `idx` instead of gathering `src`.
+
+    `null_src` is the source-space null mask (gathered through `idx` at
+    materialization); `null_out` is an OUTPUT-space mask OR'd on top:
+    outer-join null extension, which exists only in the join's row
+    space."""
+    src: object
+    idx: object
+    null_src: object = None
+    null_out: object = None
+
+    def value(self):
+        return self.src[self.idx]
+
+    def null(self):
+        m = None
+        if self.null_src is not None:
+            m = self.null_src[self.idx]
+        if self.null_out is not None:
+            m = self.null_out if m is None else (m | self.null_out)
+        return m
+
+
+@dataclasses.dataclass
 class DBatch:
     cols: dict[str, object]            # name -> tensor [P]
     valid: object                      # bool tensor [P]
     types: dict[str, SqlType]
     dicts: dict[str, list]             # TEXT col name -> code->str list
     nulls: dict[str, object] = dataclasses.field(default_factory=dict)
+    # late materialization: deferred columns behind an indirection (see
+    # LazyCol).  `cols`/`nulls` hold only materialized columns;
+    # `types`/`dicts` always cover every column.
+    lazy: dict[str, LazyCol] = dataclasses.field(default_factory=dict)
 
     @property
     def padded(self) -> int:
         return int(self.valid.shape[0])
 
+    def count(self) -> int:
+        return int(self.valid.sum())
+
+    # -- late-materialization surface ----------------------------------
     def names(self) -> list[str]:
-        return list(self.cols)
+        return list(self.cols) + [n for n in self.lazy
+                                  if n not in self.cols]
+
+    def has_col(self, name: str) -> bool:
+        return name in self.cols or name in self.lazy
+
+    def maybe_null(self, name: str) -> bool:
+        """Whether the column can carry a null mask (no materialization)."""
+        if name in self.nulls:
+            return True
+        lc = self.lazy.get(name)
+        return lc is not None and (lc.null_src is not None
+                                   or lc.null_out is not None)
+
+    def _materialize_one(self, name: str):
+        lc = self.lazy.pop(name)
+        self.cols[name] = lc.value()
+        m = lc.null()
+        if m is not None:
+            self.nulls[name] = m
+
+    def ensure(self, names) -> "DBatch":
+        """Materialize exactly the named columns (unknown names are
+        fine: init-plan params are not batch columns)."""
+        if self.lazy:
+            for n in names:
+                if n in self.lazy:
+                    self._materialize_one(n)
+        return self
+
+    def ensure_all(self) -> "DBatch":
+        """The single materialization pass of a width-consuming operator
+        (Sort, the FULL join tail, a scalar subquery's result)."""
+        if self.lazy:
+            for n in list(self.lazy):
+                self._materialize_one(n)
+        return self
+
+    def col(self, name: str):
+        if name in self.lazy:
+            self._materialize_one(name)
+        return self.cols[name]
+
+    def col_opt(self, name: str):
+        if name in self.lazy:
+            self._materialize_one(name)
+        return self.cols.get(name)
+
+    def gather_rows(self, take):
+        """(cols, nulls) gathered at output positions `take`, composing
+        straight through any indirection: a len(take)-row consumer never
+        materializes the whole source row space."""
+        cols, nulls = {}, {}
+        composed: dict = {}
+        for n, a in self.cols.items():
+            cols[n] = a[take]
+        for n, m in self.nulls.items():
+            nulls[n] = m[take]
+        for n, lc in self.lazy.items():
+            key = id(lc.idx)
+            src_idx = composed.get(key)
+            if src_idx is None:
+                src_idx = lc.idx[take]
+                composed[key] = src_idx
+            cols[n] = lc.src[src_idx]
+            m = None
+            if lc.null_src is not None:
+                m = lc.null_src[src_idx]
+            if lc.null_out is not None:
+                no = lc.null_out[take]
+                m = no if m is None else (m | no)
+            if m is not None:
+                nulls[n] = m
+        return cols, nulls
 
 
 @dataclasses.dataclass
@@ -124,11 +241,29 @@ class Executor:
             env[NULLKEY + n] = m
         return env
 
+    def _ensure_expr(self, e: E.Expr, batch: DBatch) -> E.Expr:
+        """Prep `e` and materialize exactly the deferred columns it
+        touches.  Runs BEFORE compile: the null-awareness set
+        (frozenset(batch.nulls)) is part of the compiled closure."""
+        pe = self._prep(e)
+        if batch.lazy:
+            batch.ensure(_cols_of(pe))
+        return pe
+
+    def _eval(self, e: E.Expr, batch: DBatch):
+        """Value-only eval (garbage at NULL positions)."""
+        from .expr_compile import compile_expr
+        pe = self._ensure_expr(e, batch)
+        return compile_expr(pe, self._dictviews(batch),
+                            frozenset(batch.nulls),
+                            self.device)(self._env(batch))
+
     def _eval_pair(self, e: E.Expr, batch: DBatch):
         """(value, null_mask|None) eval; the mask is broadcast to batch
         shape so downstream gathers can index it."""
         from .expr_compile import compile_pair
-        vf, nf = compile_pair(self._prep(e), self._dictviews(batch),
+        pe = self._ensure_expr(e, batch)
+        vf, nf = compile_pair(pe, self._dictviews(batch),
                               frozenset(batch.nulls), self.device)
         env = self._env(batch)
         val = vf(env)
@@ -142,14 +277,15 @@ class Executor:
     def _eval_pred(self, e: E.Expr, batch: DBatch):
         """SQL 3VL predicate eval: True where definitely true."""
         from .expr_compile import compile_pred
-        return compile_pred(self._prep(e), self._dictviews(batch),
+        pe = self._ensure_expr(e, batch)
+        return compile_pred(pe, self._dictviews(batch),
                             frozenset(batch.nulls),
                             self.device)(self._env(batch))
 
     # ------------------------------------------------------------------
     def exec_node(self, node: P.PhysNode) -> DBatch:
-        """Run one plan node; a node type of a later slice (joins, window,
-        set operations, index and vector scans) is not yet ported."""
+        """Run one plan node; a node type of a later slice (window, set
+        operations, Append, index and vector scans) is not yet ported."""
         m = getattr(self, f"_exec_{type(node).__name__.lower()}", None)
         if m is None:
             _not_ported(f"plan node {type(node).__name__}")
@@ -282,7 +418,7 @@ class Executor:
         valid = b.valid
         for q in node.quals:
             valid = valid & self._eval_pred(q, b)
-        return DBatch(b.cols, valid, b.types, b.dicts, b.nulls)
+        return DBatch(b.cols, valid, b.types, b.dicts, b.nulls, b.lazy)
 
     def _exec_project(self, node: P.Project) -> DBatch:
         b = self.exec_node(node.child)
@@ -299,6 +435,239 @@ class Executor:
             if nm is not None:
                 nulls[name] = nm
         return DBatch(cols, b.valid, types, dicts, nulls)
+
+    # ---- join ----
+    def _join_key(self, keys: list[E.Expr], b: DBatch):
+        """Combine join key exprs into one int64 key column.  A NULL key
+        never matches: null positions take the kernels' reserved
+        unmatchable sentinel INT64_MAX.  TEXT keys translate to stable
+        string hashes so both sides share a key space (dictionary codes
+        are column-local); text pairs are left out of the hash recheck,
+        since the hash IS the equality.  More than one key hashes to one
+        column (K11); the join then rechecks the keys by value.  Returns
+        (key, hashed, recheckable) where recheckable[i] says key i can be
+        re-verified by value."""
+        from .expr_compile import _text_hash_fn
+        for k in keys:
+            self._ensure_expr(k, b)
+        arrs, nulls, recheckable = [], None, []
+        env = self._env(b)
+        for k in keys:
+            if k.type.kind == TypeKind.TEXT:
+                a = _text_hash_fn(self._prep(k), self._dictviews(b),
+                                  self.device)(env)
+                _, nm = self._eval_pair(k, b)
+                recheckable.append(False)
+            else:
+                a, nm = self._eval_pair(k, b)
+                recheckable.append(True)
+            arrs.append(a)
+            if nm is not None:
+                nulls = nm if nulls is None else (nulls | nm)
+        if len(arrs) == 1:
+            a = arrs[0].to(torch.int64)
+            hashed = False
+        else:
+            a = K.hash_columns([x.to(torch.int64) for x in arrs])
+            hashed = True
+        if nulls is not None:
+            a = torch.where(nulls, torch.full((), K.INT64_MAX,
+                                              dtype=torch.int64,
+                                              device=a.device), a)
+        return a.contiguous(), hashed, recheckable
+
+    @staticmethod
+    def _defer_side(batch: DBatch, take, out: DBatch, extra_null=None):
+        """Carry one join input's columns into the output batch as
+        LazyCols behind `take` (output -> input row indices) instead of
+        gathering payloads.  Existing indirections compose: ONE index
+        gather (K9 compose_index) per distinct source index vector,
+        shared by every column riding it.  `extra_null` is an
+        output-space mask (outer-join null extension) OR'd onto every
+        carried column's null."""
+        composed: dict = {}
+        for n_, a in batch.cols.items():
+            out.lazy[n_] = LazyCol(a, take, batch.nulls.get(n_),
+                                   extra_null)
+            out.types[n_] = batch.types[n_]
+            if n_ in batch.dicts:
+                out.dicts[n_] = batch.dicts[n_]
+        for n_, lc in batch.lazy.items():
+            key = id(lc.idx)
+            nidx = composed.get(key)
+            if nidx is None:
+                nidx = K.compose_index(lc.idx, take)
+                composed[key] = nidx
+            no = lc.null_out[take] if lc.null_out is not None else None
+            if extra_null is not None:
+                no = extra_null if no is None else (no | extra_null)
+            out.lazy[n_] = LazyCol(lc.src, nidx, lc.null_src, no)
+            out.types[n_] = batch.types[n_]
+            if n_ in batch.dicts:
+                out.dicts[n_] = batch.dicts[n_]
+
+    @staticmethod
+    def _or_null_out(out: DBatch, names, mask):
+        """OR an output-space null mask onto the named columns (lazy or
+        materialized): the outer-join revert path."""
+        for n_ in names:
+            lc = out.lazy.get(n_)
+            if lc is not None:
+                lc.null_out = mask if lc.null_out is None \
+                    else (lc.null_out | mask)
+            else:
+                m = out.nulls.get(n_)
+                out.nulls[n_] = mask if m is None else (m | mask)
+
+    def _hits(self, seg, flag, num_segments: int):
+        """Per-segment count of rows whose flag is set (segment ids in
+        [0, num_segments)): K4's dense aggregation with no aggregate, its
+        `present` row."""
+        _outs, present = K.grouped_agg_dense(seg, flag, (), num_segments,
+                                             ())
+        return present
+
+    def _exec_hashjoin(self, node: P.HashJoin) -> DBatch:
+        left = self.exec_node(node.left)
+        right = self.exec_node(node.right)
+
+        if node.kind == "cross":
+            return self._cross_join(left, right)
+
+        if node.kind == "inner" and right.padded > left.padded:
+            # build the SMALLER side (reference: nodeHash.c hashes the
+            # cheaper input): inner joins are symmetric
+            node = dataclasses.replace(node, left=node.right,
+                                       right=node.left,
+                                       left_keys=node.right_keys,
+                                       right_keys=node.left_keys)
+            left, right = right, left
+
+        lkey, lhashed, lcheck = self._join_key(node.left_keys, left)
+        rkey, rhashed, rcheck = self._join_key(node.right_keys, right)
+        skeys, perm = K.join_build(rkey, right.valid)
+        lo, counts = K.join_probe_counts(skeys, lkey, left.valid)
+
+        hash_recheck = []
+        if lhashed or rhashed:
+            hash_recheck = [
+                (lk, rk) for (lk, rk), lok, rok in
+                zip(zip(node.left_keys, node.right_keys), lcheck, rcheck)
+                if lok and rok]
+
+        if node.kind in ("semi", "anti") and not node.residual \
+                and not hash_recheck:
+            mask = K.semi_mask(counts) if node.kind == "semi" \
+                else K.anti_mask(counts, left.valid)
+            return DBatch(left.cols, left.valid & mask, left.types,
+                          left.dicts, left.nulls, left.lazy)
+
+        left_outer = node.kind in ("left", "full")
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        eff = torch.where(left.valid, torch.clamp(counts, min=1), zero) \
+            if left_outer else counts
+        # the join's one host read: its pair count sizes the output
+        total = int(eff.sum())
+        out_size = next_pow2(max(total, 1))
+        pi, bi, _tot = K.join_expand(lo, counts, perm, out_size,
+                                     left_outer=left_outer,
+                                     probe_valid=left.valid)
+        valid = torch.arange(out_size, device=self.device) < total
+        null_right = (bi < 0) if left_outer else None
+        bi_safe = torch.clamp(bi, min=0) if left_outer else bi
+
+        # late materialization: the output carries both inputs' columns
+        # behind the fresh pair indices (pi / bi)
+        out = DBatch({}, valid, {}, {}, {})
+        self._defer_side(left, pi, out)
+        self._defer_side(right, bi_safe, out, extra_null=null_right)
+        right_names = right.names()
+
+        # residual quals (incl. hash recheck for multi-key joins)
+        res_valid = out.valid
+        for lk, rk in hash_recheck:
+            res_valid = res_valid & (self._eval(lk, out) ==
+                                     self._eval(rk, out))
+        for q in node.residual:
+            res_valid = res_valid & self._eval_pred(q, out)
+
+        if node.kind in ("semi", "anti"):
+            # per-probe-row any(): count surviving pairs per probe row
+            hits = self._hits(pi, res_valid, left.padded)
+            mask = hits > 0 if node.kind == "semi" else \
+                (left.valid & (hits == 0))
+            return DBatch(left.cols, left.valid & mask, left.types,
+                          left.dicts, left.nulls, left.lazy)
+        if left_outer:
+            null_ext = null_right
+            if hash_recheck or node.residual:
+                # Null-extended pairs (bi<0) gathered build row 0's
+                # columns, so the recheck/residual verdict on them is
+                # garbage: they are judged by whether any REAL pair of
+                # their probe row survived.  A probe row whose real pairs
+                # were ALL killed reverts to null extension (reference:
+                # ExecHashJoin emits the null-filled tuple when
+                # HJ_FILL_OUTER and no match passed joinqual): its first
+                # output pair becomes the null-extended one.
+                real_surv = res_valid & ~null_ext & out.valid
+                hits = self._hits(pi, real_surv, left.padded)
+                need_null = left.valid & (hits == 0)
+                idx = torch.arange(out_size, dtype=torch.int64,
+                                   device=self.device)
+                (first_idx,), _p = K.grouped_agg_dense(
+                    pi, out.valid, (idx,), left.padded, ("min",))
+                is_first = out.valid & (idx == first_idx[pi])
+                to_null = is_first & need_null[pi]
+                self._or_null_out(out, right_names, to_null)
+                out.valid = real_surv | to_null
+                null_ext = null_ext | to_null
+            if node.kind != "full":
+                return out
+            # FULL: append the unmatched BUILD rows null-extended on the
+            # left, computed AFTER recheck/revert so pairs killed there
+            # count their build row as unmatched (reference: ExecHashJoin
+            # HJ_FILL_INNER).  The tail concat is width-consuming:
+            # materialize both row spaces.
+            out.ensure_all()
+            right.ensure_all()
+            bhits = self._hits(bi_safe, out.valid & ~null_ext,
+                               right.padded)
+            r_unmatched = right.valid & (bhits == 0)
+            cols2, nulls2 = {}, {}
+            for n_, a in out.cols.items():
+                if n_ in right.cols:
+                    cols2[n_] = torch.cat([a, right.cols[n_]])
+                    tail_m = right.nulls.get(
+                        n_, torch.zeros(right.padded, dtype=torch.bool,
+                                        device=self.device))
+                else:  # left column: null-extended in the appended rows
+                    pad = torch.zeros((right.padded, *a.shape[1:]),
+                                      dtype=a.dtype, device=a.device)
+                    cols2[n_] = torch.cat([a, pad])
+                    tail_m = torch.ones(right.padded, dtype=torch.bool,
+                                        device=self.device)
+                base_m = out.nulls.get(
+                    n_, torch.zeros(out.padded, dtype=torch.bool,
+                                    device=self.device))
+                nulls2[n_] = torch.cat([base_m, tail_m])
+            valid2 = torch.cat([out.valid, r_unmatched])
+            return DBatch(cols2, valid2, out.types, out.dicts, nulls2)
+        out.valid = res_valid
+        return out
+
+    def _cross_join(self, left: DBatch, right: DBatch) -> DBatch:
+        ln, rn = left.count(), right.count()
+        if ln * rn > 1 << 22:
+            raise ExecError("cross join too large")
+        dev = self.device
+        lidx = torch.arange(left.padded, device=dev).repeat_interleave(
+            right.padded)
+        ridx = torch.arange(right.padded, device=dev).repeat(left.padded)
+        valid = left.valid[lidx] & right.valid[ridx]
+        out = DBatch({}, valid, {}, {}, {})
+        self._defer_side(left, lidx, out)
+        self._defer_side(right, ridx, out)
+        return out
 
     # ---- aggregate ----
     def _eval_group_keys(self, node: P.Agg, b: DBatch):
@@ -330,15 +699,26 @@ class Executor:
             key_dicts.append(d)
         return key_arrs, key_types, key_dicts, key_nulls
 
+    @staticmethod
+    def _grouping_arrays(key_arrs, key_nulls):
+        """Key tuple for the sort-based aggregate: values plus
+        null-indicator columns (so the NULL group is distinct from the
+        value-0 group)."""
+        extra = [nm.to(torch.int64) for nm in key_nulls if nm is not None]
+        return tuple(key_arrs) + tuple(extra)
+
     def _assemble_agg_output(self, node: P.Agg, gkey_out, key_types,
-                             key_dicts, outs, out_specs, out_valid):
+                             key_dicts, outs, out_specs, out_valid,
+                             gkey_nulls=None):
         cols, types, dicts, nulls = {}, {}, {}, {}
-        for (kname, _), karr, kt, kd in zip(node.group_keys, gkey_out,
-                                             key_types, key_dicts):
+        for i, ((kname, _), karr, kt, kd) in enumerate(
+                zip(node.group_keys, gkey_out, key_types, key_dicts)):
             cols[kname] = karr.to(dev_dtype(kt))
             types[kname] = kt
             if kd is not None:
                 dicts[kname] = kd
+            if gkey_nulls is not None and gkey_nulls[i] is not None:
+                nulls[kname] = gkey_nulls[i]
         oi = 0
         for name, t, special in out_specs:
             if special is not None and special[0] == "avg":
@@ -446,6 +826,7 @@ class Executor:
 
         n = b.padded
         dev = self.device
+        gkey_nulls = [None] * len(key_arrs)
         if not key_arrs:
             gid = torch.zeros(n, dtype=torch.int64, device=dev)
             outs, _present = K.grouped_agg_dense(
@@ -455,30 +836,41 @@ class Executor:
         else:
             dense_bound = _dense_bound(key_types, key_dicts) \
                 if not any(nm is not None for nm in key_nulls) else None
-            if dense_bound is None or dense_bound > 4096:
-                _not_ported("sort-based GROUP BY")
-            gid = torch.zeros(n, dtype=torch.int64, device=dev)
-            mult = 1
-            doms = [len(d) if d is not None else 2 for d in key_dicts]
-            for arr, dom in zip(key_arrs, doms):
-                gid = gid * dom + torch.clamp(arr, 0, dom - 1)
-                mult *= dom
-            outs, present = K.grouped_agg_dense(
-                gid, b.valid, tuple(inputs), mult, tuple(kinds))
-            out_valid = present > 0
-            # decode group keys from the dense group id
-            rem = torch.arange(mult, dtype=torch.int64, device=dev)
-            gkey_out = []
-            for i in reversed(range(len(key_arrs))):
-                gkey_out.insert(0, rem % doms[i])
-                rem = torch.div(rem, doms[i], rounding_mode="floor")
+            if dense_bound is not None and dense_bound <= 4096:
+                gid = torch.zeros(n, dtype=torch.int64, device=dev)
+                mult = 1
+                doms = [len(d) if d is not None else 2 for d in key_dicts]
+                for arr, dom in zip(key_arrs, doms):
+                    gid = gid * dom + torch.clamp(arr, 0, dom - 1)
+                    mult *= dom
+                outs, present = K.grouped_agg_dense(
+                    gid, b.valid, tuple(inputs), mult, tuple(kinds))
+                out_valid = present > 0
+                # decode group keys from the dense group id
+                rem = torch.arange(mult, dtype=torch.int64, device=dev)
+                gkey_out = []
+                for i in reversed(range(len(key_arrs))):
+                    gkey_out.insert(0, rem % doms[i])
+                    rem = torch.div(rem, doms[i], rounding_mode="floor")
+            else:
+                max_groups = next_pow2(max(b.count(), 1))
+                gkeys, outs, ng = K.grouped_agg_sort(
+                    self._grouping_arrays(key_arrs, key_nulls), b.valid,
+                    tuple(inputs), max_groups, tuple(kinds))
+                out_valid = torch.arange(max_groups, device=dev) < int(ng)
+                gkey_out = list(gkeys[:len(key_arrs)])
+                extra = list(gkeys[len(key_arrs):])
+                for i, nm in enumerate(key_nulls):
+                    if nm is not None:
+                        gkey_nulls[i] = extra.pop(0).to(torch.bool)
         return self._assemble_agg_output(node, gkey_out, key_types,
                                          key_dicts, outs, out_specs,
-                                         out_valid)
+                                         out_valid, gkey_nulls)
 
     # ---- sort / limit ----
     def _exec_sort(self, node: P.Sort) -> DBatch:
-        b = self.exec_node(node.child)
+        # width-consuming: every carried column rides the sort payload
+        b = self.exec_node(node.child).ensure_all()
         key_arrs, descs = [], []
         for ke, desc in node.keys:
             arr, nm = self._eval_pair(ke, b)
@@ -525,7 +917,7 @@ class Executor:
             keep = keep & (idx > node.offset)
         if node.count is not None:
             keep = keep & (idx <= (node.count + node.offset))
-        return DBatch(b.cols, keep, b.types, b.dicts, b.nulls)
+        return DBatch(b.cols, keep, b.types, b.dicts, b.nulls, b.lazy)
 
     def _exec_result(self, node: P.Result) -> DBatch:
         cols, types, nulls = {}, {}, {}
@@ -573,6 +965,7 @@ def _host(t) -> np.ndarray:
 def scalar_from_batch(b: DBatch):
     """One value or SQL NULL (None) from a scalar-subquery result — an
     empty subquery is NULL, not 0."""
+    b.ensure_all()
     name = next(iter(b.cols))
     valid = _host(b.valid)
     vals = _host(b.cols[name])[valid]
@@ -587,9 +980,11 @@ def scalar_from_batch(b: DBatch):
 
 def materialize(b: DBatch, names: Optional[list[str]] = None):
     """DBatch -> (column_names, list of python row tuples), decoded.
-    The final-projection materialization point (host copy)."""
+    The final-projection materialization point (host copy): only the
+    requested columns leave the indirection layer."""
     if names is None:
         names = b.names()
+    b.ensure(names)
     valid = _host(b.valid)
     rows_idx = np.nonzero(valid)[0]
     out_cols = []

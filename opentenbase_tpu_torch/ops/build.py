@@ -27,14 +27,29 @@ CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-#: C entry points: name -> argtypes (every one returns cudaGetLastError())
+#: C entry points: name -> argtypes (every one but those in RESTYPES
+#: returns cudaGetLastError() as an int)
 SIGNATURES = {
     "otbt_visibility_mask": [_P, _P, _P, _P, _LL, _LL, _LL, _P, _LL, _P],
     "otbt_decode_column": [_P, _I, _P, _I, _I, _LL, _P, _LL, _P],
     "otbt_cmp_on_codes": [_P, _I, _P, _I, _I, _LL, _I, _LL, _P, _LL, _P],
     "otbt_grouped_agg_dense": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
     "otbt_sort_perm": [_P, _I, _LL, _P, _LL, _P],
+    "otbt_group_key_stats": [_P, _I, _LL, _P, _P, _P, _P],
+    "otbt_group_words": [_P, _I, _LL, _P, _P, _P, _I, _LL, _P, _P],
+    "otbt_group_ids": [_P, _I, _LL, _P, _P, _LL, _P, _P, _P, _P, _P, _P,
+                       _P],
+    "otbt_join_build": [_P, _P, _LL, _P, _P, _LL, _P, _P],
+    "otbt_join_probe_counts": [_P, _LL, _P, _P, _LL, _LL, _P, _P, _P, _P,
+                               _P, _P],
+    "otbt_join_expand": [_P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P,
+                         _LL, _P],
+    "otbt_compose_index": [_P, _LL, _P, _LL, _P, _P],
+    "otbt_join_mask": [_P, _P, _LL, _I, _P, _P],
+    "otbt_hash_columns": [_P, _I, _LL, _P, _P],
+    "otbt_scan_tiles": [_LL],
 }
+RESTYPES = {"otbt_scan_tiles": _LL}
 
 _lock = threading.Lock()
 _lib = None
@@ -113,6 +128,6 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(dll, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, _I)
             _lib = dll
         return _lib

@@ -1,4 +1,5 @@
-"""Device kernels of the scan / aggregate / sort path, hand-written in CUDA.
+"""Device kernels of the scan / join / aggregate / sort path, hand-written
+in CUDA.
 
 The counterpart of opentenbase_tpu/ops/kernels.py.  Each kernel here has
 three parts:
@@ -26,12 +27,17 @@ import numpy as np
 import torch
 
 from ..utils.dtypes import device_float
+from ..utils.hashing import hash_columns_plain
 
 INT64_MAX = (1 << 63) - 1
+INT64_MIN = -(1 << 63)
 
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {"visibility_mask": 0, "decode_column": 0, "cmp_on_codes": 0,
-            "grouped_agg_dense": 0, "sort_rows": 0}
+            "grouped_agg_dense": 0, "grouped_agg_sort": 0, "join_build": 0,
+            "join_probe_counts": 0, "join_expand": 0, "compose_index": 0,
+            "semi_mask": 0, "anti_mask": 0, "sort_rows": 0,
+            "hash_columns": 0}
 
 
 def reset_launches() -> None:
@@ -78,6 +84,19 @@ def _ok(rc: int, name: str) -> None:
 
 def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
+
+
+def _pow2_at_least(n: int) -> int:
+    m = 1
+    while m < n:
+        m <<= 1
+    return m
+
+
+def _scan_tiles(n: int) -> int:
+    """Entries of a scan's tile-sum scratch over n rows (csrc/scan.cuh
+    sets the tile size; the library reports it)."""
+    return _lib().otbt_scan_tiles(n)
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +318,17 @@ def grouped_agg_dense(group_id, valid, agg_inputs: tuple,
     if _on_cpu(group_id, valid, *agg_inputs):
         return grouped_agg_dense_plain(group_id, valid, agg_inputs,
                                        num_groups, agg_kinds)
+    outs, present, launches = _agg_dense_launch(
+        group_id, valid, agg_inputs, num_groups, agg_kinds)
+    LAUNCHES["grouped_agg_dense"] += launches
+    return outs, present
+
+
+def _agg_dense_launch(group_id, valid, agg_inputs: tuple, num_groups: int,
+                      agg_kinds: tuple):
+    """The K4 kernel's launches (one per 32 aggregates) on CUDA tensors:
+    (outputs, present, launches).  Shared by grouped_agg_dense and the
+    segment reduce of grouped_agg_sort; each wrapper counts its own."""
     n = group_id.shape[0]
     _check(group_id, "group_id", (torch.int64,), n)
     _check(valid, "valid", (torch.bool,), n)
@@ -306,7 +336,7 @@ def grouped_agg_dense(group_id, valid, agg_inputs: tuple,
         raise ValueError("num_groups must be >= 1")
     for v in agg_inputs:
         _check(v, "agg input", tuple(_DT), n)
-    outs, present = [], None
+    outs, present, launches = [], None, 0
     for lo in range(0, max(len(agg_kinds), 1), _MAX_AGGS):
         kinds = agg_kinds[lo:lo + _MAX_AGGS]
         ins = agg_inputs[lo:lo + _MAX_AGGS]
@@ -329,7 +359,7 @@ def grouped_agg_dense(group_id, valid, agg_inputs: tuple,
             (ctypes.c_longlong * max(k, 1))(*(i for _, i in codes)),
             _ptr(ws), _stream())
         _ok(rc, "grouped_agg_dense")
-        LAUNCHES["grouped_agg_dense"] += 1
+        launches += 1
         ws = ws.view(k + 1, num_groups)
         for a, ((code, _i), v) in enumerate(zip(codes, ins)):
             row = ws[a]
@@ -341,7 +371,7 @@ def grouped_agg_dense(group_id, valid, agg_inputs: tuple,
             outs.append(row)
         if present is None:
             present = ws[k]
-    return tuple(outs), present
+    return tuple(outs), present, launches
 
 
 # ---------------------------------------------------------------------------
@@ -433,3 +463,433 @@ def sort_rows(key_cols: tuple, valid, payload_cols: tuple,
     are elementwise glue."""
     return _sort_rows(key_cols, valid, payload_cols, descs, limit,
                       sort_perm)
+
+
+# ---------------------------------------------------------------------------
+# K5 sort-based grouped aggregation (reference: ops/kernels.py:178)
+# ---------------------------------------------------------------------------
+
+def _sortable_ints(key_cols: tuple) -> torch.Tensor:
+    """[k, n] int64 equality-preserving images of the key columns: ints
+    and bools widen; floats ride their f64 bit pattern with -0.0 made
+    0.0 and NaNs left as they are (grouping needs equality, not order:
+    unlike K10, no NaN canonicalisation)."""
+    out = []
+    for k in key_cols:
+        if k.dtype.is_floating_point:
+            k = k.to(torch.float64)
+            k = torch.where(k == 0, torch.zeros((), dtype=k.dtype,
+                                                device=k.device), k)
+            out.append(k.view(torch.int64))
+        else:
+            out.append(k.to(torch.int64))
+    return torch.stack(out).contiguous()
+
+
+def _pack_gate(mins, maxs, n: int):
+    """The reference's single-word pack test (ops/kernels.py:217-226),
+    in float32 as there: sum of log2(span + 2) over the keys plus
+    log2(n + 2) under 62 bits, spans measured as uint64.  Returns
+    (fast, top): top = product of the key ranges, the word every
+    invalid row packs to (above every valid row's)."""
+    bits = np.float32(0)
+    top = 1
+    for mn, mx in zip(mins, maxs):
+        span = int(mx) - int(mn) if mx >= mn else 0
+        top *= span + 1
+        bits = np.float32(bits + np.log2(np.float32(span) + np.float32(2)))
+    bits = np.float32(bits + np.log2(np.float32(n + 2)))
+    fast = bool(bits < np.float32(62.0))
+    return fast, (top if fast else 0)
+
+
+def _wrap64(v: int) -> int:
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _group_words_plain(ints, valid, mins, maxs, fast: bool, top: int):
+    """Sort words of the two reference branches.  fast: one word, the
+    keys packed as acc = acc * range + (k - min), invalid rows = top.
+    exact: [invalid, packed (wrapping int64), ints...] (the packed word
+    only for more than one key)."""
+    k, n = ints.shape
+    dev = ints.device
+    if fast:
+        acc = torch.zeros(n, dtype=torch.int64, device=dev)
+        for c in range(k):
+            mn, mx = int(mins[c]), int(maxs[c])
+            rng = (mx - mn if mx >= mn else 0) + 1
+            acc = acc * rng + torch.clamp(ints[c] - mn, 0, rng - 1)
+        word = torch.where(valid, acc, torch.full((), top, dtype=torch.int64,
+                                                  device=dev))
+        return word.unsqueeze(0).contiguous()
+    words = [(~valid).to(torch.int64)]
+    if k > 1:
+        packed = torch.zeros(n, dtype=torch.int64, device=dev)
+        for c in range(k):
+            mn, mx = int(mins[c]), int(maxs[c])
+            packed = packed * _wrap64(mx - mn + 1) + torch.where(
+                valid, ints[c] - mn, torch.zeros((), dtype=torch.int64,
+                                                 device=dev))
+        words.append(packed)
+    words.extend(ints)
+    return torch.stack(words).contiguous()
+
+
+def grouped_agg_sort_plain(key_cols: tuple, valid, agg_inputs: tuple,
+                           max_groups: int, agg_kinds: tuple):
+    ints = _sortable_ints(key_cols)
+    k, n = ints.shape
+    dev = ints.device
+    i64 = torch.iinfo(torch.int64)
+    mins = torch.where(valid, ints, i64.max).amin(dim=1).tolist()
+    maxs = torch.where(valid, ints, i64.min).amax(dim=1).tolist()
+    fast, top = _pack_gate(mins, maxs, n)
+    perm = sort_perm_plain(_group_words_plain(ints, valid, mins, maxs,
+                                              fast, top))
+    s_valid = valid[perm]
+    s_ints = ints[:, perm]
+    differs = (s_ints != torch.roll(s_ints, 1, dims=1)).any(dim=0)
+    first = torch.arange(n, device=dev) == 0
+    boundary = s_valid & (first | differs)
+    n_groups = boundary.sum()
+    gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    gid_row = torch.empty(n, dtype=torch.int64, device=dev)
+    gid_row[perm] = torch.where(s_valid, gid, torch.full(
+        (), max_groups, dtype=torch.int64, device=dev))
+    outs, _ = grouped_agg_dense_plain(gid_row, valid, agg_inputs,
+                                      max_groups, agg_kinds)
+    starts = torch.nonzero(boundary).flatten()[:max_groups]
+    take = perm[:1].repeat(max_groups)
+    take[:starts.shape[0]] = perm[starts]
+    gkeys = tuple(kc.index_select(0, take) for kc in key_cols)
+    return gkeys, outs, n_groups
+
+
+def grouped_agg_sort(key_cols: tuple, valid, agg_inputs: tuple,
+                     max_groups: int, agg_kinds: tuple):
+    """General grouped aggregation: sort on the keys (invalid rows
+    last), mark group boundaries, number the groups, reduce each group.
+    Returns (group key columns [max_groups], aggregate outputs
+    [max_groups], n_groups).  Groups come in the reference's order: the
+    order of the packed key word when the pack fits 62 bits, else of
+    [packed (wrapping), keys...].  The caller keeps n_groups <=
+    max_groups.
+
+    On the card: the key statistics, the sort words, the sort (K10's
+    kernel), the boundaries and their scan are kernels of groupsort.cu
+    and sort.cu, and the segment reduce is K4's kernel over the group
+    id scattered back to row order.  One host read per call: the key
+    minima and maxima, which choose the branch and size the words."""
+    max_groups = int(max_groups)
+    if any(k not in _AGG_KINDS for k in agg_kinds):
+        raise ValueError(f"unknown aggregate kinds {agg_kinds}")
+    if not key_cols:
+        raise ValueError("grouped_agg_sort needs at least one key")
+    if _on_cpu(valid, *key_cols, *agg_inputs):
+        return grouped_agg_sort_plain(key_cols, valid, agg_inputs,
+                                      max_groups, agg_kinds)
+    n = valid.shape[0]
+    _check(valid, "valid", (torch.bool,), n)
+    if max_groups < 1:
+        raise ValueError("max_groups must be >= 1")
+    for kc in key_cols:
+        if kc.dim() != 1 or kc.shape[0] != n:
+            raise ValueError("key columns: want [n] tensors")
+    dev = valid.device
+    lib = _lib()
+    ints = _sortable_ints(key_cols)
+    k = ints.shape[0]
+    mins = torch.full((k,), INT64_MAX, dtype=torch.int64, device=dev)
+    maxs = torch.full((k,), INT64_MIN, dtype=torch.int64, device=dev)
+    _ok(lib.otbt_group_key_stats(_ptr(ints), k, n, _ptr(valid), _ptr(mins),
+                                 _ptr(maxs), _stream()), "grouped_agg_sort")
+    mm = torch.stack([mins, maxs]).cpu().tolist()
+    fast, top = _pack_gate(mm[0], mm[1], n)
+    w = 1 if fast else 1 + k + (1 if k > 1 else 0)
+    words = torch.empty((w, n), dtype=torch.int64, device=dev)
+    _ok(lib.otbt_group_words(_ptr(ints), k, n, _ptr(valid), _ptr(mins),
+                             _ptr(maxs), int(fast), top, _ptr(words),
+                             _stream()), "grouped_agg_sort")
+    m = _pow2_at_least(n)
+    perm = torch.empty(m, dtype=torch.int64, device=dev)
+    _ok(lib.otbt_sort_perm(_ptr(words), w, n, _ptr(perm), m, _stream()),
+        "grouped_agg_sort")
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    excl = torch.empty(n, dtype=torch.int64, device=dev)
+    tiles = torch.empty(_scan_tiles(n), dtype=torch.int64, device=dev)
+    n_groups = torch.empty(1, dtype=torch.int64, device=dev)
+    gid_row = torch.empty(n, dtype=torch.int64, device=dev)
+    take = torch.empty(max_groups, dtype=torch.int64, device=dev)
+    _ok(lib.otbt_group_ids(_ptr(ints), k, n, _ptr(valid), _ptr(perm),
+                           max_groups, _ptr(flags), _ptr(excl), _ptr(tiles),
+                           _ptr(n_groups), _ptr(gid_row), _ptr(take),
+                           _stream()), "grouped_agg_sort")
+    outs, _present, _l = _agg_dense_launch(gid_row, valid, agg_inputs,
+                                           max_groups, agg_kinds)
+    LAUNCHES["grouped_agg_sort"] += 1
+    gkeys = tuple(kc.index_select(0, take) for kc in key_cols)
+    return gkeys, outs, n_groups[0]
+
+
+# ---------------------------------------------------------------------------
+# K6-K9 hash join: sort the build side, count matches per probe row,
+# expand pairs, compose indices (reference: ops/kernels.py:306-468)
+# ---------------------------------------------------------------------------
+
+def join_build_plain(build_keys, build_valid):
+    keys = torch.where(build_valid, build_keys,
+                       torch.full((), INT64_MAX, dtype=torch.int64,
+                                  device=build_keys.device))
+    perm = sort_perm_plain(keys.unsqueeze(0))
+    return keys[perm], perm
+
+
+def join_build(build_keys, build_valid):
+    """Sort the build side: (sorted keys, perm), invalid rows as key
+    INT64_MAX, stable (ties keep row order).  That is the result of
+    both reference branches (the single-word pack and argsort).  On the
+    card: a masking kernel, K10's sort kernel on the one-word order,
+    and a gather kernel (join.cu)."""
+    if _on_cpu(build_keys, build_valid):
+        return join_build_plain(build_keys, build_valid)
+    n = build_keys.shape[0]
+    _check(build_keys, "build_keys", (torch.int64,), n)
+    _check(build_valid, "build_valid", (torch.bool,), n)
+    dev = build_keys.device
+    m = _pow2_at_least(n)
+    masked = torch.empty(n, dtype=torch.int64, device=dev)
+    perm = torch.empty(m, dtype=torch.int64, device=dev)
+    sorted_keys = torch.empty(n, dtype=torch.int64, device=dev)
+    rc = _lib().otbt_join_build(_ptr(build_keys), _ptr(build_valid), n,
+                                _ptr(masked), _ptr(perm), m,
+                                _ptr(sorted_keys), _stream())
+    _ok(rc, "join_build")
+    LAUNCHES["join_build"] += 1
+    return sorted_keys, perm[:n]
+
+
+def join_probe_counts_plain(sorted_keys, probe_keys, probe_valid):
+    nb, np_ = sorted_keys.shape[0], probe_keys.shape[0]
+    dev = probe_keys.device
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    if not nb:
+        return (torch.zeros(np_, dtype=torch.int64, device=dev),
+                torch.zeros(np_, dtype=torch.int64, device=dev))
+    pk = torch.where(probe_valid, probe_keys,
+                     torch.full((), INT64_MAX - 1, dtype=torch.int64,
+                                device=dev))
+    usable = probe_valid & (probe_keys != INT64_MAX)
+    live = sorted_keys != INT64_MAX
+    nlive = int(live.sum())
+    T = max(2 * nb, np_)
+    mn = int(sorted_keys[0])
+    if nlive and int(sorted_keys[nlive - 1]) - mn < T:
+        idx = torch.arange(nb, dtype=torch.int64, device=dev)
+        cell = torch.where(live, torch.clamp(sorted_keys - mn, 0, T - 1),
+                           torch.full((), T, dtype=torch.int64, device=dev))
+        lo_tab = torch.full((T + 1,), nb, dtype=torch.int64,
+                            device=dev).scatter_reduce(0, cell, idx, "amin")
+        cnt_tab = torch.zeros(T + 1, dtype=torch.int64, device=dev) \
+            .index_add(0, cell, torch.ones_like(idx))
+        off = pk - mn
+        inb = usable & (off >= 0) & (off < T)
+        loc = torch.clamp(off, 0, T - 1)
+        cnt = torch.where(inb, cnt_tab[loc], zero)
+        return torch.where(cnt > 0, lo_tab[loc], zero), cnt
+    lo = torch.searchsorted(sorted_keys, pk)
+    hi = torch.searchsorted(sorted_keys, pk, right=True)
+    hit = sorted_keys[torch.clamp(lo, max=nb - 1)] == pk
+    return lo, torch.where(usable & hit, hi - lo, zero)
+
+
+def join_probe_counts(sorted_keys, probe_keys, probe_valid):
+    """(lo, count) per probe row: the build rows sorted_keys[lo:lo +
+    count] carry the probe row's key.  Two strategies, as the reference:
+    a direct-address table over [min, min + T) with T = max(2 nb, np)
+    when the live build keys span less than T (uint64 span), else binary
+    search.  Invalid probe rows and keys equal to INT64_MAX count 0.
+    `lo` of a row with count 0 is unspecified (the reference's branches
+    differ there).
+
+    On the card the branch is taken on the device: a one-thread kernel
+    reads the sorted keys' ends and sets a flag that the table kernels
+    and the probe kernel read, so the join makes no host read here."""
+    if _on_cpu(sorted_keys, probe_keys, probe_valid):
+        return join_probe_counts_plain(sorted_keys, probe_keys, probe_valid)
+    nb, np_ = sorted_keys.shape[0], probe_keys.shape[0]
+    _check(sorted_keys, "sorted_keys", (torch.int64,), nb)
+    _check(probe_keys, "probe_keys", (torch.int64,), np_)
+    _check(probe_valid, "probe_valid", (torch.bool,), np_)
+    dev = probe_keys.device
+    if not nb:
+        return (torch.zeros(np_, dtype=torch.int64, device=dev),
+                torch.zeros(np_, dtype=torch.int64, device=dev))
+    T = max(2 * nb, np_)
+    stats = torch.empty(2, dtype=torch.int64, device=dev)
+    lo_tab = torch.empty(T + 1, dtype=torch.int64, device=dev)
+    cnt_tab = torch.empty(T + 1, dtype=torch.int64, device=dev)
+    lo = torch.empty(np_, dtype=torch.int64, device=dev)
+    cnt = torch.empty(np_, dtype=torch.int64, device=dev)
+    rc = _lib().otbt_join_probe_counts(
+        _ptr(sorted_keys), nb, _ptr(probe_keys), _ptr(probe_valid), np_, T,
+        _ptr(stats), _ptr(lo_tab), _ptr(cnt_tab), _ptr(lo), _ptr(cnt),
+        _stream())
+    _ok(rc, "join_probe_counts")
+    LAUNCHES["join_probe_counts"] += 1
+    return lo, cnt
+
+
+def join_expand_plain(lo, counts, perm, out_size: int,
+                      left_outer: bool = False, probe_valid=None):
+    n, nb = counts.shape[0], perm.shape[0]
+    dev = counts.device
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    if left_outer:
+        eff = torch.clamp(counts, min=1)
+        if probe_valid is not None:
+            eff = torch.where(probe_valid, eff, zero)
+    else:
+        eff = counts
+    csum = torch.cumsum(eff, 0)
+    total = csum[-1] if n else zero
+    j = torch.arange(out_size, dtype=torch.int64, device=dev)
+    valid = j < total
+    p = torch.clamp(torch.searchsorted(csum, j, right=True), 0,
+                    max(n - 1, 0))
+    if nb:
+        bpos = torch.clamp(lo[p] + j - (csum[p] - eff[p]), 0, nb - 1)
+        build_idx = perm[bpos]
+    else:
+        build_idx = torch.zeros(out_size, dtype=torch.int64, device=dev)
+    if left_outer:
+        build_idx = torch.where(counts[p] == 0, -1, build_idx)
+    return (torch.where(valid, p, zero), torch.where(valid, build_idx, zero),
+            total)
+
+
+def join_expand(lo, counts, perm, out_size: int, left_outer: bool = False,
+                probe_valid=None):
+    """(probe_idx, build_idx, total): the matching pairs, probe-major,
+    build rows in `perm` order, packed as a prefix of out_size rows.
+    With left_outer each valid probe row without a match (probe_valid
+    keeps padding rows out) emits one pair with build_idx -1.  Rows at
+    or past total hold (0, 0) and are invalid downstream (the reference
+    leaves other values there).
+
+    On the card: the per-row pair count and its exclusive prefix sum
+    are kernels of scan.cuh (block scan, scan of the block sums,
+    add-back), then one thread per probe row writes its pairs."""
+    out_size = int(out_size)
+    ts = (lo, counts, perm) + (() if probe_valid is None else (probe_valid,))
+    if _on_cpu(*ts):
+        return join_expand_plain(lo, counts, perm, out_size, left_outer,
+                                 probe_valid)
+    n, nb = counts.shape[0], perm.shape[0]
+    _check(lo, "lo", (torch.int64,), n)
+    _check(counts, "counts", (torch.int64,), n)
+    _check(perm, "perm", (torch.int64,), nb)
+    if probe_valid is not None:
+        _check(probe_valid, "probe_valid", (torch.bool,), n)
+    dev = counts.device
+    probe_idx = torch.zeros(out_size, dtype=torch.int64, device=dev)
+    build_idx = torch.zeros(out_size, dtype=torch.int64, device=dev)
+    excl = torch.empty(max(n, 1), dtype=torch.int64, device=dev)
+    tiles = torch.empty(_scan_tiles(n), dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    rc = _lib().otbt_join_expand(
+        _ptr(lo), _ptr(counts), _ptr(perm),
+        None if probe_valid is None else _ptr(probe_valid), n, nb,
+        int(left_outer), _ptr(excl), _ptr(tiles), _ptr(total),
+        _ptr(probe_idx), _ptr(build_idx), out_size, _stream())
+    _ok(rc, "join_expand")
+    LAUNCHES["join_expand"] += 1
+    return probe_idx, build_idx, total[0]
+
+
+def compose_index_plain(prior, take):
+    return prior[take]
+
+
+def compose_index(prior, take):
+    """Late-materialization index composition: prior[take], one int64
+    gather of len(take) whatever the number of columns riding the
+    indirection."""
+    if _on_cpu(prior, take):
+        return compose_index_plain(prior, take)
+    _check(prior, "prior", (torch.int64,))
+    _check(take, "take", (torch.int64,))
+    if prior.shape[0] < 1:
+        raise ValueError("prior: empty")
+    out = torch.empty(take.shape[0], dtype=torch.int64, device=take.device)
+    rc = _lib().otbt_compose_index(_ptr(prior), prior.shape[0], _ptr(take),
+                                   take.shape[0], _ptr(out), _stream())
+    _ok(rc, "compose_index")
+    LAUNCHES["compose_index"] += 1
+    return out
+
+
+def semi_mask_plain(counts):
+    return counts > 0
+
+
+def anti_mask_plain(counts, probe_valid):
+    return probe_valid & (counts == 0)
+
+
+def _join_mask(counts, probe_valid, anti: bool, name: str):
+    n = counts.shape[0]
+    _check(counts, "counts", (torch.int64,), n)
+    if anti:
+        _check(probe_valid, "probe_valid", (torch.bool,), n)
+    out = torch.empty(n, dtype=torch.bool, device=counts.device)
+    rc = _lib().otbt_join_mask(_ptr(counts),
+                               _ptr(probe_valid) if anti else None, n,
+                               int(anti), _ptr(out), _stream())
+    _ok(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def semi_mask(counts):
+    """Probe rows with at least one match."""
+    if _on_cpu(counts):
+        return semi_mask_plain(counts)
+    return _join_mask(counts, None, False, "semi_mask")
+
+
+def anti_mask(counts, probe_valid):
+    """Valid probe rows without a match."""
+    if _on_cpu(counts, probe_valid):
+        return anti_mask_plain(counts, probe_valid)
+    return _join_mask(counts, probe_valid, True, "anti_mask")
+
+
+# ---------------------------------------------------------------------------
+# K11 row hash (reference: utils/hashing.py:70 hash_columns_jax)
+# ---------------------------------------------------------------------------
+
+def hash_columns(cols):
+    """splitmix64 row hash of one or more integer columns, combined
+    column by column as hash_columns_np does; returns the uint64 hash's
+    bit pattern as int64.  The plain version is utils/hashing.py's
+    hash_columns_plain; the kernel's entry refuses more columns than it
+    holds (csrc/hash.cu kMaxCols)."""
+    cols = list(cols)
+    if not cols:
+        raise ValueError("hash_columns needs at least one column")
+    if _on_cpu(*cols):
+        return hash_columns_plain(cols)
+    n = cols[0].shape[0]
+    cols = [c.to(torch.int64).contiguous() for c in cols]
+    for c in cols:
+        _check(c, "hash column", (torch.int64,), n)
+    out = torch.empty(n, dtype=torch.int64, device=cols[0].device)
+    k = len(cols)
+    rc = _lib().otbt_hash_columns(
+        (ctypes.c_longlong * k)(*(_ptr(c) for c in cols)), k, n, _ptr(out),
+        _stream())
+    _ok(rc, "hash_columns")
+    LAUNCHES["hash_columns"] += 1
+    return out
