@@ -8,7 +8,15 @@ bulk-load all eight tables at SF1 (6.0 M lineitem rows), then
   dense GROUP BY), checked against numpy oracles, and Q4, Q13 and Q22
   (semi, left outer with a residual, anti joins), checked against the
   same queries run by the port on the CPU over the same tables (the
-  plain versions, which the tests hold against the JAX package).
+  plain versions, which the tests hold against the JAX package);
+- slice 3, the cluster tier: the same SF1 data loaded into Cluster(2),
+  two logical DataNodes on the card, and Q1, Q3 and Q5 through
+  ClusterSession.query, checked against the numpy oracles, against the
+  single-node Session on the card and against the same ClusterSession
+  on its host tier (SET enable_mesh_exchange = off); the Q5-shaped SQL
+  of __graft_entry__.dryrun_multichip on Cluster(3) (a shard map that
+  is not hash % 3), device tier against host tier; and the port of
+  parallel/mesh.py (redistribute, psum_partial) on 2 DataNodes.
 Around that it builds the CUDA kernels from opentenbase_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version on small inputs
 (every branch) and on the inputs the main paths gave it, shows from the
@@ -41,7 +49,8 @@ SUMF_RTOL = 1e-9                 # f64 atomics sum in another order
 REPS = 5                         # warm query runs behind each median
 DEVICE = "cuda"
 # kernel -> (source, the reference kernel it replaces, the query whose
-# main-path calls are timed)
+# main-path calls are timed: Qn on one DataNode, "cN" cluster QN, "mesh"
+# the parallel/mesh.py path)
 KERNEL_SOURCES = {
     "visibility_mask": ("opentenbase_tpu_torch/csrc/visibility.cu",
                         "opentenbase_tpu/ops/kernels.py:40", 1),
@@ -69,6 +78,14 @@ KERNEL_SOURCES = {
                   "opentenbase_tpu/ops/kernels.py:468", 22),
     "hash_columns": ("opentenbase_tpu_torch/csrc/hash.cu",
                      "opentenbase_tpu/utils/hashing.py:70", 5),
+    "route_dest": ("opentenbase_tpu_torch/csrc/hash.cu",
+                   "opentenbase_tpu/exec/mesh_exec.py:581", "c5"),
+    "bucket_ids": ("opentenbase_tpu_torch/csrc/hash.cu",
+                   "opentenbase_tpu/ops/kernels.py:509", "mesh"),
+    "exchange": ("opentenbase_tpu_torch/csrc/exchange.cu",
+                 "opentenbase_tpu/exec/mesh_exec.py:610", "c5"),
+    "compact": ("opentenbase_tpu_torch/csrc/compact.cu",
+                "opentenbase_tpu/ops/kernels.py:103", "c3"),
 }
 SLICE1 = ("visibility_mask", "decode_column", "cmp_on_codes",
           "grouped_agg_dense", "sort_rows")
@@ -80,6 +97,15 @@ SLICE2 = ("visibility_mask", "decode_column", "grouped_agg_dense",
           "join_expand", "compose_index", "semi_mask", "anti_mask",
           "sort_rows", "hash_columns")
 SLICE2_QUERIES = (3, 5, 4, 13, 22)
+# slice 3, the cluster tier: every cluster query must reach the routing,
+# exchange and compaction kernels; the path as a whole the others too
+CLUSTER_KERNELS = ("route_dest", "exchange", "compact")
+SLICE3 = CLUSTER_KERNELS + ("visibility_mask", "decode_column",
+                            "grouped_agg_dense", "grouped_agg_sort",
+                            "join_build", "join_probe_counts", "join_expand",
+                            "compose_index", "sort_rows", "hash_columns")
+SLICE3_QUERIES = ("c1", "c3", "c5")     # Q1, Q3, Q5 on Cluster(2)
+MESH_LIBRARY = ("bucket_ids", "exchange", "grouped_agg_dense")
 
 
 class SmokeFailure(RuntimeError):
@@ -337,6 +363,105 @@ def join_kernel_check(torch, K):
     torch.cuda.synchronize()
     say("join / group-by / hash kernels vs plain (both branches, small and "
         "large inputs): ok")
+
+
+def compare_exchange(torch, got, want, what):
+    (go, gv, gc, gr), (wo, wv, wc, wr) = got, want
+    check(gr == wr and (gc == wc).all(), f"exchange counts differ ({what})")
+    check(torch.equal(gv, wv), f"exchange valid mask differs ({what})")
+    for g, w in zip(go, wo):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"exchange column differs ({what})")
+
+
+def compare_compact(torch, got, want, what):
+    (gc, go), (wc, wo) = got, want
+    check(int(gc) == int(wc), f"compact count differs ({what})")
+    for g, w in zip(go, wo):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"compact column differs ({what})")
+
+
+def cluster_kernel_check(torch, K):
+    """K11 routing, the K12 exchange and K3 compaction against their
+    plain versions on inputs that reach every branch: NULL and TEXT keys
+    (codes out of range too), one to three keys, 1, 2 and 3 DataNodes
+    (the shard map is not hash % 3), a source with no live rows, a
+    destination that receives nothing, the broadcast form, and
+    compaction at every density and output size."""
+    import numpy as np
+    from opentenbase_tpu_torch.utils.hashing import hash_string
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(3)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    imin, imax = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+    words = [f"w{i}" for i in range(50)]
+    lut = t(np.asarray([hash_string(w) for w in words],
+                       np.uint64).view(np.int64))
+    for n in (1000, (1 << 20) + 3):
+        c0 = t(rng.integers(imin, imax, n, dtype=np.int64, endpoint=True))
+        c1 = t(rng.integers(-50, 50, n))
+        c2 = t(rng.integers(0, 9, n).astype(np.int32))
+        codes = t(rng.integers(-3, 55, n).astype(np.int32))
+        nulls = t(rng.random(n) < 0.1)
+        valid = t(rng.random(n) < 0.8)
+        for k in (1, 2, 3):
+            for nb in (4096, 7, 3):
+                keys = (c0, c1, c2)[:k]
+                check(torch.equal(K.bucket_ids(keys, nb),
+                                  K.bucket_ids_plain(keys, nb)),
+                      f"bucket_ids differs ({k} keys, {nb} buckets)")
+        for ndn in (1, 2, 3):
+            smap = t((np.arange(4096) % ndn).astype(np.int32))
+            for keys, nm, luts in (([c0], [nulls], None),
+                                   ([c0, codes], [nulls, None], [None, lut]),
+                                   ([codes, c1, c2], [None, nulls, None],
+                                    [lut, None, None])):
+                args = (keys, nm, luts, valid, smap, ndn)
+                got = K.route_dest(*args)
+                check(torch.equal(got, K.route_dest_plain(*args, 4096)),
+                      f"route_dest differs ({len(keys)} keys, {ndn} DNs)")
+            dest = got
+            cols = (c0, c2, c0.to(torch.float64), nulls,
+                    codes.to(torch.int16))
+            cut = [n // ndn] * ndn
+            cut[-1] += n - sum(cut)
+            offs = np.cumsum([0] + cut)
+            rs = [slice(int(offs[i]), int(offs[i + 1])) for i in range(ndn)]
+            v = valid.clone()
+            if ndn > 1:
+                v[rs[1]] = False        # a source with no live rows
+            # every source read in place; with 2 or more, source 0 lacks
+            # the null mask (None: its rows get zeros there)
+            srcs = [tuple(None if (i == 0 < ndn - 1 and j == 3) else c[r]
+                          for j, c in enumerate(cols))
+                    for i, r in enumerate(rs)]
+            vs = [v[r] for r in rs]
+            cases = [(dest, f"{ndn} DNs")]
+            if ndn == 3:   # a destination that receives nothing
+                cases.append((torch.where(dest == 2, torch.zeros_like(dest),
+                                          dest), "3 DNs, dn2 empty"))
+            for d, what in cases:
+                ds = [d[r] for r in rs]
+                compare_exchange(torch, K.exchange(srcs, ds, vs, ndn),
+                                 K.exchange_plain(srcs, ds, vs, ndn),
+                                 f"{what}, {n} rows")
+            compare_exchange(torch, K.exchange(srcs, None, vs, 1),
+                             K.exchange_plain(srcs, None, vs, 1),
+                             f"broadcast from {ndn} DNs, {n} rows")
+        for density in (0.0, 0.3, 1.0):
+            mask = t(rng.random(n) < density)
+            for out_size in (1, n // 2, n, n + 100):
+                cc = (c0, c2, nulls, codes.to(torch.int16))
+                compare_compact(torch, K.compact(mask, cc, out_size),
+                                K.compact_plain(mask, cc, out_size),
+                                f"density {density}, out {out_size}")
+    torch.cuda.synchronize()
+    say("cluster kernels vs plain (routing, exchange, compaction; every "
+        "branch, small and large inputs): ok")
 
 
 def compare_agg(got, want, kinds, what):
@@ -624,6 +749,37 @@ def call_bytes_ops(name, a, kw, out):
         cols = a[0]
         n = cols[0].shape[0]
         return sum(nbytes(c) for c in cols) + 8 * n, 15 * n * len(cols)
+    if name in ("route_dest", "bucket_ids"):
+        # keys (+ null masks, text LUTs, valid, shard map) read once, the
+        # int32 destination written; splitmix64 is about 15 operations
+        # a key, the remainder and the lookup a few more
+        keys = a[0]
+        n = keys[0].shape[0]
+        extra = [x for x in (list(a[1] or ()) + list(a[2] or ())
+                             + [a[3], a[4]]) if x is not None] \
+            if name == "route_dest" else []
+        by = sum(nbytes(k) for k in keys) + sum(nbytes(x) for x in extra) \
+            + 4 * n
+        return by, 16 * n * len(keys)
+    if name == "exchange":
+        # every source's destinations and valid mask read once; the
+        # columns read, and the output columns and valid mask written,
+        # only for the rows that moved (the count matrix's total); the
+        # count matrix written once
+        cols, dest, valid = a[0], a[1], a[2]
+        _outs, _ovalid, cm, _region = out
+        moved = int(cm.sum())
+        width = sum(o.element_size() for o in _outs)
+        n = sum(v.shape[0] for v in valid)
+        by = n + (4 * n if dest is not None else 0) \
+            + moved * (2 * width + 1) + 8 * cm.size
+        return by, n + moved * len(_outs)
+    if name == "compact":
+        mask, cols = a[0], a[1]
+        _count, outs = out
+        by = nbytes(mask) + sum(nbytes(c) for c in cols) \
+            + sum(nbytes(o) for o in outs) + 8
+        return by, mask.shape[0] * (1 + len(cols))
     raise KeyError(name)
 
 
@@ -656,32 +812,44 @@ def compare_call(torch, K, plain, name, a, kw):
     if name == "join_expand":
         compare_expand(torch, got, want, "main path")
         return 0.0
+    if name == "exchange":
+        compare_exchange(torch, got, want, "main path")
+        return 0.0
+    if name == "compact":
+        compare_compact(torch, got, want, "main path")
+        return 0.0
     e = result_err(torch, got, want)
     check(e == 0.0, f"{name} differs from its plain version on a main-path "
           f"call (max err {e})")
     return e
 
 
-def run_path(torch, K, s, queries, names):
+def run_path(torch, K, s, queries, names, on_query=None):
     """Drive one slice's path: record every kernel call of each query,
     set the launch counters to 0 just before, read them just after.
-    Returns (rows, cold ms, calls per query, launches)."""
+    Returns (rows, cold ms, calls per query, launches, launches per
+    query); `on_query(q)` runs after each query."""
     calls, restore = record_calls(K, names)
-    per_query, rows, cold = {}, {}, {}
+    per_query, rows, cold, per_q_launches = {}, {}, {}, {}
     K.reset_launches()
     try:
         for q in queries:
             for c in calls.values():
                 c.clear()
+            before = dict(K.LAUNCHES)
             t0 = time.perf_counter()
             rows[q] = s.query(Q_TEXT[q])
             torch.cuda.synchronize()
             cold[q] = (time.perf_counter() - t0) * 1e3
             per_query[q] = {n: list(c) for n, c in calls.items()}
+            per_q_launches[q] = {n: K.LAUNCHES[n] - before[n]
+                                 for n in K.LAUNCHES}
+            if on_query is not None:
+                on_query(q)
         launches = dict(K.LAUNCHES)
     finally:
         restore()
-    return rows, cold, per_query, launches
+    return rows, cold, per_query, launches, per_q_launches
 
 
 Q_TEXT: dict = {}
@@ -712,11 +880,13 @@ def main():
     from opentenbase_tpu_torch.tpch.queries import Q
     from opentenbase_tpu_torch.tpch.schema import SCHEMA
     Q_TEXT.update(Q)
+    Q_TEXT.update({f"c{q}": Q[q] for q in (1, 3, 5)})
 
     t_start = time.perf_counter()
     card = setup(torch)
     small_kernel_check(torch, K)
     join_kernel_check(torch, K)
+    cluster_kernel_check(torch, K)
 
     # ---- data: all eight tables ----
     t0 = time.perf_counter()
@@ -742,8 +912,8 @@ def main():
     plain = plain_versions(K)
 
     # ---- slice 1: Q1, Q6 ----
-    got1, cold1, calls1, launches1 = run_path(torch, K, s, SLICE1_QUERIES,
-                                              names)
+    got1, cold1, calls1, launches1, _pq = run_path(torch, K, s,
+                                                   SLICE1_QUERIES, names)
     say(f"slice 1 path launches (Q1 + Q6): {json.dumps(launches1)}")
     for n in SLICE1:
         check(launches1[n] > 0, f"kernel {n} was not launched on slice 1's "
@@ -758,8 +928,8 @@ def main():
         f"{cold1[6]:.1f} ms")
 
     # ---- slice 2: Q3, Q5 (oracles), Q4, Q13, Q22 (the port on the CPU) ----
-    got2, cold2, calls2, launches2 = run_path(torch, K, s, SLICE2_QUERIES,
-                                              names)
+    got2, cold2, calls2, launches2, _pq = run_path(torch, K, s,
+                                                   SLICE2_QUERIES, names)
     say(f"slice 2 path launches (Q3 + Q5 + Q4 + Q13 + Q22): "
         f"{json.dumps(launches2)}")
     for n in SLICE2:
@@ -785,15 +955,22 @@ def main():
     say(f"staged {node.cache.uploaded_bytes / 1e6:.1f} MB to the card")
     join_shapes(torch, calls2)
 
+    # ---- slice 3: the cluster tier ----
+    cs, got3, calls3, launches3, cold3 = cluster_path(
+        torch, K, data, names, {1: got1[1], 3: got2[3], 5: got2[5]},
+        {1: want_q1, 3: want_q3, 5: want_q5})
+    calls_q5s, launches_q5s = q5_shape_path(torch, K, names)
+    calls_mesh, launches_mesh = mesh_library_path(torch, K, names)
+
     # ---- kernels against their plain versions, main-path inputs ----
     max_err = {n: 0.0 for n in names}
-    for calls in (calls1, calls2):
+    for calls in (calls1, calls2, calls3, calls_q5s, calls_mesh):
         for qcalls in calls.values():
             for n in names:
                 for a, kw in qcalls[n]:
                     max_err[n] = max(max_err[n], compare_call(
                         torch, K, plain, n, a, kw))
-    say("kernels vs plain (main-path inputs of both paths): ok")
+    say("kernels vs plain (main-path inputs of every path): ok")
 
     # sort at 2^20 rows: three keys with ties, NaN and +-0.0, and a limit
     rng = np.random.default_rng(7)
@@ -822,7 +999,13 @@ def main():
             [_wall(torch, lambda: s.query(Q[q])) for _ in range(REPS)])
         say(f"Q{q} warm median {ms:.2f} ms ({n_li / ms / 1e3:.1f} M "
             f"lineitem rows/s) over {REPS} runs [{card}]")
-    qcalls = {**calls1, **calls2}
+    for q in (1, 3, 5):
+        ms = statistics.median(
+            [_wall(torch, lambda: cs.query(Q[q])) for _ in range(REPS)])
+        say(f"cluster Q{q} (2 DataNodes) warm median {ms:.2f} ms "
+            f"({n_li / ms / 1e3:.1f} M lineitem rows/s) over {REPS} runs "
+            f"[{card}]")
+    qcalls = {**calls1, **calls2, **calls3, **calls_q5s, **calls_mesh}
     records = []
     for n in names:
         src, replaces, tq = KERNEL_SOURCES[n]
@@ -838,21 +1021,24 @@ def main():
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
         lib_ms = _library_ms(torch, K, n, qcalls[tq][n])
-        launches = launches1[n] + launches2[n]
+        by_path = {"q1_q6": launches1[n], "q3_q5_q4_q13_q22": launches2[n],
+                   "cluster2_q1_q3_q5": launches3[n],
+                   "cluster3_q5_shape": launches_q5s[n],
+                   "mesh_library": launches_mesh[n]}
+        launches = sum(by_path.values())
         records.append({
             "name": n, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches,
-            "launches_by_path": {"q1_q6": launches1[n],
-                                 "q3_q5_q4_q13_q22": launches2[n]},
+            "launches_by_path": by_path,
             "max_abs_err": max_err[n], "ms": ms, "plain_ms": pms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "timed_on": f"Q{tq}"})
-        say(f"kernel {n}: {len(qcalls[tq][n])} call(s) per Q{tq}, "
+            "library_ms": lib_ms, "timed_on": _qname(tq)})
+        say(f"kernel {n}: {len(qcalls[tq][n])} call(s) per {_qname(tq)}, "
             f"{ms:.4f} ms, plain {pms:.4f} ms, bound {max(t_bytes, t_ops):.4f}"
             f" ms ({bytes_ / 1e6:.1f} MB), library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}; launches "
-            f"{launches1[n]} + {launches2[n]} [{card}]")
+            f"{' + '.join(str(v) for v in by_path.values())} [{card}]")
     # sort at 2^20 rows, one int64 key: the kernel against torch.sort
     key = torch.from_numpy(rng.integers(-10**12, 10**12, m)).to(dev)
     allv = torch.ones(m, dtype=torch.bool, device=dev)
@@ -866,7 +1052,9 @@ def main():
         f" ms [{card}]")
     if args.profile:
         host_phases(torch, s, Q, card, REPS)
-        profile_queries(torch, s, Q, card)
+        profile_queries(torch, [(f"Q{q}", s, Q[q]) for q in (1, 6, 3, 5)]
+                        + [(f"cluster Q{q}", cs, Q[q]) for q in (1, 3, 5)],
+                        card)
     say(f"phases: datagen {t_gen:.1f} s, load {t_load:.1f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": records}))
@@ -896,6 +1084,178 @@ def join_shapes(torch, calls):
         for a, _kw in qc["hash_columns"]:
             say(f"Q{q} two-key join hash: {len(a[0])} columns x "
                 f"{a[0][0].shape[0]} rows")
+
+
+def _qname(q) -> str:
+    if isinstance(q, int):
+        return f"Q{q}"
+    if q == "mesh":
+        return "parallel/mesh.py path"
+    return f"cluster Q{q[1:]}"
+
+
+def cluster_path(torch, K, data, names, single, oracles):
+    """Slice 3: load the SF1 tables into Cluster(2) on the card, drive
+    Q1, Q3 and Q5 through ClusterSession.query with the launch counters
+    set to 0 before the path and read after it (and per query), and hold
+    the rows against the numpy oracles, the single-node Session's rows
+    and the same session's host tier."""
+    import numpy as np
+    from opentenbase_tpu_torch.exec.dist_session import ClusterSession
+    from opentenbase_tpu_torch.exec.mesh_exec import mesh_runner_for
+    from opentenbase_tpu_torch.parallel.cluster import Cluster
+    from opentenbase_tpu_torch.tpch import datagen
+    from opentenbase_tpu_torch.tpch.queries import Q
+    from opentenbase_tpu_torch.tpch.schema import SCHEMA
+    cluster = Cluster(n_datanodes=2)             # the card, by default
+    check(cluster.device.type == DEVICE, f"cluster on {cluster.device}")
+    cs = ClusterSession(cluster)
+    cs.execute(SCHEMA)
+    t_load = 0.0
+    for tname in datagen.TABLES:
+        t0 = time.perf_counter()
+        datagen.load_into_cluster(cs, data, (tname,))
+        t_load += time.perf_counter() - t0
+    per_dn = [dn.stores["lineitem"].row_count() for dn in cluster.datanodes]
+    say(f"cluster load (2 DataNodes): {t_load:.1f} s; lineitem rows per "
+        f"DataNode {per_dn}")
+    check(sum(per_dn) == len(data["lineitem"]["l_orderkey"])
+          and min(per_dn) > 0, "lineitem not sharded over both DataNodes")
+    runner = mesh_runner_for(cluster)
+    matrices = {}
+
+    def on_query(q):
+        matrices[q] = list(runner.last_exchanges)
+    got, cold, calls, launches, per_q = run_path(
+        torch, K, cs, SLICE3_QUERIES, names, on_query)
+    say(f"slice 3 path launches (cluster Q1 + Q3 + Q5): "
+        f"{json.dumps(launches)}")
+    for n in SLICE3:
+        check(launches[n] > 0, f"kernel {n} was not launched on slice 3's "
+              "path")
+    for q in SLICE3_QUERIES:
+        for n in CLUSTER_KERNELS:
+            check(per_q[q][n] > 0, f"{_qname(q)} did not launch {n}")
+        # every exchange moved its rows on the kernels: K11 once per
+        # source DataNode of each redistribute, K12 once per exchange
+        kinds = [kind for _i, kind, _cm in matrices[q]]
+        check(per_q[q]["route_dest"] == 2 * kinds.count("redistribute")
+              and per_q[q]["exchange"] == len(kinds),
+              f"{_qname(q)}: an exchange did not run on K11 + K12")
+        check(cs.tier_counts.get("mesh", 0) >= len(SLICE3_QUERIES)
+              and cs.fallbacks == [], f"{_qname(q)} left the device tier")
+        say(f"{_qname(q)} launches: " + ", ".join(
+            f"{n} {per_q[q][n]}" for n in CLUSTER_KERNELS))
+        for idx, kind, cm in matrices[q]:
+            say(f"{_qname(q)} exchange {idx} ({kind}) rows "
+                f"[source DN x destination DN]: {cm.tolist()}")
+    for q in (1, 3, 5):
+        approx = (6, 7, 8) if q == 1 else ()
+        rows_equal(got[f"c{q}"], oracles[q], f"cluster Q{q} vs oracle",
+                   approx)
+        rows_equal(got[f"c{q}"], single[q],
+                   f"cluster Q{q} vs the single-node Session", approx)
+    check(all(np.isfinite(v) for r in got["c1"] for v in r[2:]),
+          "cluster Q1 not finite")
+    cs.execute("set enable_mesh_exchange = off")
+    for q in (1, 3, 5):
+        host = cs.query(Q[q])
+        check(cs.last_tier == "host", "host tier did not run")
+        rows_equal(got[f"c{q}"], host, f"cluster Q{q} device vs host tier",
+                   (6, 7, 8) if q == 1 else ())
+    cs.execute("set enable_mesh_exchange = on")
+    say("cluster Q1, Q3, Q5 (2 DataNodes) = numpy oracles = single-node "
+        "Session = host tier")
+    say("cold (first, cluster staging included): " + ", ".join(
+        f"{_qname(q)} {cold[q]:.1f} ms" for q in SLICE3_QUERIES))
+    return cs, got, calls, launches, cold
+
+
+_Q5_SHAPE_DDL = [
+    "create table t (k bigint primary key, grp int, v decimal(10,2)) "
+    "distribute by shard(k)",
+    "create table u (uk bigint primary key, tk bigint, w decimal(10,2)) "
+    "distribute by shard(uk)",
+    "create table d (id int primary key, label varchar(8)) "
+    "distribute by replication",
+    "insert into t values " + ", ".join(
+        f"({i}, {i % 3}, {i}.25)" for i in range(64)),
+    "insert into u values " + ", ".join(
+        f"({100 + i}, {i % 64}, {i}.5)" for i in range(96)),
+    "insert into d values (0, 'zero'), (1, 'one'), (2, 'two')",
+]
+_Q5_SHAPE = ("select label, count(*) as n, sum(v * w) as rev "
+             "from t, u, d where k = tk and grp = id "
+             "group by label order by rev desc")
+
+
+def q5_shape_path(torch, K, names):
+    """The Q5-shaped SQL of __graft_entry__.dryrun_multichip on
+    Cluster(3), whose shard map is not hash % 3: device tier against
+    host tier, launch counters set to 0 before and read after."""
+    from opentenbase_tpu_torch.exec.dist_session import ClusterSession
+    from opentenbase_tpu_torch.parallel.cluster import Cluster
+    cs = ClusterSession(Cluster(n_datanodes=3))
+    for sql in _Q5_SHAPE_DDL:
+        cs.execute(sql)
+    cs.execute("set enable_mesh_exchange = off")
+    host = cs.query(_Q5_SHAPE)
+    cs.execute("set enable_mesh_exchange = on")
+    Q_TEXT["q5shape"] = _Q5_SHAPE
+    got, _cold, calls, launches, _pq = run_path(torch, K, cs, ("q5shape",),
+                                                names)
+    check(cs.last_tier == "mesh" and cs.fallbacks == [],
+          "Q5-shaped SQL left the device tier")
+    for n in CLUSTER_KERNELS:
+        check(launches[n] > 0, f"Q5-shaped SQL on 3 DataNodes did not "
+              f"launch {n}")
+    rows_equal(got["q5shape"], host, "Q5-shaped SQL, device vs host tier")
+    check(len(host) == 3, "Q5-shaped SQL: 3 groups")
+    say(f"Q5-shaped SQL on 3 DataNodes: device tier = host tier "
+        f"({len(host)} groups); launches " + ", ".join(
+            f"{n} {launches[n]}" for n in CLUSTER_KERNELS))
+    return calls, launches
+
+
+def mesh_library_path(torch, K, names):
+    """parallel/mesh.py on 2 DataNodes of the card: redistribute of
+    2^20 rows by a key (bucket_ids + the exchange) and psum_partial (the
+    cross-DataNode sum on K4's kernel), against numpy."""
+    import numpy as np
+    from opentenbase_tpu_torch.parallel import mesh as M
+    from opentenbase_tpu_torch.utils.hashing import hash_columns_np
+    rng = np.random.default_rng(11)
+    n = 1 << 20
+    keys = rng.integers(0, 1 << 40, n).astype(np.int64)
+    vals = rng.integers(0, 1000, n).astype(np.int64)
+    mesh = M.make_mesh(2)
+    cols, valid = M.shard_columns(mesh, {"k": keys, "v": vals}, n)
+    calls, restore = record_calls(K, names)
+    K.reset_launches()
+    try:
+        out, omask, counts = M.redistribute(mesh, cols, valid, "k")
+        sums = M.psum_partial(
+            mesh, lambda v, c: (torch.where(v, c["v"], 0).sum(),
+                                v.to(torch.int64).sum()), cols, valid, 2)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+    finally:
+        restore()
+    for nm in MESH_LIBRARY:
+        check(launches[nm] > 0, f"kernel {nm} was not launched on the "
+              "parallel/mesh.py path")
+    ok, om = out["k"].cpu().numpy(), omask.cpu().numpy()
+    per = len(om) // 2
+    owner = (hash_columns_np([ok[om]]) % np.uint64(2)).astype(int)
+    check(int(om.sum()) == n and (owner == np.nonzero(om)[0] // per).all(),
+          "redistribute: rows lost or off their owner")
+    check(int(sums[0]) == int(vals.sum()) and int(sums[1]) == n,
+          "psum_partial differs from numpy")
+    say(f"parallel/mesh.py on 2 DataNodes: {n} rows redistributed "
+        f"(rows [source DN x destination DN]: {counts.tolist()}), psum = "
+        f"numpy; launches " + ", ".join(
+            f"{nm} {launches[nm]}" for nm in MESH_LIBRARY))
+    return {"mesh": {k: list(v) for k, v in calls.items()}}, launches
 
 
 def host_phases(torch, s, Q, card, reps):
@@ -928,17 +1288,17 @@ def host_phases(torch, s, Q, card, reps):
             f"{statistics.median(mat) * 1e3:.3f} ms [{card}]")
 
 
-def profile_queries(torch, s, Q, card):
-    """One warm run of each query under torch.profiler: device time by
-    kernel and the device's busy share of the wall time."""
+def profile_queries(torch, items, card):
+    """One warm run of each (label, session, sql) under torch.profiler:
+    device time by kernel and the device's busy share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for q in (1, 6, 3, 5):
+    for label, s, sql in items:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            s.query(Q[q])
+            s.query(sql)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         rows = []
@@ -953,11 +1313,36 @@ def profile_queries(torch, s, Q, card):
                 rows.append((dev_us, ev.count, ev.key))
         rows.sort(reverse=True)
         busy = sum(r[0] for r in rows)
-        say(f"profile Q{q}: wall {wall_us / 1e3:.3f} ms (profiler on), "
+        say(f"profile {label}: wall {wall_us / 1e3:.3f} ms (profiler on), "
             f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%),"
             f" {sum(r[1] for r in rows)} device events [{card}]")
         for dev_us, count, key in rows[:12]:
             say(f"  {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+        # the cluster kernels' own device time (K11 route, K12 exchange,
+        # K3 compaction and the scatter they share), apart from their
+        # wrappers' host work
+        mine = [(dev_us, count, _cluster_label(key))
+                for dev_us, count, key in rows if _cluster_label(key)]
+        if mine:
+            say(f"  cluster kernels on the device: "
+                f"{sum(r[0] for r in mine) / 1e3:.4f} ms in "
+                f"{sum(r[1] for r in mine)} launches: " + ", ".join(
+                    f"{label} {dev_us / 1e3:.4f} ms x{count}"
+                    for dev_us, count, label in mine))
+
+
+# device kernel name fragment -> label, for the cluster kernels' lines
+_CLUSTER_KERNELS = {
+    "route_kernel": "route", "xchg_tile_counts": "xchg_tile_counts",
+    "xchg_tile_scan": "xchg_tile_scan", "xchg_positions": "xchg_positions",
+    "scatter_rows": "scatter_rows", "compact_slots": "compact_slots",
+    "fill_tail_row0": "fill_tail_row0",
+    "scan_tile_sums<(anonymous namespace)::MaskLoad": "compact scan",
+    "scan_tiles<(anonymous namespace)::MaskLoad": "compact scan"}
+
+
+def _cluster_label(key: str):
+    return next((v for k, v in _CLUSTER_KERNELS.items() if k in key), None)
 
 
 def _wall(torch, fn) -> float:
@@ -974,10 +1359,11 @@ def _library_ms(torch, K, name, calls):
     widening `.to()` of a pack-family decode; a stable torch.sort of the
     masked build keys (join_build); two torch.searchsorted (the probe's
     match ranges, without the table); index_select (compose_index);
-    `counts > 0` (semi_mask).  None for the others: no single call
-    computes a visibility mask, a code-space compare, Q1's eleven mixed
-    aggregates, a multi-key sort, a grouped aggregate, a pair expansion,
-    an anti mask or a splitmix64 hash."""
+    `counts > 0` (semi_mask); `x[mask]` on the first column (compact).
+    None for the others: no single call computes a visibility mask, a
+    code-space compare, Q1's eleven mixed aggregates, a multi-key sort,
+    a grouped aggregate, a pair expansion, an anti mask, a splitmix64
+    hash or routing, or a partition of rows by destination."""
     if not calls:
         return None
     total = 0.0
@@ -998,6 +1384,9 @@ def _library_ms(torch, K, name, calls):
             fn = (lambda a=a: a[0].index_select(0, a[1]))
         elif name == "semi_mask":
             fn = (lambda a=a: a[0] > 0)
+        elif name == "compact":
+            # boolean-mask indexing of the first column
+            fn = (lambda a=a: a[1][0][a[0]])
         else:
             return None
         total += time_fn(torch, fn)

@@ -22,10 +22,17 @@ expression, an aggregate, a sort or the result reads it.  Each eager
 join reads one value back to the host: its pair count, which sizes the
 output.
 
-Still raising NotImplementedError: final (combine) aggregation, DISTINCT
-aggregates, window functions, set operations, Append, index and vector
-scans, and the reference's fused / morsel / spill / work-sharing tiers.
-Nothing is done another way.
+On the cluster tier (exec/mesh_exec.py) the same executor runs each
+DataNode fragment over one DataNode's row range of the cluster-staged
+tables (ExecContext.staged: views of the staged tensors, the union
+dictionaries in the scan's store view), with exchange inputs bound as
+BatchSource leaves, and finishes partial aggregates in final (combine)
+mode.
+
+Still raising NotImplementedError: DISTINCT aggregates, window
+functions, set operations, Append, index and vector scans, and the
+reference's fused / morsel / spill / work-sharing tiers.  Nothing is
+done another way.
 """
 
 from __future__ import annotations
@@ -184,6 +191,9 @@ class ExecContext:
     cache: object                       # storage.bufferpool.DeviceBufferPool
     params: dict[str, tuple] = dataclasses.field(default_factory=dict)
     # init-plan results: name -> (value, SqlType)
+    staged: Optional[dict] = None
+    # cluster tier: table -> (staged tensors of one DataNode's row range,
+    # its live row count); the scan reads these instead of the cache
 
     @property
     def device(self) -> torch.device:
@@ -308,9 +318,13 @@ class Executor:
         for _, oe in outputs:
             needed |= {c.split(".", 1)[1] if "." in c else c
                        for c in _cols_of(oe)}
-        arrs, n = self.ctx.cache.get(store, sorted(needed))
-        # the pad is whatever the cache staged (size_class): read it off
-        # the tensors, never recompute
+        staged = (self.ctx.staged or {}).get(table.name)
+        if staged is not None:
+            arrs, n = staged
+        else:
+            arrs, n = self.ctx.cache.get(store, sorted(needed))
+        # the pad is whatever was staged (size_class): read it off the
+        # tensors, never recompute
         padded = codec.padded_of(arrs) if arrs else next_pow2(max(n, 1))
 
         # codec decode (storage/codec.py): staged columns may be encoded
@@ -742,13 +756,21 @@ class Executor:
             types[name] = t
         return DBatch(cols, out_valid, types, dicts, nulls)
 
-    def _agg_inputs(self, node: P.Agg, b: DBatch):
-        """Kernel inputs for the agg list.  Aggregates over nullable
-        inputs get a parallel non-null-count input so all-NULL groups
-        yield SQL NULL (the ("nullable",) out_spec)."""
+    def _agg_inputs(self, node: P.Agg, b: DBatch, final: bool = False):
+        """Kernel inputs for the agg list.  `final` combines partial
+        columns (named inputs with exchange-carried null masks) instead of
+        raw argument expressions.  Aggregates over nullable inputs get a
+        parallel non-null-count input so all-NULL groups yield SQL NULL
+        (the ("nullable",) out_spec)."""
         kinds, inputs, out_specs = [], [], []
         for name, ac in node.aggs:
-            if ac.arg is not None:
+            if final:
+                if ac.func == "avg":
+                    arg_arr = null_mask = None
+                else:
+                    arg_arr = b.col_opt(name)
+                    null_mask = b.nulls.get(name)
+            elif ac.arg is not None:
                 arg_arr, null_mask = self._eval_pair(ac.arg, b)
                 if arg_arr.dim() == 0:   # constant argument: broadcast
                     arg_arr = arg_arr.expand(b.padded).contiguous()
@@ -764,15 +786,18 @@ class Executor:
             base = b.valid if null_mask is None else (b.valid & ~null_mask)
             if ac.func == "count":
                 kinds.append("sum")
-                inputs.append(base.to(torch.int64))
+                inputs.append(non_null(arg_arr, 0) if final
+                              else base.to(torch.int64))
                 out_specs.append((name, T.INT64, None))
             elif ac.func == "avg":
                 scale = ac.arg.type.scale \
                     if ac.arg.type.kind == TypeKind.DECIMAL else 0
                 kinds.append("sumf")
-                inputs.append(non_null(arg_arr, 0))
+                inputs.append(b.col(name + "__s") if final
+                              else non_null(arg_arr, 0))
                 kinds.append("sum")
-                inputs.append(base.to(torch.int64))
+                inputs.append(b.col(name + "__c") if final
+                              else base.to(torch.int64))
                 if node.mode == "partial":
                     # components travel separately to the final agg
                     out_specs.append((name + "__s", T.FLOAT64, None))
@@ -815,9 +840,9 @@ class Executor:
         return kinds, inputs, out_specs
 
     def _exec_agg(self, node: P.Agg) -> DBatch:
-        if node.mode == "final":
-            _not_ported("final (combine) aggregation")
         b = self.exec_node(node.child)
+        if node.mode == "final":
+            return self._exec_agg_final(node, b)
         if any(ac.distinct for _, ac in node.aggs):
             _not_ported("DISTINCT aggregates")
         key_arrs, key_types, key_dicts, key_nulls = \
@@ -863,6 +888,39 @@ class Executor:
                 for i, nm in enumerate(key_nulls):
                     if nm is not None:
                         gkey_nulls[i] = extra.pop(0).to(torch.bool)
+        return self._assemble_agg_output(node, gkey_out, key_types,
+                                         key_dicts, outs, out_specs,
+                                         out_valid, gkey_nulls)
+
+    def _exec_agg_final(self, node: P.Agg, b: DBatch) -> DBatch:
+        """Finalise partial aggregates (reference: rq_finalise_aggs, the
+        combine of the DataNodes' partials).  Input columns follow the
+        partial naming convention; group keys are passthrough columns
+        grouped by the sort-based aggregate.  Null masks on partial
+        columns (a DataNode group whose inputs were all NULL) combine
+        through the same skip-null rule as raw arguments."""
+        key_arrs, key_types, key_dicts, key_nulls = \
+            self._eval_group_keys(node, b)
+        kinds, inputs, out_specs = self._agg_inputs(node, b, final=True)
+        dev = self.device
+        gkey_nulls = [None] * len(key_arrs)
+        if not key_arrs:
+            gid = torch.zeros(b.padded, dtype=torch.int64, device=dev)
+            outs, _present = K.grouped_agg_dense(
+                gid, b.valid, tuple(inputs), 1, tuple(kinds))
+            out_valid = torch.ones(1, dtype=torch.bool, device=dev)
+            gkey_out = []
+        else:
+            max_groups = next_pow2(max(b.count(), 1))
+            gkeys, outs, ng = K.grouped_agg_sort(
+                self._grouping_arrays(key_arrs, key_nulls), b.valid,
+                tuple(inputs), max_groups, tuple(kinds))
+            out_valid = torch.arange(max_groups, device=dev) < int(ng)
+            gkey_out = list(gkeys[:len(key_arrs)])
+            extra = list(gkeys[len(key_arrs):])
+            for i, nm in enumerate(key_nulls):
+                if nm is not None:
+                    gkey_nulls[i] = extra.pop(0).to(torch.bool)
         return self._assemble_agg_output(node, gkey_out, key_types,
                                          key_dicts, outs, out_specs,
                                          out_valid, gkey_nulls)
@@ -918,6 +976,10 @@ class Executor:
         if node.count is not None:
             keep = keep & (idx <= (node.count + node.offset))
         return DBatch(b.cols, keep, b.types, b.dicts, b.nulls, b.lazy)
+
+    def _exec_batchsource(self, node) -> DBatch:
+        """An exchange input, bound in place of its ExchangeRef."""
+        return node.batch
 
     def _exec_result(self, node: P.Result) -> DBatch:
         cols, types, nulls = {}, {}, {}

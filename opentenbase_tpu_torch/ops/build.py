@@ -48,8 +48,16 @@ SIGNATURES = {
     "otbt_join_mask": [_P, _P, _LL, _I, _P, _P],
     "otbt_hash_columns": [_P, _I, _LL, _P, _P],
     "otbt_scan_tiles": [_LL],
+    "otbt_route_dest": [_P, _P, _P, _P, _I, _LL, _P, _P, _LL, _I, _P, _P],
+    "otbt_compact": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "otbt_exchange_tiles": [_LL],
+    "otbt_exchange_max_dn": [],
+    "otbt_exchange_count": [_P, _P, _P, _I, _I, _LL, _P, _P, _P, _P],
+    "otbt_exchange_scatter": [_P, _P, _P, _I, _I, _LL, _P, _LL, _P, _P,
+                              _P, _P, _P, _I, _P],
 }
-RESTYPES = {"otbt_scan_tiles": _LL}
+RESTYPES = {"otbt_scan_tiles": _LL, "otbt_exchange_tiles": _LL,
+            "otbt_exchange_max_dn": _LL}
 
 _lock = threading.Lock()
 _lib = None

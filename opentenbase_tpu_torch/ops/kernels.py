@@ -1,5 +1,5 @@
-"""Device kernels of the scan / join / aggregate / sort path, hand-written
-in CUDA.
+"""Device kernels of the scan / join / aggregate / sort path and of the
+cluster tier's exchanges, hand-written in CUDA.
 
 The counterpart of opentenbase_tpu/ops/kernels.py.  Each kernel here has
 three parts:
@@ -26,8 +26,10 @@ import ctypes
 import numpy as np
 import torch
 
+from ..storage.batch import next_pow2
 from ..utils.dtypes import device_float
-from ..utils.hashing import hash_columns_plain
+from ..utils.hashing import (bucket_ids_plain, hash_columns_plain,
+                             route_dest_plain)
 
 INT64_MAX = (1 << 63) - 1
 INT64_MIN = -(1 << 63)
@@ -37,7 +39,8 @@ LAUNCHES = {"visibility_mask": 0, "decode_column": 0, "cmp_on_codes": 0,
             "grouped_agg_dense": 0, "grouped_agg_sort": 0, "join_build": 0,
             "join_probe_counts": 0, "join_expand": 0, "compose_index": 0,
             "semi_mask": 0, "anti_mask": 0, "sort_rows": 0,
-            "hash_columns": 0}
+            "hash_columns": 0, "bucket_ids": 0, "route_dest": 0,
+            "exchange": 0, "compact": 0}
 
 
 def reset_launches() -> None:
@@ -893,3 +896,326 @@ def hash_columns(cols):
     _ok(rc, "hash_columns")
     LAUNCHES["hash_columns"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K11 routing (reference: ops/kernels.py:509 bucket_ids; exec/mesh_exec.py
+# :581 _route_hash + the shard-map lookup)
+# ---------------------------------------------------------------------------
+
+def _route_launch(key_cols, null_masks, text_luts, valid, shard_map,
+                  ndn: int, num_buckets: int):
+    """The route kernel (csrc/hash.cu) on CUDA tensors: (int32 per row,
+    the CUDA status)."""
+    k = len(key_cols)
+    n = key_cols[0].shape[0]
+    keys = [c.to(torch.int64).contiguous() for c in key_cols]
+    for c in keys:
+        _check(c, "key column", (torch.int64,), n)
+    nulls = list(null_masks) if null_masks is not None else [None] * k
+    luts = list(text_luts) if text_luts is not None else [None] * k
+    for m in nulls:
+        if m is not None:
+            _check(m, "null mask", (torch.bool,), n)
+    for lut in luts:
+        if lut is not None:
+            _check(lut, "text LUT", (torch.int64,))
+            if lut.shape[0] < 1:
+                raise ValueError("text LUT: empty")
+    if valid is not None:
+        _check(valid, "valid", (torch.bool,), n)
+    if shard_map is not None:
+        _check(shard_map, "shard_map", (torch.int32,), int(num_buckets))
+    out = torch.empty(n, dtype=torch.int32, device=keys[0].device)
+    arr = ctypes.c_longlong * k
+    rc = _lib().otbt_route_dest(
+        arr(*(_ptr(c) for c in keys)),
+        arr(*(0 if m is None else _ptr(m) for m in nulls)),
+        arr(*(0 if t is None else _ptr(t) for t in luts)),
+        arr(*(0 if t is None else t.shape[0] for t in luts)), k, n,
+        None if valid is None else _ptr(valid),
+        None if shard_map is None else _ptr(shard_map), int(num_buckets),
+        int(ndn), _ptr(out), _stream())
+    return out, rc
+
+
+def bucket_ids(key_cols: tuple, num_buckets: int):
+    """hash_columns(keys) % num_buckets as int32: the bucket of every
+    row (csrc/hash.cu's route kernel without a shard map)."""
+    key_cols = tuple(key_cols)
+    if not key_cols:
+        raise ValueError("bucket_ids needs at least one key column")
+    if _on_cpu(*key_cols):
+        return bucket_ids_plain(key_cols, num_buckets)
+    out, rc = _route_launch(key_cols, None, None, None, None, 0,
+                            num_buckets)
+    _ok(rc, "bucket_ids")
+    LAUNCHES["bucket_ids"] += 1
+    return out
+
+
+def route_dest(key_cols, null_masks, text_luts, valid, shard_map,
+               ndn: int, num_buckets: int = 4096):
+    """Destination DataNode of every row of a batch: shard_map[route_hash
+    % num_buckets], the placement the locator stored rows with (or the
+    bucket itself when shard_map is None), and `ndn` for a row that is
+    not valid.  route_hash (utils/hashing.py route_hash_plain): a key
+    whose null mask is set hashes as 0, a key with a text LUT hashes its
+    dictionary value, then splitmix64 over the keys.  Returns int32."""
+    key_cols = list(key_cols)
+    if not key_cols:
+        raise ValueError("route_dest needs at least one key column")
+    ts = [t for t in (*key_cols, valid, *(null_masks or ()),
+                      *(text_luts or ()), shard_map) if t is not None]
+    if _on_cpu(*ts):
+        return route_dest_plain(key_cols, null_masks, text_luts, valid,
+                                shard_map, ndn, num_buckets)
+    out, rc = _route_launch(key_cols, null_masks, text_luts, valid,
+                            shard_map, ndn, num_buckets)
+    _ok(rc, "route_dest")
+    LAUNCHES["route_dest"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K12 exchange (reference: exec/mesh_exec.py:610 _a2a_batch, :673
+# _broadcast_batch; parallel/mesh.py:72 _pack_for_a2a, :97 redistribute)
+# ---------------------------------------------------------------------------
+
+def _exchange_args(cols, dest, valid, ndn_dst: int):
+    """Validate the per-source arguments; returns (sources' rows, the
+    column count, the columns' dtypes)."""
+    valid = list(valid)
+    cols = [tuple(c) for c in cols]
+    nsrc = len(valid)
+    if nsrc < 1 or len(cols) != nsrc or (dest is not None
+                                         and len(dest) != nsrc):
+        raise ValueError(f"exchange: {len(cols)} column sets, {nsrc} valid "
+                         "masks and the destinations do not name the same "
+                         "sources")
+    if ndn_dst < 1:
+        raise ValueError(f"exchange: {ndn_dst} destinations")
+    k = len(cols[0])
+    rows = []
+    dtypes: list = [None] * k
+    for s, (cs, v) in enumerate(zip(cols, valid)):
+        if v.dim() != 1:
+            raise ValueError(f"exchange: valid of source {s} is not 1-D")
+        n = v.shape[0]
+        rows.append(n)
+        if len(cs) != k:
+            raise ValueError(f"exchange: source {s} has {len(cs)} columns, "
+                             f"want {k}")
+        for j, c in enumerate(cs):
+            if c is None:
+                continue
+            if c.dim() != 1 or c.shape[0] != n:
+                raise ValueError(f"exchange: column shape "
+                                 f"{tuple(c.shape)}, want ({n},)")
+            if dtypes[j] is None:
+                dtypes[j] = c.dtype
+            elif c.dtype != dtypes[j]:
+                raise TypeError(f"exchange: column {j} is {c.dtype} in "
+                                f"source {s}, {dtypes[j]} before")
+        if dest is not None and (dest[s] is None or dest[s].dim() != 1
+                                 or dest[s].shape[0] != n):
+            raise ValueError(f"exchange: destinations of source {s} do not "
+                             f"cover its {n} rows")
+    if any(dt is None for dt in dtypes):
+        raise ValueError("exchange: a column no source gives")
+    return rows, k, dtypes
+
+
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def _take_rows(c, idx):
+    """c[idx] for any staged dtype (torch has no CPU gather for uint16 /
+    uint32: those ride their signed view, bit for bit)."""
+    sv = _SIGNED_VIEW.get(c.dtype)
+    if sv is None:
+        return c.index_select(0, idx)
+    return c.view(sv).index_select(0, idx).view(c.dtype)
+
+
+def _region(counts: np.ndarray) -> int:
+    """Rows of each destination's share of the output: the largest
+    destination's row count, to the executor's next power of two."""
+    return next_pow2(max(int(counts.sum(axis=0).max()), 1))
+
+
+def exchange_plain(cols, dest, valid, ndn_dst: int):
+    rows, k, dtypes = _exchange_args(cols, dest, valid, ndn_dst)
+    dev = valid[0].device
+    n = sum(rows)
+    v = torch.cat(list(valid))
+    if dest is None:
+        d = torch.zeros(n, dtype=torch.int64, device=dev)
+    else:
+        d = torch.cat([x.to(torch.int64) for x in dest])
+    live = v & (d >= 0) & (d < ndn_dst)
+    d = torch.where(live, d, torch.full((), ndn_dst, dtype=torch.int64,
+                                        device=dev))
+    src = torch.repeat_interleave(
+        torch.arange(len(rows), device=dev),
+        torch.tensor(rows, device=dev))
+    counts = torch.zeros((len(rows), ndn_dst + 1), dtype=torch.int64,
+                         device=dev)
+    counts.index_put_((src, d), torch.ones(n, dtype=torch.int64,
+                                           device=dev), accumulate=True)
+    counts = counts[:, :ndn_dst].cpu().numpy()
+    region = _region(counts)
+    # a stable sort by destination keeps row order within each one
+    order = torch.argsort(d, stable=True)
+    sd = d[order]
+    start = torch.searchsorted(sd, torch.arange(ndn_dst + 1, device=dev))
+    rank = torch.arange(n, device=dev) - start[sd]
+    keep = sd < ndn_dst
+    slot = sd[keep] * region + rank[keep]
+    take = order[keep]
+    out_valid = torch.zeros(ndn_dst * region, dtype=torch.bool, device=dev)
+    out_valid[slot] = True
+    outs = []
+    for j in range(k):
+        dt = dtypes[j]
+        c = torch.cat([cs[j] if cs[j] is not None
+                       else torch.zeros(r, dtype=dt, device=dev)
+                       for cs, r in zip(cols, rows)])
+        o = torch.zeros(ndn_dst * region, dtype=dt, device=dev)
+        sv = _SIGNED_VIEW.get(dt, dt)
+        o.view(sv)[slot] = _take_rows(c, take).view(sv)
+        outs.append(o)
+    return tuple(outs), out_valid, counts, region
+
+
+def exchange(cols, dest, valid, ndn_dst: int):
+    """Move the live rows of one or more source batches to `ndn_dst`
+    destinations, each source read in place.  cols: one tuple of column
+    tensors per source, the same columns in every source (an entry may
+    be None where a source lacks the column, a null mask it never set:
+    its rows get zeros there); valid: one bool mask per source; dest:
+    one int32 tensor per source (from route_dest) naming each row's
+    destination, or None to send every live row to destination 0 (the
+    broadcast and gather form).  A row is live when it is valid and its
+    destination is in range.  Destination d receives its live rows in
+    source order, then in row order, as rows [d * region, d * region +
+    R_d) of each output column (zeros beyond), with the output valid
+    mask set there.
+
+    Returns (output columns, output valid, the ndn_src x ndn_dst numpy
+    count matrix, region).  One host read: the count matrix, which
+    sizes the outputs (region = next_pow2 of the largest destination's
+    rows).  On the card: csrc/exchange.cu (tile histograms, their scan,
+    the slot of every row, the scatter of every source's columns)."""
+    cols = [tuple(c) for c in cols]
+    valid = list(valid)
+    dest = None if dest is None else list(dest)
+    ts = [c for cs in cols for c in cs if c is not None] + valid \
+        + [d for d in (dest or ()) if d is not None]
+    if _on_cpu(*ts):
+        return exchange_plain(cols, dest, valid, ndn_dst)
+    rows, k, dtypes = _exchange_args(cols, dest, valid, ndn_dst)
+    lib = _lib()
+    nsrc = len(rows)
+    max_dn = lib.otbt_exchange_max_dn()
+    if nsrc > max_dn or ndn_dst > max_dn:
+        raise ValueError(f"exchange: {nsrc} sources, {ndn_dst} "
+                         f"destinations (1..{max_dn} each)")
+    for s in range(nsrc):
+        _check(valid[s], "valid", (torch.bool,), rows[s])
+        if dest is not None:
+            _check(dest[s], "dest", (torch.int32,), rows[s])
+        for c in cols[s]:
+            if c is not None and not c.is_contiguous():
+                raise ValueError("exchange: column not contiguous")
+    for dt in dtypes:
+        if torch.empty(0, dtype=dt).element_size() not in (1, 2, 4, 8):
+            raise TypeError(f"exchange: unsupported dtype {dt}")
+    dev = valid[0].device
+    arr = ctypes.c_longlong * nsrc
+    dptrs = arr(*([0] * nsrc if dest is None else map(_ptr, dest)))
+    vptrs = arr(*(_ptr(v) for v in valid))
+    nrows = arr(*rows)
+    tiles = lib.otbt_exchange_tiles(max(rows))
+    scratch = nsrc * tiles * ndn_dst
+    tile_counts = torch.empty(scratch, dtype=torch.int64, device=dev)
+    tile_base = torch.empty(scratch, dtype=torch.int64, device=dev)
+    counts = torch.empty(nsrc * ndn_dst, dtype=torch.int64, device=dev)
+    _ok(lib.otbt_exchange_count(dptrs, vptrs, nrows, nsrc, ndn_dst, tiles,
+                                _ptr(tile_counts), _ptr(tile_base),
+                                _ptr(counts), _stream()), "exchange")
+    cm = counts.view(nsrc, ndn_dst).cpu().numpy()
+    region = _region(cm)
+    pos = torch.empty(max(sum(rows), 1), dtype=torch.int64, device=dev)
+    out_valid = torch.zeros(ndn_dst * region, dtype=torch.bool, device=dev)
+    outs = tuple(torch.zeros(ndn_dst * region, dtype=dt, device=dev)
+                 for dt in dtypes)
+    kk = max(k, 1)
+    ins_p = (ctypes.c_longlong * (nsrc * kk))(
+        *[0 if c is None else _ptr(c) for cs in cols for c in cs],
+        *([0] * (nsrc * kk - nsrc * k)))
+    outs_p = (ctypes.c_longlong * kk)(*(_ptr(o) for o in outs))
+    widths = (ctypes.c_int * kk)(*(o.element_size() for o in outs))
+    _ok(lib.otbt_exchange_scatter(dptrs, vptrs, nrows, nsrc, ndn_dst,
+                                  tiles, _ptr(tile_base), region, _ptr(pos),
+                                  _ptr(out_valid), ins_p, outs_p, widths, k,
+                                  _stream()), "exchange")
+    LAUNCHES["exchange"] += 1
+    return outs, out_valid, cm, region
+
+
+# ---------------------------------------------------------------------------
+# K3 compaction (reference: ops/kernels.py:103 compact; exec/mesh_exec.py
+# :853 _compact_local)
+# ---------------------------------------------------------------------------
+
+def _col_ptrs(ins, outs):
+    k = len(ins)
+    arr = ctypes.c_longlong * max(k, 1)
+    return (arr(*(_ptr(c) for c in ins)), arr(*(_ptr(c) for c in outs)),
+            (ctypes.c_int * max(k, 1))(*(c.element_size() for c in ins)), k)
+
+
+def compact_plain(mask, cols: tuple, out_size: int):
+    out_size = int(out_size)
+    idx = torch.nonzero(mask).flatten()[:out_size]
+    take = torch.zeros(out_size, dtype=torch.int64, device=mask.device)
+    take[:idx.shape[0]] = idx
+    return mask.sum(), tuple(_take_rows(c, take) for c in cols)
+
+
+def compact(mask, cols: tuple, out_size: int):
+    """(count, gathered columns): the live rows of `mask` first, in row
+    order, in [out_size] columns; padding rows repeat row 0 and are
+    masked by count downstream.  The count (an int64 0-d tensor) stays
+    on the device.  On the card: csrc/compact.cu (a scan of the mask,
+    the scatter of the live rows, the row-0 fill of the padding)."""
+    out_size = int(out_size)
+    cols = tuple(cols)
+    if out_size < 1:
+        raise ValueError("compact: out_size must be >= 1")
+    if _on_cpu(mask, *cols):
+        return compact_plain(mask, cols, out_size)
+    n = mask.shape[0]
+    _check(mask, "mask", (torch.bool,), n)
+    for c in cols:
+        if c.dim() != 1 or c.shape[0] != n or not c.is_contiguous():
+            raise ValueError(f"compact: column shape {tuple(c.shape)}, "
+                             f"want contiguous ({n},)")
+        if c.element_size() not in (1, 2, 4, 8):
+            raise TypeError(f"compact: unsupported dtype {c.dtype}")
+    if n < 1:
+        raise ValueError("compact: no rows (padding repeats row 0)")
+    dev = mask.device
+    excl = torch.empty(n, dtype=torch.int64, device=dev)
+    tiles = torch.empty(_scan_tiles(n), dtype=torch.int64, device=dev)
+    count = torch.empty(1, dtype=torch.int64, device=dev)
+    pos = torch.empty(n, dtype=torch.int64, device=dev)
+    outs = tuple(torch.empty(out_size, dtype=c.dtype, device=dev)
+                 for c in cols)
+    ins_p, outs_p, widths, k = _col_ptrs(cols, outs)
+    _ok(_lib().otbt_compact(_ptr(mask), n, out_size, _ptr(excl),
+                            _ptr(tiles), _ptr(count), _ptr(pos), ins_p,
+                            outs_p, widths, k, _stream()), "compact")
+    LAUNCHES["compact"] += 1
+    return count[0], outs

@@ -12,8 +12,15 @@ narrow codes and the column's aux tensor rides along under
 `__enc.<family>.<col>`.  Every staged tensor is padded to
 batch.size_class rows.
 
-Not ported yet: the append-only tail path, the byte budget with LRU
-eviction, pinning, morsel windows, mesh entries and host snapshots.
+A cluster's pool also holds its cluster entries (the counterpart of the
+reference's MeshEntry / mesh_get / mesh_put): one table staged across
+every logical DataNode (exec/mesh_exec.py _stage_table), keyed by the
+tuple of per-DataNode store versions, so a warm repeat stages nothing
+and any write on any DataNode restages the table.
+
+Not ported yet: the append-only tail path (for single-node and cluster
+entries), the byte budget with LRU eviction, pinning, morsel windows and
+host snapshots.
 """
 
 from __future__ import annotations
@@ -39,13 +46,40 @@ class DevEntry:
     n: int                # live (staged) row count
 
 
+@dataclasses.dataclass
+class ClusterEntry:
+    """One table staged across a cluster's DataNodes."""
+    table: str
+    vkey: tuple           # per-DataNode store versions at staging time
+    staged: object        # exec/mesh_exec._StagedTable
+
+
 class DeviceBufferPool:
     """Per-node cache of staged device columns on `device`."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self._dev: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+        self._cluster: dict[str, ClusterEntry] = {}
         self.uploaded_bytes = 0     # host -> device bytes staged so far
+        self.cluster_misses = 0     # cluster entries staged (or restaged)
+
+    def cluster_get(self, table: str, vkey: tuple):
+        """The cluster entry of `table` at exactly this per-DataNode
+        version tuple, or None (a stale entry is dropped)."""
+        ent = self._cluster.get(table)
+        if ent is not None and ent.vkey == vkey:
+            return ent
+        self.cluster_misses += 1
+        self._cluster.pop(table, None)
+        return None
+
+    def cluster_put(self, entry: ClusterEntry) -> None:
+        self._cluster[entry.table] = entry
+
+    def cluster_invalidate(self, table: str) -> None:
+        """Drop a cluster entry now (DROP TABLE)."""
+        self._cluster.pop(table, None)
 
     def get(self, store, colnames):
         """Staged device columns of `store` at its current version: value
@@ -73,7 +107,8 @@ class DeviceBufferPool:
         """Drop the store's residency now (DROP TABLE)."""
         self._dev.pop(store, None)
 
-    def _upload(self, buf: np.ndarray) -> torch.Tensor:
+    def upload(self, buf: np.ndarray) -> torch.Tensor:
+        """One host array to the device, counted in uploaded_bytes."""
         self.uploaded_bytes += buf.nbytes
         return torch.from_numpy(buf).to(self.device)
 
@@ -94,10 +129,10 @@ class DeviceBufferPool:
                 code, enc, aux = r
                 buf = np.zeros(padded, dtype=code.dtype)
                 buf[:n] = code
-                arrs[name] = self._upload(buf)
-                arrs[codec.aux_name(name, enc)] = self._upload(aux)
+                arrs[name] = self.upload(buf)
+                arrs[codec.aux_name(name, enc)] = self.upload(aux)
             else:
                 buf = np.zeros((padded, *h.shape[1:]), dtype=h.dtype)
                 buf[:n] = h[:n]
-                arrs[name] = self._upload(buf)
+                arrs[name] = self.upload(buf)
         return arrs

@@ -251,3 +251,14 @@ def load_into(session, data: dict, tables=TABLES):
         st = session.node.stores[tname]
         n = len(next(iter(tbl.values())))
         session._insert_rows(td, st, tbl, n)
+
+
+def load_into_cluster(session, data: dict, tables=TABLES):
+    """Bulk-load generated data into a ClusterSession: each table through
+    its `_insert_rows` (the locator routes every row to its DataNode),
+    as the reference's distributed TPC-H suite loads its cluster."""
+    for tname in tables:
+        tbl = data[tname]
+        td = session.cluster.catalog.table(tname)
+        n = len(next(iter(tbl.values())))
+        session._insert_rows(td, tbl, n)

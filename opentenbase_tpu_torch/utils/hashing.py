@@ -2,12 +2,12 @@
 
 The numpy half is a copy of the reference's (opentenbase_tpu/utils/
 hashing.py), which the Locator needs to route inserted rows to shards.
-The torch half, `hash_columns_plain`, is the plain version of the K11
-row-hash kernel (ops/kernels.py hash_columns, csrc/hash.cu): the
-multi-column join key of the executor.  Both give the same 64-bit
-pattern as the reference's hash_columns_np / hash_columns_jax.  The
-routing hash of redistribution (bucket ids) belongs to the cluster tier
-and is not ported yet.
+The torch half holds the plain versions of the K11 kernels (ops/
+kernels.py, csrc/hash.cu): `hash_columns_plain`, the multi-column join
+key of the executor, and the routing half of the cluster tier,
+`route_hash_plain` / `bucket_ids_plain` / `route_dest_plain`.  All give
+the same 64-bit pattern as the reference's hash_columns_np /
+hash_columns_jax and its mesh routing hash.
 """
 
 from __future__ import annotations
@@ -93,3 +93,66 @@ def hash_columns_plain(cols) -> torch.Tensor:
     for c in cols[1:]:
         h = splitmix64_plain(h ^ c.to(torch.int64))
     return h
+
+
+def combine_plain(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Multi-column hash combiner (combine_np) over int64 bit patterns."""
+    return splitmix64_plain(h ^ x.to(torch.int64))
+
+
+def umod_plain(h: torch.Tensor, n: int) -> torch.Tensor:
+    """The uint64 remainder h % n of int64 bit patterns, as int64.
+    torch has no unsigned 64-bit modulo: a power of two masks, any
+    other n splits h = 2 q + b with q = h >>> 1 (non-negative), so
+    h % n = (2 (q % n) + b) % n, all in int64."""
+    n = int(n)
+    if n < 1:
+        raise ValueError("num_buckets must be >= 1")
+    if n & (n - 1) == 0:
+        return h & (n - 1)
+    return ((_shr(h, 1) % n) * 2 + (h & 1)) % n
+
+
+def route_hash_plain(key_cols, null_masks=None, text_luts=None):
+    """The routing hash of one batch's exchange keys (the reference's
+    exec/mesh_exec.py _route_hash): a key whose null mask is set hashes
+    as 0; a TEXT key maps its dictionary code, clipped into range,
+    through `text_luts[i]` (int64 bit patterns of hash_string of each
+    dictionary value); any other key hashes its int64 value.  Then
+    splitmix64 of the first key and `combine_plain` over the rest."""
+    hs = []
+    for i, k in enumerate(key_cols):
+        lut = text_luts[i] if text_luts is not None else None
+        if lut is not None:
+            x = lut[torch.clamp(k.to(torch.int64), 0, lut.shape[0] - 1)]
+        else:
+            x = k.to(torch.int64)
+        nm = null_masks[i] if null_masks is not None else None
+        if nm is not None:
+            x = torch.where(nm, torch.zeros((), dtype=torch.int64,
+                                            device=x.device), x)
+        hs.append(x)
+    h = splitmix64_plain(hs[0])
+    for x in hs[1:]:
+        h = combine_plain(h, x)
+    return h
+
+
+def bucket_ids_plain(key_cols, num_buckets: int) -> torch.Tensor:
+    """hash_columns(keys) % num_buckets as int32 (reference: ops/
+    kernels.py bucket_ids)."""
+    return umod_plain(hash_columns_plain(list(key_cols)),
+                      num_buckets).to(torch.int32)
+
+
+def route_dest_plain(key_cols, null_masks, text_luts, valid, shard_map,
+                     ndn: int, num_buckets: int = 4096) -> torch.Tensor:
+    """Destination DataNode of every row: shard_map[route_hash %
+    num_buckets] (the locator's placement), or the bucket itself when
+    `shard_map` is None; `ndn` for a row that is not valid."""
+    b = umod_plain(route_hash_plain(key_cols, null_masks, text_luts),
+                   num_buckets)
+    dest = shard_map.to(torch.int64)[b] if shard_map is not None else b
+    return torch.where(valid, dest, torch.full((), ndn, dtype=torch.int64,
+                                               device=dest.device)
+                       ).to(torch.int32)

@@ -33,6 +33,38 @@ def test_importing_every_module_loads_no_jax():
     assert p.returncode == 0, p.stdout + p.stderr
 
 
+_IMPORT_ONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "opentenbase_tpu" or m.startswith("opentenbase_tpu."))
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+
+# the cluster tier's modules, each imported alone in a fresh interpreter
+CLUSTER_MODULES = [
+    "opentenbase_tpu_torch.parallel.cluster",
+    "opentenbase_tpu_torch.exec.dist",
+    "opentenbase_tpu_torch.exec.dist_session",
+    "opentenbase_tpu_torch.exec.mesh_exec",
+    "opentenbase_tpu_torch.parallel.mesh",
+    "opentenbase_tpu_torch.gtm.server",
+    "opentenbase_tpu_torch.plan.distribute",
+]
+
+
+@pytest.mark.parametrize("module", CLUSTER_MODULES)
+def test_cluster_tier_module_loads_no_jax(module):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    p = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+
+
 _BAD_IMPORT = re.compile(
     r"^\s*(from|import)\s+(jax|jaxlib|opentenbase_tpu)(\.|\s|$)", re.M)
 
