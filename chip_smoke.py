@@ -16,7 +16,17 @@ bulk-load all eight tables at SF1 (6.0 M lineitem rows), then
   on its host tier (SET enable_mesh_exchange = off); the Q5-shaped SQL
   of __graft_entry__.dryrun_multichip on Cluster(3) (a shard map that
   is not hash % 3), device tier against host tier; and the port of
-  parallel/mesh.py (redistribute, psum_partial) on 2 DataNodes.
+  parallel/mesh.py (redistribute, psum_partial) on 2 DataNodes;
+- slice 4, the fused tier: Q1, Q6, Q3 and Q5 through Session.query, each
+  fragment one captured program (CUDA graph; Q1 and Q6 through the fused
+  scan-aggregate kernel), checked against the oracles and the eager tier,
+  with captures, warm replays, host reads, graph pool bytes and fused
+  versus eager warm times; the fused scan-aggregate kernel against its
+  plain version at K = 1 and K = 16; and the serving tier: 16 client
+  threads through Scheduler with the TPC-H substitution parameters of
+  Q1, Q6 and Q3, every result against its serial Session result.
+The slices 1-3 phases run the eager tier (Executor._fuse = False), as
+before the fused tier existed.
 Around that it builds the CUDA kernels from opentenbase_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version on small inputs
 (every branch) and on the inputs the main paths gave it, shows from the
@@ -86,6 +96,8 @@ KERNEL_SOURCES = {
                  "opentenbase_tpu/exec/mesh_exec.py:610", "c5"),
     "compact": ("opentenbase_tpu_torch/csrc/compact.cu",
                 "opentenbase_tpu/ops/kernels.py:103", "c3"),
+    "fused_scan_agg": ("opentenbase_tpu_torch/csrc/fused.cu",
+                       "opentenbase_tpu/exec/fused.py:563", "f1"),
 }
 SLICE1 = ("visibility_mask", "decode_column", "cmp_on_codes",
           "grouped_agg_dense", "sort_rows")
@@ -106,6 +118,14 @@ SLICE3 = CLUSTER_KERNELS + ("visibility_mask", "decode_column",
                             "compose_index", "sort_rows", "hash_columns")
 SLICE3_QUERIES = ("c1", "c3", "c5")     # Q1, Q3, Q5 on Cluster(2)
 MESH_LIBRARY = ("bucket_ids", "exchange", "grouped_agg_dense")
+# slice 4, the fused tier: Q1, Q6, Q3, Q5 as captured programs
+FUSED_QUERIES = ("f1", "f6", "f3", "f5")
+SLICE4 = ("fused_scan_agg", "visibility_mask", "decode_column",
+          "grouped_agg_dense", "grouped_agg_sort", "join_build",
+          "join_probe_counts", "join_expand", "compose_index", "sort_rows",
+          "hash_columns")
+SERVE_THREADS = 16
+SERVE_PER_THREAD = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -360,6 +380,21 @@ def join_kernel_check(torch, K):
             compare_group(torch, K.grouped_agg_sort(*args),
                           K.grouped_agg_sort_plain(*args), GROUP_KINDS,
                           f"case {i}, {n} rows")
+            # the traced form (no host read): the same groups in the same
+            # order as the eager form, and as its plain version
+            traced = K.grouped_agg_sort(*args, traced=True)
+            compare_group(torch, traced,
+                          K.grouped_agg_sort_plain(*args, traced=True),
+                          GROUP_KINDS, f"traced, case {i}, {n} rows")
+            compare_group(torch, traced, K.grouped_agg_sort_plain(*args),
+                          GROUP_KINDS, f"traced vs eager, case {i}, {n} rows")
+    # visibility with the snapshot and txid in device memory
+    cols = [t(rng.integers(0, 5, 5000).astype(np.int64)) for _ in range(4)]
+    snap = torch.tensor(3, dtype=torch.int64, device=dev)
+    txid = torch.tensor(2, dtype=torch.int64, device=dev)
+    check(torch.equal(K.visibility_mask(*cols, snap, txid, 4),
+                      K.visibility_mask_plain(*cols, 3, 2, 4)),
+          "visibility_mask with device snapshot differs")
     torch.cuda.synchronize()
     say("join / group-by / hash kernels vs plain (both branches, small and "
         "large inputs): ok")
@@ -628,9 +663,14 @@ def record_calls(K, names):
     calls = {n: [] for n in names}
     originals = {n: getattr(K, n) for n in names}
 
+    import torch
+
     def wrap(n, fn):
         def rec(*a, **kw):
-            calls[n].append((a, kw))
+            # a call recorded into a CUDA graph under capture launches
+            # nothing, and its tensors belong to the graph's pool
+            if not torch.cuda.is_current_stream_capturing():
+                calls[n].append((a, kw))
             return fn(*a, **kw)
         return rec
     for n in names:
@@ -780,7 +820,26 @@ def call_bytes_ops(name, a, kw, out):
         by = nbytes(mask) + sum(nbytes(c) for c in cols) \
             + sum(nbytes(o) for o in outs) + 8
         return by, mask.shape[0] * (1 + len(cols))
+    if name == "fused_scan_agg":
+        return fused_bytes_ops(a, out)
     raise KeyError(name)
+
+
+def fused_bytes_ops(a, out):
+    """fused_scan_agg: the live rows of every column slot (the needed
+    columns at their encoded widths and the four MVCC columns) and the
+    aux tables read once, the literal rows, snapshots and txids read,
+    the [K, A + 1, G] table written; per row the shared program once,
+    per query the visibility test and the qual program."""
+    spec, cols, n_rows, lits, snaps, txids = a[:6]
+    n = int(n_rows)
+    by = sum(n * d.element_size() + (nbytes(x) if x is not None else 0)
+             for d, x, _f in cols) + nbytes(lits) + nbytes(snaps) \
+        + nbytes(txids) + nbytes(out)
+    k = snaps.shape[0]
+    ops = n * spec.n_shared + n * k * (8 + len(spec.instrs) - spec.n_shared
+                                       + len(spec.aggs))
+    return by, ops
 
 
 def result_err(torch, got, want):
@@ -817,6 +876,10 @@ def compare_call(torch, K, plain, name, a, kw):
         return 0.0
     if name == "compact":
         compare_compact(torch, got, want, "main path")
+        return 0.0
+    if name == "fused_scan_agg":
+        check(torch.equal(got, want), "fused_scan_agg differs from its "
+              "plain version on a main-path call")
         return 0.0
     e = result_err(torch, got, want)
     check(e == 0.0, f"{name} differs from its plain version on a main-path "
@@ -879,8 +942,12 @@ def main():
     from opentenbase_tpu_torch.tpch import datagen
     from opentenbase_tpu_torch.tpch.queries import Q
     from opentenbase_tpu_torch.tpch.schema import SCHEMA
+    from opentenbase_tpu_torch.exec import executor as X
     Q_TEXT.update(Q)
     Q_TEXT.update({f"c{q}": Q[q] for q in (1, 3, 5)})
+    Q_TEXT.update({f"f{q}": Q[q] for q in (1, 6, 3, 5)})
+    # slices 1-3 drive the eager tier, as they did before the fused tier
+    X.Executor._fuse = False
 
     t_start = time.perf_counter()
     card = setup(torch)
@@ -962,9 +1029,22 @@ def main():
     calls_q5s, launches_q5s = q5_shape_path(torch, K, names)
     calls_mesh, launches_mesh = mesh_library_path(torch, K, names)
 
+    # ---- slice 4: the fused tier and the serving tier ----
+    X.Executor._fuse = True
+    calls_f, launches_f = fused_path(
+        torch, K, s, names, {1: got1[1], 6: got1[6], 3: got2[3],
+                             5: got2[5]},
+        {1: want_q1, 6: want_q6, 3: want_q3, 5: want_q5}, card)
+    fused_kernel_check(torch, K, calls_f, card)
+    calls_srv, launches_srv = serving_path(torch, K, node, names, card)
+    # the timing and profile sections below time the eager tier, as
+    # before; fused_path timed the fused tier against it
+    X.Executor._fuse = False
+
     # ---- kernels against their plain versions, main-path inputs ----
     max_err = {n: 0.0 for n in names}
-    for calls in (calls1, calls2, calls3, calls_q5s, calls_mesh):
+    for calls in (calls1, calls2, calls3, calls_q5s, calls_mesh, calls_f,
+                  calls_srv):
         for qcalls in calls.values():
             for n in names:
                 for a, kw in qcalls[n]:
@@ -1005,7 +1085,8 @@ def main():
         say(f"cluster Q{q} (2 DataNodes) warm median {ms:.2f} ms "
             f"({n_li / ms / 1e3:.1f} M lineitem rows/s) over {REPS} runs "
             f"[{card}]")
-    qcalls = {**calls1, **calls2, **calls3, **calls_q5s, **calls_mesh}
+    qcalls = {**calls1, **calls2, **calls3, **calls_q5s, **calls_mesh,
+              **calls_f}
     records = []
     for n in names:
         src, replaces, tq = KERNEL_SOURCES[n]
@@ -1024,7 +1105,9 @@ def main():
         by_path = {"q1_q6": launches1[n], "q3_q5_q4_q13_q22": launches2[n],
                    "cluster2_q1_q3_q5": launches3[n],
                    "cluster3_q5_shape": launches_q5s[n],
-                   "mesh_library": launches_mesh[n]}
+                   "mesh_library": launches_mesh[n],
+                   "fused_q1_q6_q3_q5": launches_f[n],
+                   "serving": launches_srv[n]}
         launches = sum(by_path.values())
         records.append({
             "name": n, "route": "cuda", "source": src, "replaces": replaces,
@@ -1050,7 +1133,12 @@ def main():
     say(f"sort 2^20 rows, one int64 key: kernel {k_ms:.3f} ms, torch.sort "
         f"{t_ms:.3f} ms, bound {3 * m * 8 / HBM_BYTES_PER_S * 1e3:.4f}"
         f" ms [{card}]")
+    say("FUSED tier after the run: " + json.dumps(_fused_tier_stats()))
     if args.profile:
+        X.Executor._fuse = True
+        profile_queries(torch, [(f"fused Q{q}", s, Q[q])
+                                for q in (1, 6, 3, 5)], card)
+        X.Executor._fuse = False
         host_phases(torch, s, Q, card, REPS)
         profile_queries(torch, [(f"Q{q}", s, Q[q]) for q in (1, 6, 3, 5)]
                         + [(f"cluster Q{q}", cs, Q[q]) for q in (1, 3, 5)],
@@ -1062,6 +1150,291 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# slice 4: the fused tier and the serving tier
+# ---------------------------------------------------------------------------
+
+def _fused_tier_stats() -> dict:
+    from opentenbase_tpu_torch.exec import plancache
+    f = plancache.FUSED
+    return {"hits": f.hits, "misses": f.misses, "captures": f.compiles,
+            "capture_ms": round(f.compile_ms, 3), "evictions": f.evictions,
+            "live_graphs": f.live(), "pool_bytes": f.pool_bytes()}
+
+
+def _fused_counters():
+    from opentenbase_tpu_torch.exec import executor as X, fused, plancache
+    return (plancache.FUSED.compiles, fused.LADDER_READS,
+            X.exec_stats_snapshot()["host_syncs"],
+            plancache.FUSED.pool_bytes(), fused.declines_snapshot())
+
+
+def fused_path(torch, K, s, names, eager_rows, oracles, card):
+    """Slice 4: Q1, Q6, Q3 and Q5 through Session.query on the fused
+    tier, the launch counters set to 0 before the path and read after:
+    the first call of each runs the traced fragment and captures its
+    program, then REPS warm calls replay it.  Rows against the numpy
+    oracles and the eager tier's rows; no decline; captures on the
+    first call only; at most one host read a warm call (the join
+    ladder's) and no eager join read; the graph pool bytes.  Then warm
+    ms, fused against eager, in turns, REPS a side."""
+    from opentenbase_tpu_torch.exec import executor as X
+    from opentenbase_tpu_torch.tpch.queries import Q
+    calls, restore = record_calls(K, names)
+    per_query = {}
+    K.reset_launches()
+    try:
+        for fq in FUSED_QUERIES:
+            q = int(fq[1:])
+            for c in calls.values():
+                c.clear()
+            cap0, lr0, hs0, pool0, dec0 = _fused_counters()
+            t0 = time.perf_counter()
+            rows = s.query(Q[q])
+            torch.cuda.synchronize()
+            cold = (time.perf_counter() - t0) * 1e3
+            cap1, lr1, hs1, pool1, dec1 = _fused_counters()
+            check(dec1 == dec0, f"fused Q{q}: a screen declined a fragment "
+                  f"({dec0} -> {dec1})")
+            check(cap1 - cap0 == 1, f"fused Q{q}: {cap1 - cap0} captures on "
+                  "the first call, want 1")
+            approx = (6, 7, 8) if q == 1 else ()
+            rows_equal(rows, oracles[q], f"fused Q{q} (numpy oracle)", approx)
+            rows_equal(rows, eager_rows[q], f"fused Q{q} (eager tier)",
+                       approx)
+            for _ in range(REPS):
+                check(s.query(Q[q]) == rows, f"fused Q{q}: a warm replay "
+                      "returned other rows")
+            torch.cuda.synchronize()
+            cap2, lr2, hs2, pool2, _d = _fused_counters()
+            check(cap2 == cap1, f"fused Q{q}: a warm call recaptured")
+            check(hs2 == hs1, f"fused Q{q}: an eager join read on a warm "
+                  "call")
+            reads = (lr2 - lr1) / REPS
+            check(reads <= 1, f"fused Q{q}: {reads} host reads a warm call")
+            per_query[fq] = {n: list(c) for n, c in calls.items()}
+            say(f"fused Q{q}: rows = oracle = eager tier ({len(rows)} rows); "
+                f"first call {cold:.1f} ms, {cap1 - cap0} capture, "
+                f"{lr1 - lr0} host read(s); {REPS} warm replays: 0 captures, "
+                f"{reads:g} host read(s) a call (the join ladder's), "
+                f"graph pool {(pool2 - pool0) / 2**20:.1f} MiB [{card}]")
+        launches = dict(K.LAUNCHES)
+    finally:
+        restore()
+    say(f"slice 4 path launches (fused Q1 + Q6 + Q3 + Q5, first calls and "
+        f"{REPS} warm replays each): {json.dumps(launches)}")
+    for n in SLICE4:
+        check(launches[n] > 0, f"kernel {n} was not launched on the fused "
+              "path")
+    # warm ms, fused against eager, in turns
+    for fq in FUSED_QUERIES:
+        q = int(fq[1:])
+        fms, ems = [], []
+        for _ in range(REPS):
+            X.Executor._fuse = True
+            fms.append(_wall(torch, lambda: s.query(Q[q])))
+            X.Executor._fuse = False
+            ems.append(_wall(torch, lambda: s.query(Q[q])))
+        X.Executor._fuse = True
+        fm, em = statistics.median(fms), statistics.median(ems)
+        say(f"fused Q{q} warm median {fm:.3f} ms vs eager {em:.3f} ms "
+            f"({em / fm:.2f}x), in turns, {REPS} a side; fused "
+            f"{' '.join(f'{v:.3f}' for v in fms)}; eager "
+            f"{' '.join(f'{v:.3f}' for v in ems)} [{card}]")
+        dev_ms = graph_replay_time(torch, s, Q[q], f"Q{q}", card)
+        say(f"fused Q{q} device share of a warm call: {dev_ms:.4f} ms of "
+            f"{fm:.3f} ms ({100 * dev_ms / fm:.1f}%) [{card}]")
+    return per_query, launches
+
+
+def graph_replay_time(torch, s, sql, label, card):
+    """Device ms of one warm replay of the query's program (input write,
+    replay, output copies), CUDA events around REPS replays, against the
+    bytes bound of the fragment's needed columns at their encoded widths
+    plus the four MVCC columns, read once."""
+    from opentenbase_tpu_torch.exec import executor as X, fused
+    from opentenbase_tpu_torch.sql.parser import parse_sql
+    seen = []
+    orig = fused.FusedProgram.run
+
+    def rec(self, queries):
+        seen.append((self, list(queries)))
+        return orig(self, queries)
+    fused.FusedProgram.run = rec
+    try:
+        s.query(sql)
+    finally:
+        fused.FusedProgram.run = orig
+    check(len(seen) == 1 and seen[0][0].captured,
+          f"{label}: not one captured program")
+    prog, queries = seen[0]
+    ms = time_fn(torch, lambda: prog.run(queries), reps=REPS)
+    planned = s._plan_select(parse_sql(sql)[0])
+    by = 0
+    for scan in fused._find_scans(planned.plan) or ():
+        arrs, n = prog.staged[scan.table.name]
+        need = fused._needed_columns(planned.plan, scan.alias) | {
+            "__xmin_ts", "__xmax_ts", "__xmin_txid", "__xmax_txid"}
+        for c in need:
+            by += n * arrs[c].element_size()
+    bound = by / HBM_BYTES_PER_S * 1e3
+    say(f"K14 graph replay {label}: {ms:.4f} ms device, bound {bound:.4f} ms "
+        f"({by / 1e6:.1f} MB of needed columns), "
+        f"{sum(prog.graph_launches.values())} kernel launches a replay: "
+        f"{json.dumps(prog.graph_launches)} [{card}]")
+    X.Executor._fuse = True
+    return ms
+
+
+def fused_kernel_check(torch, K, calls_f, card):
+    """fused_scan_agg against its plain version on Q1's and Q6's
+    main-path inputs at K = 1 (the recorded call) and K = 16 (the same
+    columns, 16 literal rows moved around the recorded ones), exact; with
+    the kernel's, the plain version's and the bound's times."""
+    for fq in ("f1", "f6"):
+        got = calls_f[fq]["fused_scan_agg"]
+        check(len(got) >= 1, f"fused {fq}: no fused_scan_agg call recorded")
+        a, kw = got[0]
+        spec, cols, n_rows, lits, snaps, txids, aborted = a
+        dev = lits.device
+        k16 = 16
+        offs = (torch.arange(k16, device=dev, dtype=torch.int64) - 8) \
+            .unsqueeze(1)
+        lits16 = (lits[:1] + offs).contiguous()
+        args16 = (spec, cols, n_rows, lits16, snaps[:1].repeat(k16),
+                  txids[:1].repeat(k16), aborted)
+        for k, args in ((1, a), (k16, args16)):
+            gk = K.fused_scan_agg(*args)
+            pk = K.fused_scan_agg_plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(gk, pk), f"fused_scan_agg differs from its "
+                  f"plain version ({fq}, K = {k})")
+            ms = time_fn(torch, lambda: K.fused_scan_agg(*args))
+            pms = time_fn(torch, lambda: K.fused_scan_agg_plain(*args),
+                          reps=3)
+            by, ops = fused_bytes_ops(args, gk)
+            bound = max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+            say(f"fused_scan_agg Q{fq[1:]} K={k}: = plain (exact); kernel "
+                f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bound:.4f} ms "
+                f"({by / 1e6:.1f} MB, {len(spec.instrs)} instructions, "
+                f"{spec.n_groups} groups, {len(spec.aggs)} aggregates) "
+                f"[{card}]")
+
+
+def serving_params(rng, kind: str) -> str:
+    """One statement with the TPC-H spec's substitution parameters:
+    Q1 DELTA in [60, 120] (2.4.1.3); Q3 SEGMENT BUILDING, DATE in
+    1995-03-01..31 (2.4.3.3); Q6 DATE the first of January of a year in
+    1993..1997, DISCOUNT in [0.02, 0.09], QUANTITY in [24, 25]
+    (2.4.6.3)."""
+    from opentenbase_tpu_torch.tpch.queries import Q
+    if kind == "q1":
+        return Q[1].replace("interval '90' day",
+                            f"interval '{int(rng.integers(60, 121))}' day")
+    if kind == "q3":
+        return Q[3].replace("1995-03-15",
+                            f"1995-03-{int(rng.integers(1, 32)):02d}")
+    year = int(rng.integers(1993, 1998))
+    disc = int(rng.integers(2, 10))
+    qty = int(rng.integers(24, 26))
+    return (Q[6].replace("1994-01-01", f"{year}-01-01")
+            .replace("0.06", f"0.0{disc}")
+            .replace("l_quantity < 24", f"l_quantity < {qty}"))
+
+
+def serving_path(torch, K, node, names, card, seed=4):
+    """The serving tier on the card: SERVE_THREADS client threads, each
+    with its own Session, run SERVE_PER_THREAD statements each through
+    one Scheduler (window 2 ms, at most 16 a batch).  Every result must
+    equal the serial Session result of the same statement on the card,
+    bit for bit; at least one batch of more than one query must form;
+    the admission slots must balance.  Two rounds: the first captures
+    each signature's batch classes, the second (new parameters) replays
+    them; the path's launches are both rounds'."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    kinds = ("q1", "q6", "q3")
+    calls = {n_: [] for n_ in names}
+    launches = {n_: 0 for n_ in names}
+    batched = False
+    for rnd in ("cold", "warm"):
+        c, ln, hist = _serving_round(torch, K, node, rng, kinds, rnd, card)
+        for n_ in names:
+            calls[n_] += c.get(n_, [])
+            launches[n_] += ln.get(n_, 0)
+        batched = batched or any(k > 1 for k in hist)
+    check(batched, "serving: no batch of more than one query formed")
+    return {"serve": calls}, launches
+
+
+def _serving_round(torch, K, node, rng, kinds, rnd, card):
+    import threading
+    from opentenbase_tpu_torch.exec import scheduler as sm
+    from opentenbase_tpu_torch.exec.session import Session
+    stmts = [[serving_params(rng, kinds[(t + j) % 3])
+              for j in range(SERVE_PER_THREAD)]
+             for t in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    ref = [[Session(node).query(sql) for sql in row] for row in stmts]
+    torch.cuda.synchronize()
+    say(f"serving ({rnd}): {SERVE_THREADS * SERVE_PER_THREAD} statements "
+        f"run serially on the card in {time.perf_counter() - t0:.2f} s")
+    got = [[None] * SERVE_PER_THREAD for _ in range(SERVE_THREADS)]
+    errs = []
+    sm.reset_stats()
+    # the fused scan-aggregate calls of the batches are held against the
+    # plain version with the other main-path calls
+    calls, restore = record_calls(K, ("fused_scan_agg",))
+    K.reset_launches()
+    barrier = threading.Barrier(SERVE_THREADS)
+    try:
+        with sm.Scheduler(node=node) as sched:
+            def client(t):
+                try:
+                    sess = Session(node)
+                    barrier.wait()
+                    for j, sql in enumerate(stmts[t]):
+                        got[t][j] = sched.run(sess, sql)[-1].rows
+                except Exception as e:   # noqa: BLE001 (reported below)
+                    errs.append(e)
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(SERVE_THREADS)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+    finally:
+        restore()
+    if errs:
+        raise SmokeFailure(f"serving: {errs[0]!r}")
+    for t in range(SERVE_THREADS):
+        for j in range(SERVE_PER_THREAD):
+            check(got[t][j] == ref[t][j], f"serving: client {t} statement "
+                  f"{j} differs from its serial result")
+    st = sm.stats_snapshot()
+    acq, rel = sm.slot_balance()
+    check(acq == rel, f"serving: admission slots {acq} acquired, {rel} "
+          "released")
+    check(launches["fused_scan_agg"] > 0, "serving: fused_scan_agg was not "
+          "launched")
+    n = SERVE_THREADS * SERVE_PER_THREAD
+    say(f"serving ({rnd}): {n} statements from {SERVE_THREADS} threads = "
+        f"serial "
+        f"(bit for bit); {n / wall:.1f} statements/s ({wall:.2f} s); "
+        f"dispatches {st['dispatches']}, batch_dispatches "
+        f"{st['batch_dispatches']}, batched {st['batched']}, batch sizes "
+        f"{st['batch_hist']}; queue wait p50 {st['queue_wait_p50_ms']:.2f} "
+        f"ms, p99 {st['queue_wait_p99_ms']:.2f} ms; pipelined "
+        f"{st['pipelined_dispatches']}; slot_balance() ({acq}, {rel}) "
+        f"[{card}]")
+    say(f"serving ({rnd}) path launches: {json.dumps(launches)}")
+    return calls, launches, st["hist"]
 
 
 def join_shapes(torch, calls):
@@ -1091,6 +1464,8 @@ def _qname(q) -> str:
         return f"Q{q}"
     if q == "mesh":
         return "parallel/mesh.py path"
+    if q.startswith("f"):
+        return f"fused Q{q[1:]}"
     return f"cluster Q{q[1:]}"
 
 

@@ -17,7 +17,14 @@
 //      order and each group's first row (`take`, for the key values);
 //   6. K4's kernel (grouped_agg.cu) reduces the aggregates per group id.
 // Both branches give the reference's group order: with no wrap the
-// packed word orders the rows as the keys do.  Bound: the sort's passes
+// packed word orders the rows as the keys do.
+//
+// The traced form (a captured fragment program may not read the device
+// from the host) replaces steps 2 and 3 with group_gate, one thread that
+// applies the same pack test on the device and writes (fast, top), and
+// group_words_dev, which reads them and always writes the exact branch's
+// 1 + [k > 1] + k words: under the fast branch word 0 is the packed word
+// and the others are 0, which sorts exactly as the one packed word does.  Bound: the sort's passes
 // over the words; the other kernels move a few bytes a row.
 #include "common.cuh"
 #include "scan.cuh"
@@ -80,6 +87,70 @@ __global__ void group_words(const long long* __restrict__ ints, int k,
     int w = 1;
     if (k > 1) {
       // the reference's packed int64, wrapping as it does
+      u64 packed = 0;
+      for (int c = 0; c < k; ++c) {
+        u64 mn = (u64)mins[c], mx = (u64)maxs[c];
+        u64 d = v ? (u64)ints[(long long)c * n + i] - mn : 0ULL;
+        packed = packed * (mx - mn + 1ULL) + d;
+      }
+      words[n + i] = (long long)packed;
+      w = 2;
+    }
+    for (int c = 0; c < k; ++c)
+      words[(long long)(w + c) * n + i] = ints[(long long)c * n + i];
+  }
+}
+
+// The reference's single-word pack test (ops/kernels.py:217-226) on the
+// device, in float32 as there: sum of log2(span + 2) over the keys plus
+// log2(n + 2) under 62 bits.  gate[0] = fast, gate[1] = top (the product
+// of the key ranges, the word of an invalid row).
+__global__ void group_gate(const long long* __restrict__ mins,
+                           const long long* __restrict__ maxs, int k,
+                           long long n, long long* __restrict__ gate) {
+  float bits = 0.0f;
+  u64 top = 1;
+  for (int c = 0; c < k; ++c) {
+    long long mn = mins[c], mx = maxs[c];
+    u64 span = mx >= mn ? (u64)mx - (u64)mn : 0ULL;
+    top *= span + 1ULL;
+    bits = __fadd_rn(bits, log2f(__fadd_rn(__ull2float_rn(span), 2.0f)));
+  }
+  bits = __fadd_rn(bits, log2f(__ll2float_rn(n + 2)));
+  bool fast = bits < 62.0f;
+  gate[0] = fast ? 1 : 0;
+  gate[1] = fast ? (long long)top : 0;
+}
+
+__global__ void group_words_dev(const long long* __restrict__ ints, int k,
+                                long long n, const bool* __restrict__ valid,
+                                const long long* __restrict__ mins,
+                                const long long* __restrict__ maxs,
+                                const long long* __restrict__ gate,
+                                long long* __restrict__ words) {
+  const bool fast = gate[0] != 0;
+  const long long top = gate[1];
+  const int w_all = 1 + (k > 1 ? 1 : 0) + k;
+  long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    bool v = valid[i];
+    if (fast) {
+      long long acc = 0;
+      for (int c = 0; c < k; ++c) {
+        long long mn = mins[c], mx = maxs[c];
+        long long rng = (long long)(mx >= mn ? (u64)mx - (u64)mn : 0ULL) + 1;
+        long long d = (long long)((u64)ints[(long long)c * n + i] - (u64)mn);
+        d = d < 0 ? 0 : (d > rng - 1 ? rng - 1 : d);
+        acc = acc * rng + d;
+      }
+      words[i] = v ? acc : top;
+      for (int w = 1; w < w_all; ++w) words[(long long)w * n + i] = 0;
+      continue;
+    }
+    words[i] = v ? 0 : 1;
+    int w = 1;
+    if (k > 1) {
       u64 packed = 0;
       for (int c = 0; c < k; ++c) {
         u64 mn = (u64)mins[c], mx = (u64)maxs[c];
@@ -176,6 +247,24 @@ extern "C" int otbt_group_words(const void* ints, int k, long long n,
         (const long long*)ints, k, n, (const bool*)valid,
         (const long long*)mins, (const long long*)maxs, fast, top,
         (long long*)words);
+  return (int)cudaGetLastError();
+}
+
+// The traced form of steps 2-3: gate (2 int64) and words
+// ((1 + [k > 1] + k) x n) on the device; nothing is read by the host.
+extern "C" int otbt_group_words_dev(const void* ints, int k, long long n,
+                                    const void* valid, const void* mins,
+                                    const void* maxs, void* gate,
+                                    void* words, void* stream) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  group_gate<<<1, 1, 0, s>>>((const long long*)mins, (const long long*)maxs,
+                             k, n, (long long*)gate);
+  if (n > 0)
+    group_words_dev<<<otbt::grid_for(n), otbt::kThreads, 0, s>>>(
+        (const long long*)ints, k, n, (const bool*)valid,
+        (const long long*)mins, (const long long*)maxs,
+        (const long long*)gate, (long long*)words);
   return (int)cudaGetLastError();
 }
 

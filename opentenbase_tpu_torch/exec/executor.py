@@ -29,15 +29,35 @@ dictionaries in the scan's store view), with exchange inputs bound as
 BatchSource leaves, and finishes partial aggregates in final (combine)
 mode.
 
+The fused tier (exec/fused.py) runs first: `exec_node` offers every
+node to `fused.try_fused`, which runs a whole fragment as one program
+(on the card, a captured CUDA graph) through this same executor in
+traced mode (`_traced`).  There no operator reads a value back to the
+host: a join sizes its output from the static class ladder
+(max(64, max(left, right padded) // 4 * factor)) and reports the pairs it
+needed in `join_required`; the sort-based aggregate sizes its groups for
+the worst case (every row its own group) and runs K5's traced form; an
+aggregate over a scan whose groups are dense or absent runs the fused
+scan-aggregate kernel (ops/kernels.py fused_scan_agg) over every query
+of the program's batch at once (ExecContext.batch).  `_fuse = False`
+keeps a statement on the eager tier.
+
+EXEC_STATS counts per tier (single = eager, fused = traced programs) the
+joins and the host reads (`host_syncs`: one per eager join) and the
+fused tier's program hits on join fragments (`fused_join_hits`).
+
 Still raising NotImplementedError: DISTINCT aggregates, window
 functions, set operations, Append, index and vector scans, and the
-reference's fused / morsel / spill / work-sharing tiers.  Nothing is
-done another way.
+reference's morsel / spill / work-sharing tiers.  Nothing is done
+another way.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import threading
 from typing import Optional
 
 import numpy as np
@@ -52,11 +72,60 @@ from ..plan.planner import PlannedStmt, rewrite
 from ..storage import codec
 from ..storage.batch import next_pow2
 from ..storage.store import ABORTED_TS, TableStore
+from ..utils import locks
 from ..utils.dtypes import dev_dtype, device_float
+from .expr_compile import device_const
 
 
 class ExecError(Exception):
     pass
+
+
+# ---------------------------------------------------------------------------
+# executor telemetry (reference: exec/executor.py:53-110).  Per-tier
+# counter bundles: "single" is the eager per-operator dispatch, "fused"
+# counts the traced runs of fragment programs (a program's warm-up and
+# capture; a replay runs no Python) plus program hits on join fragments.
+# Increments go through bump_stat() under STATS_LOCK; the attribution
+# tier is thread-local.
+# ---------------------------------------------------------------------------
+STAT_FIELDS = ("joins", "host_syncs", "fused_join_hits")
+STATS_LOCK = locks.Lock("exec.executor.STATS_LOCK")
+EXEC_STATS: dict = {t: {f: 0 for f in STAT_FIELDS}   # guarded_by: STATS_LOCK
+                    for t in ("single", "fused")}
+_TIER = threading.local()   # per-thread counter attribution
+
+
+def _cur_tier() -> str:
+    return getattr(_TIER, "value", "single")
+
+
+def bump_stat(tier: str, field: str, n: int = 1):
+    with STATS_LOCK:
+        EXEC_STATS[tier][field] += n
+
+
+def _bump(field: str, n: int = 1):
+    """Thread-safe increment against the current attribution tier."""
+    bump_stat(_cur_tier(), field, n)
+
+
+@contextlib.contextmanager
+def stats_tier(tier: str):
+    """Attribute executor counters to `tier` for the duration."""
+    prev = _cur_tier()
+    _TIER.value = tier
+    try:
+        yield
+    finally:
+        _TIER.value = prev
+
+
+def exec_stats_snapshot() -> dict:
+    """Flat totals across tiers."""
+    with STATS_LOCK:
+        return {f: sum(EXEC_STATS[t][f] for t in EXEC_STATS)
+                for f in STAT_FIELDS}
 
 
 @dataclasses.dataclass
@@ -193,7 +262,18 @@ class ExecContext:
     # init-plan results: name -> (value, SqlType)
     staged: Optional[dict] = None
     # cluster tier: table -> (staged tensors of one DataNode's row range,
-    # its live row count); the scan reads these instead of the cache
+    # its live row count); the scan reads these instead of the cache.
+    # fused tier: table -> (the staged tensors the program reads, n)
+    join_size_factor: int = 1
+    # traced joins cannot read their output size: out_size = max(64,
+    # max(probe, build padded) // 4 * factor), per join id (fragment tag,
+    # sequence in the fragment) from join_factors, join_size_factor else
+    join_factors: Optional[dict] = None
+    batch: Optional[object] = None
+    # fused tier: the program's query batch (exec/fused.py BatchInputs):
+    # the literal table, snapshots and txids of all its slots; `slot` is
+    # the query this executor runs
+    slot: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -205,9 +285,20 @@ def _not_ported(what: str):
 
 
 class Executor:
-    def __init__(self, ctx: ExecContext):
+    #: True inside a fragment program's traced run (exec/fused.py): host
+    #: reads become static worst-case shapes
+    _traced = False
+    #: False keeps every node on the eager tier
+    _fuse = True
+
+    def __init__(self, ctx: ExecContext, frag_tag=None):
         self.ctx = ctx
         self.device = ctx.device
+        # traced joins: (join id, required pairs (0-d tensor), out_size)
+        # per join, checked by the fused tier after the program runs
+        self.join_required: list = []
+        self.frag_tag = frag_tag
+        self._join_seq = 0
 
     # ------------------------------------------------------------------
     def run(self, planned: PlannedStmt):
@@ -296,6 +387,11 @@ class Executor:
     def exec_node(self, node: P.PhysNode) -> DBatch:
         """Run one plan node; a node type of a later slice (window, set
         operations, Append, index and vector scans) is not yet ported."""
+        if not self._traced and self._fuse:
+            from .fused import try_fused
+            out = try_fused(self, node)
+            if out is not None:
+                return out
         m = getattr(self, f"_exec_{type(node).__name__.lower()}", None)
         if m is None:
             _not_ported(f"plan node {type(node).__name__}")
@@ -399,7 +495,9 @@ class Executor:
         if k is None or f"__null.{cname}" in arrs:
             return None
         v = rhs.value
-        if v is None:
+        if v is None or isinstance(v, torch.Tensor):
+            # a masked literal (a 0-d tensor of the program's literal
+            # buffer): compared in value space, so no literal is baked
             return None
         vdt = getattr(v, "dtype", None)
         if vdt is not None:
@@ -576,13 +674,29 @@ class Executor:
             return DBatch(left.cols, left.valid & mask, left.types,
                           left.dicts, left.nulls, left.lazy)
 
+        _bump("joins")
         left_outer = node.kind in ("left", "full")
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         eff = torch.where(left.valid, torch.clamp(counts, min=1), zero) \
             if left_outer else counts
-        # the join's one host read: its pair count sizes the output
-        total = int(eff.sum())
-        out_size = next_pow2(max(total, 1))
+        if self._traced:
+            # no host read inside a program: a static output class per
+            # join id; the program reports the pairs it needed and the
+            # fused tier grows exactly that join's factor on overflow
+            jid = (self.frag_tag, self._join_seq)
+            self._join_seq += 1
+            factor = (self.ctx.join_factors or {}).get(
+                jid, self.ctx.join_size_factor)
+            out_size = max(64, (max(left.padded, right.padded) // 4)
+                           * factor)
+            total = eff.sum()
+            self.join_required.append((jid, total, out_size))
+        else:
+            # the eager join's one host read: its pair count sizes the
+            # output
+            _bump("host_syncs")
+            total = int(eff.sum())
+            out_size = next_pow2(max(total, 1))
         pi, bi, _tot = K.join_expand(lo, counts, perm, out_size,
                                      left_outer=left_outer,
                                      probe_valid=left.valid)
@@ -705,7 +819,7 @@ class Executor:
                 lut = np.empty(max(len(d), 1), np.int64)
                 for ci, v in enumerate(d):
                     lut[ci] = canon.setdefault(v, ci)
-                arr = torch.from_numpy(lut).to(self.device)[
+                arr = device_const(lut, self.device)[
                     torch.clamp(arr, 0, len(d) - 1)]
             key_arrs.append(arr)
             key_nulls.append(nm)
@@ -780,8 +894,8 @@ class Executor:
             def non_null(v, neutral):
                 if null_mask is None:
                     return v
-                return torch.where(null_mask, torch.tensor(
-                    neutral, dtype=v.dtype, device=v.device), v)
+                return torch.where(null_mask, torch.full(
+                    (), neutral, dtype=v.dtype, device=v.device), v)
 
             base = b.valid if null_mask is None else (b.valid & ~null_mask)
             if ac.func == "count":
@@ -840,6 +954,10 @@ class Executor:
         return kinds, inputs, out_specs
 
     def _exec_agg(self, node: P.Agg) -> DBatch:
+        if self.ctx.batch is not None:
+            out = self._scan_agg(node)
+            if out is not None:
+                return out
         b = self.exec_node(node.child)
         if node.mode == "final":
             return self._exec_agg_final(node, b)
@@ -878,11 +996,15 @@ class Executor:
                     gkey_out.insert(0, rem % doms[i])
                     rem = torch.div(rem, doms[i], rounding_mode="floor")
             else:
-                max_groups = next_pow2(max(b.count(), 1))
+                # traced: the worst case, every row its own group
+                max_groups = b.padded if self._traced else \
+                    next_pow2(max(b.count(), 1))
                 gkeys, outs, ng = K.grouped_agg_sort(
                     self._grouping_arrays(key_arrs, key_nulls), b.valid,
-                    tuple(inputs), max_groups, tuple(kinds))
-                out_valid = torch.arange(max_groups, device=dev) < int(ng)
+                    tuple(inputs), max_groups, tuple(kinds),
+                    traced=self._traced)
+                out_valid = torch.arange(max_groups, device=dev) < (
+                    ng if self._traced else int(ng))
                 gkey_out = list(gkeys[:len(key_arrs)])
                 extra = list(gkeys[len(key_arrs):])
                 for i, nm in enumerate(key_nulls):
@@ -891,6 +1013,178 @@ class Executor:
         return self._assemble_agg_output(node, gkey_out, key_types,
                                          key_dicts, outs, out_specs,
                                          out_valid, gkey_nulls)
+
+    def _scan_agg(self, node: P.Agg) -> Optional[DBatch]:
+        """A fragment program's aggregate over a scan whose groups are
+        dense or absent: one fused_scan_agg launch answers every query of
+        the program's batch (ExecContext.batch); slot 0 launches it and
+        the other slots read their rows of its table.  None when the
+        fragment is outside the kernel (the generic operators run)."""
+        batch = self.ctx.batch
+        hit = batch.agg_cache.get(id(node))
+        if hit is None:
+            prep = self._scan_agg_prep(node)
+            hit = False
+            if prep is not None:
+                spec, cols, n, out_dtypes, key_info, out_specs = prep
+                ws = K.fused_scan_agg(spec, cols, n, batch.lits, batch.snaps,
+                                      batch.txids, int(ABORTED_TS))
+                hit = (ws, out_dtypes, key_info, out_specs)
+            batch.agg_cache[id(node)] = hit
+        if hit is False:
+            return None
+        ws, out_dtypes, (key_types, key_dicts, doms), out_specs = hit
+        table = ws[self.ctx.slot]
+        outs = [row if dt == torch.int64 else row.to(dt)
+                for row, dt in zip(table, out_dtypes)]
+        present = table[len(out_dtypes)]
+        dev = self.device
+        if not doms:
+            out_valid = torch.ones(1, dtype=torch.bool, device=dev)
+            gkey_out = []
+        else:
+            out_valid = present > 0
+            rem = torch.arange(math.prod(doms), dtype=torch.int64,
+                               device=dev)
+            gkey_out = []
+            for i in reversed(range(len(doms))):
+                gkey_out.insert(0, rem % doms[i])
+                rem = torch.div(rem, doms[i], rounding_mode="floor")
+        return self._assemble_agg_output(node, gkey_out, key_types,
+                                         key_dicts, outs, out_specs,
+                                         out_valid)
+
+    def _scan_agg_prep(self, node: P.Agg):
+        """The fused scan-aggregate program of `node` and its inputs, or
+        None: the child must be a scan (under Filters) read from the
+        program's staged tables, no column may carry NULLs, group keys
+        must be dense (TEXT dictionary codes or BOOL, as the eager dense
+        path takes them), aggregates sum / count / avg / min / max over
+        integers or decimals, and the emitter must accept every
+        expression."""
+        from .expr_compile import emit_scan_agg
+        if node.mode != "single" or any(ac.distinct for _, ac in node.aggs):
+            return None
+        child, quals = node.child, []
+        while isinstance(child, P.Filter):
+            quals.extend(child.quals)
+            child = child.child
+        if not isinstance(child, P.SeqScan):
+            return None
+        scan = child
+        staged = (self.ctx.staged or {}).get(scan.table.name)
+        store = self.ctx.stores.get(scan.table.name)
+        if staged is None or store is None:
+            return None
+        arrs, n = staged
+        encm = codec.enc_names(arrs)
+        outputs = dict(scan.outputs) if scan.outputs else {}
+
+        def resolve(e):
+            return rewrite(e, lambda x: outputs.get(x.name)
+                           if isinstance(x, E.Col) and x.name in outputs
+                           else None)
+
+        prefix = scan.alias + "."
+        slots: dict = {}
+        cols: list = []
+
+        def slot_of(staged_name):
+            if staged_name not in slots:
+                if staged_name not in arrs:
+                    return None
+                k = encm.get(staged_name)
+                cols.append((arrs[staged_name],
+                             arrs[k] if k is not None else None,
+                             codec.family_of(k) if k is not None else None))
+                slots[staged_name] = len(cols) - 1
+            return slots[staged_name]
+
+        def col_slot(name):
+            if not name.startswith(prefix):
+                return None
+            c = name[len(prefix):]
+            if f"__null.{c}" in arrs:
+                return None
+            return slot_of(c)
+
+        lit_index = self.ctx.batch.lit_index
+
+        def lit_slot(name):
+            return lit_index.get(name)
+
+        dicts = {f"{prefix}{c}": d.values for c, d in store.dicts.items()}
+        key_types, key_dicts, doms, groups = [], [], [], []
+        for _kname, ke in node.group_keys:
+            e = resolve(ke)
+            if not isinstance(e, E.Col):
+                return None
+            if e.type.kind == TypeKind.TEXT:
+                d = dicts.get(e.name)
+                if not d:
+                    return None
+                dom = len(d)
+            elif e.type.kind == TypeKind.BOOL:
+                d, dom = None, 2
+            else:
+                return None
+            key_types.append(ke.type)
+            key_dicts.append(d)
+            doms.append(dom)
+            groups.append((e, dom))
+        if math.prod(doms) > 4096:
+            return None
+        # the kernel's aggregates, the dtype of each output row, and the
+        # eager _agg_inputs' out_specs
+        aggs, out_dtypes, out_specs = [], [], []
+        for name, ac in node.aggs:
+            arg = resolve(ac.arg) if ac.arg is not None else None
+            if arg is not None and (
+                    arg.type.kind == TypeKind.FLOAT64
+                    or any(isinstance(x, E.Col) and lit_slot(x.name) is None
+                           and col_slot(x.name) is None
+                           for x in E.walk(arg))):
+                return None   # an f64 or possibly NULL argument
+            if ac.func == "count":
+                aggs.append((K.FUSED_COUNT, None))
+                out_dtypes.append(torch.int64)
+                out_specs.append((name, T.INT64, None))
+            elif ac.func == "avg":
+                scale = ac.arg.type.scale \
+                    if ac.arg.type.kind == TypeKind.DECIMAL else 0
+                aggs += [(K.FUSED_SUM, arg), (K.FUSED_COUNT, None)]
+                # the eager sumf of integer values: an exact int64 sum,
+                # converted once
+                out_dtypes += [device_float(), torch.int64]
+                out_specs.append((name, T.FLOAT64, ("avg", scale)))
+            elif ac.func == "sum":
+                aggs.append((K.FUSED_SUM, arg))
+                out_dtypes.append(torch.int64)
+                t = ac.arg.type if ac.arg.type.kind == TypeKind.DECIMAL \
+                    else T.INT64
+                out_specs.append((name, t, None))
+            elif ac.func in ("min", "max"):
+                aggs.append((K.FUSED_MIN if ac.func == "min"
+                             else K.FUSED_MAX, arg))
+                out_dtypes.append(dev_dtype(ac.arg.type))
+                out_specs.append((name, ac.arg.type, None))
+            else:
+                return None
+        mv = [slot_of(c) for c in ("__xmin_ts", "__xmax_ts", "__xmin_txid",
+                                   "__xmax_txid")]
+        if any(m is None for m in mv):
+            return None
+        all_quals = list(scan.filters) + [resolve(q) for q in quals]
+        spec = emit_scan_agg(all_quals, aggs, groups, col_slot, lit_slot,
+                             mv, self._dictviews(DBatch({}, None, {}, dicts)),
+                             len(lit_index))
+        lim = K.FUSED_LIMITS
+        if spec is None or len(cols) > lim["cols"] \
+                or len(spec.aggs) > lim["aggs"] \
+                or len(lit_index) > lim["regs"]:
+            return None
+        return (spec, cols, n, out_dtypes, (key_types, key_dicts, doms),
+                out_specs)
 
     def _exec_agg_final(self, node: P.Agg, b: DBatch) -> DBatch:
         """Finalise partial aggregates (reference: rq_finalise_aggs, the
@@ -911,11 +1205,14 @@ class Executor:
             out_valid = torch.ones(1, dtype=torch.bool, device=dev)
             gkey_out = []
         else:
-            max_groups = next_pow2(max(b.count(), 1))
+            max_groups = b.padded if self._traced else \
+                next_pow2(max(b.count(), 1))
             gkeys, outs, ng = K.grouped_agg_sort(
                 self._grouping_arrays(key_arrs, key_nulls), b.valid,
-                tuple(inputs), max_groups, tuple(kinds))
-            out_valid = torch.arange(max_groups, device=dev) < int(ng)
+                tuple(inputs), max_groups, tuple(kinds),
+                traced=self._traced)
+            out_valid = torch.arange(max_groups, device=dev) < (
+                ng if self._traced else int(ng))
             gkey_out = list(gkeys[:len(key_arrs)])
             extra = list(gkeys[len(key_arrs):])
             for i, nm in enumerate(key_nulls):
@@ -938,7 +1235,7 @@ class Executor:
                 order = np.argsort(np.asarray(d, dtype=object))
                 rank = np.empty(max(len(d), 1), dtype=np.int32)
                 rank[order] = np.arange(len(d), dtype=np.int32)
-                arr = torch.from_numpy(rank).to(self.device)[
+                arr = device_const(rank, self.device)[
                     torch.clamp(arr, 0, len(d) - 1).to(torch.int64)]
             if nm is not None:
                 # NULLs sort as +infinity: last under ASC, first under
@@ -949,8 +1246,8 @@ class Executor:
                     big = float("inf")
                 else:
                     big = torch.iinfo(arr.dtype).max
-                arr = torch.where(nm, torch.tensor(big, dtype=arr.dtype,
-                                                   device=arr.device), arr)
+                arr = torch.where(nm, torch.full((), big, dtype=arr.dtype,
+                                                 device=arr.device), arr)
             if arr.dim() == 0:
                 arr = arr.expand(b.padded)
             key_arrs.append(arr)

@@ -19,6 +19,19 @@ String predicates (LIKE/=/< over TEXT) are resolved at compile time against
 the store's dictionary into code sets; on device they are integer membership
 tests.
 
+Nothing here copies from the host while a fragment program is captured
+(exec/fused.py): scalar constants are fills (`torch.full`), host-built
+tables (membership code sets, string-hash LUTs) come from `device_const`,
+whose cache the program's warm-up run fills, and a masked literal
+(`__fraglitN`, or a numeric init-plan value) arrives as a 0-d device
+tensor read from the program's literal buffer, never as a Python scalar
+baked into the graph.
+
+`emit_scan_agg` is the other back end: it turns a scan -> qual ->
+aggregate fragment into the register program of the fused scan-aggregate
+kernel (ops/kernels.py fused_scan_agg), op by op as compile_pair would
+evaluate it, or declines.
+
 Type promotion follows the reference: a binary operation promotes both
 operands to their common dtype whatever their rank.  PyTorch alone would
 let a dimensioned int32 column win over a 0-dim int64 literal, so every
@@ -29,6 +42,7 @@ division (`torch.div(..., rounding_mode="floor")`), as jnp.floor_divide.
 from __future__ import annotations
 
 import re
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -54,6 +68,29 @@ def like_to_regex(pattern: str) -> re.Pattern:
         else:
             out.append(re.escape(ch))
     return re.compile("^" + "".join(out) + "$", re.S)
+
+
+_CONST_LOCK = threading.Lock()
+_CONSTS: dict = {}      # guarded_by: _CONST_LOCK
+_CONSTS_MAX = 4096
+
+
+def device_const(arr: np.ndarray, device) -> torch.Tensor:
+    """A host-built constant table on `device`, cached by content: the
+    same bytes give the same tensor, never written to.  A fragment
+    program's warm-up run fills the cache, so its capture copies
+    nothing from the host."""
+    arr = np.ascontiguousarray(arr)
+    key = (str(device), arr.dtype.str, arr.shape, arr.tobytes())
+    with _CONST_LOCK:
+        t = _CONSTS.get(key)
+    if t is None:
+        t = torch.from_numpy(arr.copy()).to(device)
+        with _CONST_LOCK:
+            _CONSTS[key] = t
+            while len(_CONSTS) > _CONSTS_MAX:
+                _CONSTS.pop(next(iter(_CONSTS)))
+    return t
 
 
 def _common(a, b):
@@ -146,14 +183,13 @@ def _membership(arr, codes: np.ndarray):
     if len(codes) == 0:
         return torch.zeros(arr.shape, dtype=torch.bool, device=arr.device)
     if len(codes) <= 16:
-        m = arr == torch.tensor(int(codes[0]), dtype=arr.dtype,
-                                device=arr.device)
+        m = arr == torch.full((), int(codes[0]), dtype=arr.dtype,
+                              device=arr.device)
         for c in codes[1:]:
-            m = m | (arr == torch.tensor(int(c), dtype=arr.dtype,
-                                         device=arr.device))
+            m = m | (arr == torch.full((), int(c), dtype=arr.dtype,
+                                       device=arr.device))
         return m
-    sorted_codes = torch.from_numpy(np.sort(codes)).to(arr.device) \
-        .to(arr.dtype)
+    sorted_codes = device_const(np.sort(codes), arr.device).to(arr.dtype)
     pos = torch.searchsorted(sorted_codes, arr)
     pos = torch.clamp(pos, 0, len(codes) - 1)
     return sorted_codes[pos] == arr
@@ -199,7 +235,7 @@ def _text_hash_fn(e: E.Expr, dicts: dict,
         raise E.ExprError(f"no dictionary for TEXT column {name!r}")
     lut = np.asarray([hash_string(transform(v)) for v in d.values]
                      or [0], dtype=np.uint64).view(np.int64)
-    jl = torch.from_numpy(lut).to(device)
+    jl = device_const(lut, device)
     return lambda cols, _j=jl, _n=name: \
         _j[torch.clamp(cols[_n], 0, _j.shape[0] - 1).to(torch.int64)]
 
@@ -241,7 +277,11 @@ def compile_pair(e: E.Expr, dicts: dict, nullable=frozenset(),
     `device`, the device of the columns."""
 
     def const(v, dt):
-        return torch.tensor(v, dtype=dt, device=device)
+        if isinstance(v, torch.Tensor):
+            # a masked literal: a 0-d view of the program's literal
+            # buffer (exec/fused.py), at the literal's storage dtype
+            return v.to(dt)
+        return torch.full((), v, dtype=dt, device=device)
 
     def c(x: E.Expr):
         if isinstance(x, E.Col):
@@ -602,3 +642,334 @@ def compile_pred(e: E.Expr, dicts: dict, nullable=frozenset(),
     if nf is None:
         return vf
     return _truth(vf, nf)[0]
+
+
+# ---------------------------------------------------------------------------
+# register-program emitter for the fused scan-aggregate kernel
+# ---------------------------------------------------------------------------
+
+class Declined(Exception):
+    """The fragment is outside what the fused scan-aggregate kernel
+    evaluates; it runs the generic program instead."""
+
+
+_F64, _I64, _I32, _BOOL = "f64", "i64", "i32", "bool"
+
+
+def _reg_dtype(t) -> str:
+    """The torch dtype compile_pair gives a value of SqlType `t`, as one
+    of the emitter's register types."""
+    dt = dev_dtype(t)
+    if dt == torch.float64:
+        return _F64
+    if dt == torch.bool:
+        return _BOOL
+    if dt == torch.int64:
+        return _I64
+    if dt == torch.int32:
+        return _I32
+    raise Declined(f"value dtype {dt}")
+
+
+def _promote(a: str, b: str) -> str:
+    """torch.promote_types over the register types."""
+    order = {_BOOL: 0, _I32: 1, _I64: 2, _F64: 3}
+    return a if order[a] >= order[b] else b
+
+
+class _Emitter:
+    """Emits register instructions (ops/kernels.py FUSED_OPS) that
+    compute what compile_pair computes, operation for operation:
+    the same promotions, decimal rescales, int32 wrap-around and float
+    conversions.  `col_slot(name)` -> column slot or None; `lit_slot(name)`
+    -> literal column or None (a masked literal or numeric parameter)."""
+
+    def __init__(self, col_slot, lit_slot, dicts):
+        from ..ops.kernels import FUSED_LIMITS, FUSED_OPS
+        self.ops = FUSED_OPS
+        self.limits = FUSED_LIMITS
+        self.col_slot = col_slot
+        self.lit_slot = lit_slot
+        self.dicts = dicts
+        self.instrs: list = []
+        self.consts: list = []
+        self.nregs = 0
+        self.cols: dict = {}      # slot -> register (shared part)
+        self.in_qual = False
+
+    def _reg(self) -> int:
+        r = self.nregs
+        self.nregs += 1
+        if self.nregs > self.limits["regs"]:
+            raise Declined("too many registers")
+        return r
+
+    def op(self, name: str, a: int = 0, b: int = 0) -> int:
+        if len(self.instrs) >= self.limits["instrs"]:
+            raise Declined("program too long")
+        d = self._reg()
+        self.instrs.append((self.ops[name], d, a, b))
+        return d
+
+    def const(self, v: int) -> int:
+        v = int(v)
+        if v not in self.consts:
+            if len(self.consts) >= self.limits["consts"]:
+                raise Declined("too many constants")
+            self.consts.append(v)
+        return self.op("CONST", self.consts.index(v))
+
+    def fconst(self, v: float) -> int:
+        bits = int(np.asarray([float(v)], np.float64).view(np.int64)[0])
+        return self.const(bits)
+
+    def load_col(self, slot: int) -> int:
+        if slot not in self.cols:
+            if self.in_qual:
+                raise Declined("a column first read by the qual")
+            self.cols[slot] = self.op("LDCOL", slot)
+        return self.cols[slot]
+
+    # -- conversions ---------------------------------------------------
+    def to(self, reg: int, src: str, dst: str) -> int:
+        if src == dst:
+            return reg
+        if dst == _F64:
+            return self.op("I2F", reg)
+        if src == _F64:
+            raise Declined("float to int conversion")
+        if dst == _I32 and src == _I64:
+            return self.op("WRAP32", reg)
+        return reg     # bool / int32 widen: the word already holds it
+
+    def wrap(self, reg: int, dt: str) -> int:
+        return self.op("WRAP32", reg) if dt == _I32 else reg
+
+    def scaled_f(self, reg: int, dt: str, scale: int) -> int:
+        """f(cols).to(f64) / 10 ** scale (compile_pair's decimal to
+        float), the division skipped for scale 0 as x / 1 is x."""
+        f = self.to(reg, dt, _F64)
+        return self.op("FDIV", f, self.fconst(10 ** scale)) if scale else f
+
+    def rescale(self, reg: int, dt: str, frm: int, to: int):
+        """_rescale: multiply up (_wide: at least int64) or floor-divide
+        down."""
+        if frm == to:
+            return reg, dt
+        if dt == _F64:
+            raise Declined("rescale of a float")
+        if to > frm:
+            return self.op("IMUL", reg, self.const(10 ** (to - frm))), _I64
+        return self.op("IDIV", reg, self.const(10 ** (frm - to))), _I64
+
+    # -- expressions ---------------------------------------------------
+    def expr(self, x):
+        """(register, register type) of x's value; x is never NULL."""
+        if isinstance(x, E.Col):
+            lit = self.lit_slot(x.name)
+            if lit is not None:
+                return self.op("LDLIT", lit), _reg_dtype(x.type)
+            slot = self.col_slot(x.name)
+            if slot is None:
+                raise Declined(f"column {x.name}")
+            return self.load_col(slot), _reg_dtype(x.type)
+        if isinstance(x, E.Lit):
+            if x.value is None or isinstance(x.value, torch.Tensor) \
+                    or x.lit_type.kind == TypeKind.TEXT:
+                raise Declined("literal")
+            dt = _reg_dtype(x.lit_type)
+            if dt == _F64:
+                return self.fconst(x.value), dt
+            return self.const(int(x.value)), dt
+        if isinstance(x, E.Arith):
+            return self.arith(x)
+        if isinstance(x, E.Neg):
+            r, dt = self.expr(x.arg)
+            if dt == _F64:
+                return self.op("FNEG", r), dt
+            return self.wrap(self.op("INEG", r), dt), dt
+        if isinstance(x, E.Cmp):
+            return self.cmp(x), _BOOL
+        if isinstance(x, E.BoolOp):
+            regs = [self.pred(a) for a in x.args]
+            acc = regs[0]
+            for r in regs[1:]:
+                acc = self.op("AND" if x.op == "and" else "OR", acc, r)
+            return acc, _BOOL
+        if isinstance(x, E.Not):
+            return self.op("NOT", self.pred(x.arg)), _BOOL
+        if isinstance(x, E.IsNull):
+            return self.const(1 if x.negated else 0), _BOOL
+        if isinstance(x, E.InList):
+            r, dt = self.expr(x.arg)
+            if dt == _F64 or not 0 < len(x.values) <= 16:
+                raise Declined("IN list")
+            acc = None
+            for v in x.values:
+                m = self.op("IEQ", r, self.const(int(v)))
+                acc = m if acc is None else self.op("OR", acc, m)
+            return acc, _BOOL
+        if isinstance(x, E.StrPred):
+            codes = _codes_for_strpred(x, self.dicts)
+            r, _dt = self.expr(x.col if isinstance(x.col, E.Col) else
+                               x.col.col)
+            if len(codes) > 16:
+                raise Declined("string predicate over many codes")
+            if len(codes) == 0:
+                acc = self.const(0)
+            else:
+                acc = None
+                for c in codes:
+                    m = self.op("IEQ", r, self.const(int(c)))
+                    acc = m if acc is None else self.op("OR", acc, m)
+            if x.kind in ("ne", "not_like", "not_in"):
+                acc = self.op("NOT", acc)
+            return acc, _BOOL
+        if isinstance(x, E.Cast):
+            return self.cast(x)
+        raise Declined(type(x).__name__)
+
+    def pred(self, x) -> int:
+        r, dt = self.expr(x)
+        if dt != _BOOL:
+            raise Declined("non-boolean predicate")
+        return r
+
+    def arith(self, x):
+        lt, rt = x.left.type, x.right.type
+        (lr, ld), (rr, rd) = self.expr(x.left), self.expr(x.right)
+        if x.type.kind == TypeKind.FLOAT64:
+            lf = self.scaled_f(lr, ld, lt.scale) \
+                if lt.kind == TypeKind.DECIMAL else self.to(lr, ld, _F64)
+            rf = self.scaled_f(rr, rd, rt.scale) \
+                if rt.kind == TypeKind.DECIMAL else self.to(rr, rd, _F64)
+            name = {"+": "FADD", "-": "FSUB", "*": "FMUL",
+                    "/": "FDIV"}.get(x.op)
+            if name is None:
+                raise Declined(f"float {x.op}")
+            return self.op(name, lf, rf), _F64
+        if x.type.kind == TypeKind.DECIMAL and x.op in "+-":
+            s = x.type.scale
+            if lt.kind == TypeKind.DECIMAL:
+                lr, ld = self.rescale(lr, ld, lt.scale, s)
+            else:
+                lr, ld = self.rescale(self.to(lr, ld, _I64), _I64, 0, s)
+            if rt.kind == TypeKind.DECIMAL:
+                rr, rd = self.rescale(rr, rd, rt.scale, s)
+            else:
+                rr, rd = self.rescale(self.to(rr, rd, _I64), _I64, 0, s)
+        if x.op == "*" and x.type.kind == TypeKind.DECIMAL:
+            return self.op("IMUL", self.to(lr, ld, _I64),
+                           self.to(rr, rd, _I64)), _I64
+        name = {"+": "ADD", "-": "SUB", "*": "MUL", "%": "MOD"}.get(x.op)
+        if name is None:
+            raise Declined(f"integer {x.op}")
+        dt = _promote(ld, rd)
+        if dt == _BOOL:
+            raise Declined("boolean arithmetic")
+        a, b = self.to(lr, ld, dt), self.to(rr, rd, dt)
+        if dt == _F64:
+            if name == "MOD":
+                raise Declined("float %")
+            return self.op("F" + name, a, b), dt
+        return self.wrap(self.op("I" + name, a, b), dt), dt
+
+    def cmp(self, x) -> int:
+        lt, rt = x.left.type, x.right.type
+        if lt.kind == TypeKind.TEXT or rt.kind == TypeKind.TEXT:
+            raise Declined("text comparison")
+        (lr, ld), (rr, rd) = self.expr(x.left), self.expr(x.right)
+        if TypeKind.FLOAT64 in (lt.kind, rt.kind):
+            lr = self.scaled_f(lr, ld, lt.scale) \
+                if lt.kind == TypeKind.DECIMAL else self.to(lr, ld, _F64)
+            rr = self.scaled_f(rr, rd, rt.scale) \
+                if rt.kind == TypeKind.DECIMAL else self.to(rr, rd, _F64)
+            ld = rd = _F64
+        elif TypeKind.DECIMAL in (lt.kind, rt.kind):
+            s = max(lt.scale, rt.scale)
+            lr, ld = self.rescale(lr, ld, lt.scale, s)
+            rr, rd = self.rescale(rr, rd, rt.scale, s)
+        dt = _promote(ld, rd)
+        a, b = self.to(lr, ld, dt), self.to(rr, rd, dt)
+        name = {"=": "EQ", "<>": "NE", "<": "LT", "<=": "LE", ">": "GT",
+                ">=": "GE"}[x.op]
+        return self.op(("F" if dt == _F64 else "I") + name, a, b)
+
+    def cast(self, x):
+        r, dt = self.expr(x.arg)
+        src, dst = x.arg.type, x.to
+        if dst.kind == TypeKind.FLOAT64 and src.kind == TypeKind.DECIMAL:
+            return self.scaled_f(r, dt, src.scale), _F64
+        if dst.kind == TypeKind.DECIMAL and src.kind == TypeKind.DECIMAL:
+            return self.rescale(r, dt, src.scale, dst.scale)
+        if dst.kind in (TypeKind.INT32, TypeKind.INT64) \
+                and src.kind == TypeKind.DECIMAL:
+            q, _ = self.rescale(r, dt, src.scale, 0)
+            out = _reg_dtype(dst)
+            return self.to(q, _I64, out), out
+        if dst.kind == TypeKind.DECIMAL and src.kind in (TypeKind.INT32,
+                                                         TypeKind.INT64):
+            return self.op("IMUL", self.to(r, dt, _I64),
+                           self.const(10 ** dst.scale)), _I64
+        if dst.kind == TypeKind.DECIMAL and src.kind == TypeKind.FLOAT64:
+            raise Declined("float to decimal cast")
+        out = _reg_dtype(dst)
+        return self.to(r, dt, out), out
+
+
+def emit_scan_agg(quals, aggs, groups, col_slot, lit_slot, mv_slots,
+                  dicts, n_lits: int):
+    """The fused scan-aggregate program of one fragment, or None.
+
+    quals: predicates over the scan's columns and literal columns (ANDed);
+    aggs: (kind, expr or None) per kernel aggregate, kind one of
+    ops/kernels.py FUSED_SUM / FUSED_COUNT / FUSED_MIN / FUSED_MAX (the
+    expression never NULL, never f64); groups: (expr, domain) per dense
+    group key, the group id built as K4's dense path builds it
+    (gid * dom + clamp(code, 0, dom - 1)); mv_slots: the column slots of
+    xmin_ts, xmax_ts, xmin_txid, xmax_txid.  Declines (None) anything
+    compile_pair would evaluate another way: NULLs, text comparisons,
+    CASE, EXTRACT, integer division, float aggregates."""
+    from ..ops.kernels import ScanAggSpec
+    em = _Emitter(col_slot, lit_slot, dicts)
+    try:
+        mv = tuple(em.load_col(s) for s in mv_slots)
+        agg_regs = []
+        for kind, e in aggs:
+            if e is None:
+                agg_regs.append((kind, 0))
+                continue
+            r, dt = em.expr(e)
+            if dt == _F64:
+                raise Declined("float aggregate input")
+            agg_regs.append((kind, r))
+        gid, n_groups = -1, 1
+        for e, dom in groups:
+            r, dt = em.expr(e)
+            if dt == _F64:
+                raise Declined("float group key")
+            code = em.op("IMAX", r, em.const(0))
+            code = em.op("IMIN", code, em.const(dom - 1))
+            gid = code if gid < 0 else \
+                em.op("IADD", em.op("IMUL", gid, em.const(dom)), code)
+            n_groups *= dom
+        # every column the quals read loads once, in the shared part
+        for q in quals:
+            for x in E.walk(q):
+                if isinstance(x, E.Col) and lit_slot(x.name) is None:
+                    slot = col_slot(x.name)
+                    if slot is None:
+                        raise Declined(f"column {x.name}")
+                    em.load_col(slot)
+        n_shared = len(em.instrs)
+        em.in_qual = True
+        qual = -1
+        for q in quals:
+            r = em.pred(q)
+            qual = r if qual < 0 else em.op("AND", qual, r)
+    except (Declined, E.ExprError):
+        return None
+    return ScanAggSpec(instrs=em.instrs, n_shared=n_shared,
+                       consts=em.consts, aggs=agg_regs, gid_reg=gid,
+                       qual_reg=qual, n_groups=n_groups, mv_regs=mv,
+                       n_lits=n_lits)

@@ -7,6 +7,12 @@ implicit single-statement transaction.  A LocalNode owns the catalog,
 the table stores (host RAM), a device buffer cache and a local timestamp
 source standing in for the GTM.
 
+SELECTs run through the executor's fused tier first (exec/fused.py: one
+captured program per fragment), and `_plan_select` reuses plans through
+the exact-statement plan cache (exec/plancache.py get_or_build).  The
+serving tier (exec/scheduler.py Scheduler) drives these sessions from
+many client threads; it reads `Session.resource_group` for admission.
+
 The node runs on the card: `LocalNode()` resolves to CUDA and raises when
 there is none.  A caller that wants the CPU (the tests) says so with
 `device="cpu"`; nothing moves execution to the CPU on its own.
@@ -95,6 +101,13 @@ class LocalNode:
         self.stores: dict[str, TableStore] = {}
         self.gts = LocalGts()
         self.cache = DeviceBufferPool(self.device)
+        self.ddl_gen = 0      # bumped by DDL: part of the plan cache key
+
+    def serve(self, host: str = "127.0.0.1", port: int = 0, **knobs):
+        """The reference serves this node over its network front end
+        (exec/scheduler.py serve); the port has no network tier yet."""
+        from .scheduler import serve
+        return serve(self, host, port, **knobs)
 
 
 _NOT_PORTED_STMTS = {
@@ -106,8 +119,10 @@ _NOT_PORTED_STMTS = {
 
 
 class Session:
-    def __init__(self, node: LocalNode):
+    def __init__(self, node: LocalNode, resource_group: str = ""):
         self.node = node
+        # the serving tier's admission group ("" = default)
+        self.resource_group = resource_group
 
     def execute(self, sql: str) -> list[Result]:
         return [self._exec_stmt(s) for s in parse_sql(sql)]
@@ -146,14 +161,22 @@ class Session:
         td = table_def_from_ast(stmt)
         self.node.catalog.create_table(td, stmt.if_not_exists)
         self.node.stores.setdefault(td.name, TableStore(td))
+        self.node.ddl_gen += 1
         return Result("CREATE TABLE")
 
     def _plan_select(self, stmt: A.SelectStmt) -> PlannedStmt:
         if stmt.for_update:
             raise NotImplementedError("SELECT ... FOR UPDATE is not yet "
                                       "ported")
-        bq = Binder(self.node.catalog).bind_select(stmt)
-        return Planner(self.node.catalog).plan(bq)
+        from .plancache import get_or_build
+        node = self.node
+        gen = (getattr(node, "ddl_gen", 0), len(node.catalog.tables))
+
+        def build():
+            bq = Binder(node.catalog).bind_select(stmt)
+            return Planner(node.catalog).plan(bq)
+
+        return get_or_build(node, "_plan_cache", stmt, gen, build)
 
     def _run_select(self, stmt: A.SelectStmt):
         planned = self._plan_select(stmt)

@@ -4,8 +4,10 @@ The in-memory part of opentenbase_tpu/gtm/server.py's GtmCore: global
 timestamps (GTS, microseconds of the wall clock, strictly increasing),
 transaction ids, the catalog generation, sequences and the registry of
 prepared two-phase transactions the cluster's implicit 2PC writes to.
-Not ported: persistence of the reserve window, the socket server and its
-client, standby shipping, resource-queue slots and barriers.
+The resource-queue slots the serving tier admits through (exec/scheduler.py)
+are here too: per-group concurrency slots, each held by an owner under a
+lease.  Not ported: persistence of the reserve window, the socket server
+and its client, standby shipping and barriers.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ class GtmCore:
         self._catalog_gen = 0
         self._sequences: dict[str, dict] = {}
         self._prepared: dict[str, dict] = {}   # gid -> info (2PC registry)
+        self._resq: dict[str, list] = {}       # group -> [[owner, lease]]
+        self._resq_stat = {"acquired": 0, "released": 0, "expired": 0}
 
     # ---- catalog generation (multi-coordinator DDL sync) ----
     def catalog_gen(self) -> int:
@@ -68,6 +72,77 @@ class GtmCore:
     def seq_drop(self, name: str):
         with self._lock:
             self._sequences.pop(name, None)
+
+    # ---- resource-queue slots (reference: gtm/server.py resq_*) ----
+    # Each group has a list of [owner, lease_deadline] slots.  A holder
+    # that dies between acquire and release cannot leak its slot: an
+    # expired lease is reaped at the next call, and resq_disconnect
+    # frees every slot of an owner.
+    def _resq_slots(self, group: str) -> list:
+        # caller holds self._lock
+        slots = self._resq.setdefault(group, [])
+        now = time.monotonic()
+        kept = [s for s in slots if s[1] > now]
+        # a reaped lease is an acquire whose release never lands: count
+        # it, or the acquired/released ledger silently diverges
+        self._resq_stat["expired"] += len(slots) - len(kept)
+        slots[:] = kept
+        return slots
+
+    def resq_acquire(self, group: str, cap: int, owner: str = "",
+                     lease_s: float = 30.0) -> bool:
+        with self._lock:
+            slots = self._resq_slots(group)
+            if cap > 0 and len(slots) >= cap:
+                return False
+            slots.append([owner,
+                          time.monotonic() + max(float(lease_s), 0.001)])
+            self._resq_stat["acquired"] += 1
+            return True
+
+    def resq_release(self, group: str, owner: str = "") -> None:
+        with self._lock:
+            slots = self._resq_slots(group)
+            for i, s in enumerate(slots):
+                if s[0] == owner:
+                    del slots[i]
+                    self._resq_stat["released"] += 1
+                    return
+            # an identity-less caller releases positionally; an
+            # identified owner whose slot was already reaped must not
+            # pop someone else's (the reap was counted as expired)
+            if slots and not owner:
+                del slots[0]
+                self._resq_stat["released"] += 1
+
+    def resq_disconnect(self, owner: str) -> int:
+        """Free every slot held by `owner`; returns how many."""
+        if not owner:
+            return 0
+        freed = 0
+        with self._lock:
+            for group in list(self._resq):
+                slots = self._resq_slots(group)
+                kept = [s for s in slots if s[0] != owner]
+                freed += len(slots) - len(kept)
+                slots[:] = kept
+            # the owner's goodbye is its release
+            self._resq_stat["released"] += freed
+        return freed
+
+    def resq_counts(self) -> dict:
+        with self._lock:
+            return {g: len(self._resq_slots(g)) for g in list(self._resq)}
+
+    def resq_stats(self) -> dict:
+        """Slot ledger: acquired == released + expired + live at any
+        quiescent point."""
+        with self._lock:
+            for g in list(self._resq):
+                self._resq_slots(g)     # fold pending expiries in
+            st = dict(self._resq_stat)
+        st["live"] = sum(self.resq_counts().values())
+        return st
 
     # ---- 2PC registry ----
     def prepare_txn(self, gid: str, participants: list[str], txid: int):

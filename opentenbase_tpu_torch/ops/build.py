@@ -31,12 +31,14 @@ _LL = ctypes.c_longlong
 #: returns cudaGetLastError() as an int)
 SIGNATURES = {
     "otbt_visibility_mask": [_P, _P, _P, _P, _LL, _LL, _LL, _P, _LL, _P],
+    "otbt_visibility_mask_dev": [_P, _P, _P, _P, _P, _P, _LL, _P, _LL, _P],
     "otbt_decode_column": [_P, _I, _P, _I, _I, _LL, _P, _LL, _P],
     "otbt_cmp_on_codes": [_P, _I, _P, _I, _I, _LL, _I, _LL, _P, _LL, _P],
     "otbt_grouped_agg_dense": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
     "otbt_sort_perm": [_P, _I, _LL, _P, _LL, _P],
     "otbt_group_key_stats": [_P, _I, _LL, _P, _P, _P, _P],
     "otbt_group_words": [_P, _I, _LL, _P, _P, _P, _I, _LL, _P, _P],
+    "otbt_group_words_dev": [_P, _I, _LL, _P, _P, _P, _P, _P, _P],
     "otbt_group_ids": [_P, _I, _LL, _P, _P, _LL, _P, _P, _P, _P, _P, _P,
                        _P],
     "otbt_join_build": [_P, _P, _LL, _P, _P, _LL, _P, _P],
@@ -53,6 +55,7 @@ SIGNATURES = {
     "otbt_exchange_tiles": [_LL],
     "otbt_exchange_max_dn": [],
     "otbt_exchange_count": [_P, _P, _P, _I, _I, _LL, _P, _P, _P, _P],
+    "otbt_fused_scan_agg": [_P, _LL, _P, _P, _P, _I, _P, _P],
     "otbt_exchange_scatter": [_P, _P, _P, _I, _I, _LL, _P, _LL, _P, _P,
                               _P, _P, _P, _I, _P],
 }

@@ -10,7 +10,9 @@ three parts:
 - a wrapper with the reference's signature, which checks device, dtype,
   shape and contiguity, allocates the outputs, launches on PyTorch's
   current stream, raises on a nonzero CUDA status, and adds one to
-  LAUNCHES[name] per launch;
+  LAUNCHES[name] per launch (_count: a launch recorded into a CUDA
+  graph under capture is not a launch; the fused tier adds a captured
+  graph's launches at every replay, exec/fused.py);
 - a plain PyTorch version (`*_plain`) of the same function.  The wrapper
   takes it only for tensors that lie on the CPU (the tests run there);
   for a CUDA tensor it launches the kernel or raises.
@@ -22,6 +24,8 @@ are masked by the caller's validity mask.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -40,12 +44,46 @@ LAUNCHES = {"visibility_mask": 0, "decode_column": 0, "cmp_on_codes": 0,
             "join_probe_counts": 0, "join_expand": 0, "compose_index": 0,
             "semi_mask": 0, "anti_mask": 0, "sort_rows": 0,
             "hash_columns": 0, "bucket_ids": 0, "route_dest": 0,
-            "exchange": 0, "compact": 0}
+            "exchange": 0, "compact": 0, "fused_scan_agg": 0}
+_LAUNCH_LOCK = threading.Lock()
+_CAPTURE = threading.local()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str, n: int = 1) -> None:
+    """Count `n` launches of kernel `name`; under capture_launches()
+    they go to this thread's capture tally instead."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + n
+        return
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += n
+
+
+def add_launches(tally: dict) -> None:
+    """Count a replayed CUDA graph's kernel launches."""
+    with _LAUNCH_LOCK:
+        for k, v in tally.items():
+            LAUNCHES[k] += v
+
+
+class capture_launches:
+    """Within the block, this thread's launches are recorded into the
+    dict it yields (a CUDA graph under capture launches nothing)."""
+
+    def __enter__(self) -> dict:
+        self.prev = getattr(_CAPTURE, "tally", None)
+        _CAPTURE.tally = {}
+        return _CAPTURE.tally
+
+    def __exit__(self, *exc):
+        _CAPTURE.tally = self.prev
 
 
 def _lib():
@@ -118,21 +156,35 @@ def visibility_mask(xmin_ts, xmax_ts, xmin_txid, xmax_txid,
                     snap_ts, my_txid, aborted_ts):
     """GTS MVCC visibility over the four decoded int64 system columns:
     (xmin_ts <= snap or own insert not aborted) and not (xmax_ts <= snap
-    or own delete)."""
+    or own delete).  snap_ts and my_txid are ints, or 0-d int64 tensors
+    on the columns' device: the kernel then reads them from device
+    memory, so a captured program can change them between replays."""
     cols = (xmin_ts, xmax_ts, xmin_txid, xmax_txid)
-    snap_ts, my_txid, aborted_ts = int(snap_ts), int(my_txid), \
-        int(aborted_ts)
-    if _on_cpu(*cols):
+    on_dev = isinstance(snap_ts, torch.Tensor)
+    if on_dev != isinstance(my_txid, torch.Tensor):
+        raise TypeError("snap_ts and my_txid: both ints or both tensors")
+    aborted_ts = int(aborted_ts)
+    if not on_dev:
+        snap_ts, my_txid = int(snap_ts), int(my_txid)
+    if _on_cpu(*cols, *((snap_ts, my_txid) if on_dev else ())):
         return visibility_mask_plain(*cols, snap_ts, my_txid, aborted_ts)
     n = xmin_ts.shape[0]
     for nm, t in zip(("xmin_ts", "xmax_ts", "xmin_txid", "xmax_txid"), cols):
         _check(t, nm, (torch.int64,), n)
     out = torch.empty(n, dtype=torch.bool, device=xmin_ts.device)
-    rc = _lib().otbt_visibility_mask(
-        *(_ptr(t) for t in cols), snap_ts, my_txid, aborted_ts, _ptr(out),
-        n, _stream())
+    if on_dev:
+        for nm, t in (("snap_ts", snap_ts), ("my_txid", my_txid)):
+            if t.dtype != torch.int64 or t.numel() != 1:
+                raise ValueError(f"{nm}: want one int64")
+        rc = _lib().otbt_visibility_mask_dev(
+            *(_ptr(t) for t in cols), _ptr(snap_ts), _ptr(my_txid),
+            aborted_ts, _ptr(out), n, _stream())
+    else:
+        rc = _lib().otbt_visibility_mask(
+            *(_ptr(t) for t in cols), snap_ts, my_txid, aborted_ts,
+            _ptr(out), n, _stream())
     _ok(rc, "visibility_mask")
-    LAUNCHES["visibility_mask"] += 1
+    _count("visibility_mask", 1)
     return out
 
 
@@ -194,7 +246,7 @@ def decode_column(codes, aux, family: str):
         _ptr(codes), _CODE_BITS[codes.dtype], _ptr(aux), _OUT_BITS[aux.dtype],
         _FAMILY[family], aux.shape[0], _ptr(out), n, _stream())
     _ok(rc, "decode_column")
-    LAUNCHES["decode_column"] += 1
+    _count("decode_column", 1)
     return out
 
 
@@ -232,7 +284,7 @@ def cmp_on_codes(codes, aux, family: str, op: str, lit):
         _FAMILY[family], aux.shape[0], _CMP_OPS[op],
         _lit_for(lit, aux.dtype), _ptr(out), n, _stream())
     _ok(rc, "cmp_on_codes")
-    LAUNCHES["cmp_on_codes"] += 1
+    _count("cmp_on_codes", 1)
     return out
 
 
@@ -323,7 +375,7 @@ def grouped_agg_dense(group_id, valid, agg_inputs: tuple,
                                        num_groups, agg_kinds)
     outs, present, launches = _agg_dense_launch(
         group_id, valid, agg_inputs, num_groups, agg_kinds)
-    LAUNCHES["grouped_agg_dense"] += launches
+    _count("grouped_agg_dense", launches)
     return outs, present
 
 
@@ -436,7 +488,7 @@ def sort_perm(words: torch.Tensor) -> torch.Tensor:
     perm = torch.empty(m, dtype=torch.int64, device=words.device)
     rc = _lib().otbt_sort_perm(_ptr(words), w, n, _ptr(perm), m, _stream())
     _ok(rc, "sort_rows")
-    LAUNCHES["sort_rows"] += 1
+    _count("sort_rows", 1)
     return perm[:n]
 
 
@@ -540,17 +592,67 @@ def _group_words_plain(ints, valid, mins, maxs, fast: bool, top: int):
     return torch.stack(words).contiguous()
 
 
-def grouped_agg_sort_plain(key_cols: tuple, valid, agg_inputs: tuple,
-                           max_groups: int, agg_kinds: tuple):
-    ints = _sortable_ints(key_cols)
+def _group_words_traced_plain(ints, valid):
+    """The traced form's words without a host read (csrc/groupsort.cu
+    group_gate + group_words_dev): the pack test in float32 tensors,
+    both branches' words, the fast branch padded with zero words to the
+    exact branch's 1 + [k > 1] + k."""
     k, n = ints.shape
     dev = ints.device
     i64 = torch.iinfo(torch.int64)
-    mins = torch.where(valid, ints, i64.max).amin(dim=1).tolist()
-    maxs = torch.where(valid, ints, i64.min).amax(dim=1).tolist()
-    fast, top = _pack_gate(mins, maxs, n)
-    perm = sort_perm_plain(_group_words_plain(ints, valid, mins, maxs,
-                                              fast, top))
+    mins = torch.where(valid, ints, i64.max).amin(dim=1)
+    maxs = torch.where(valid, ints, i64.min).amax(dim=1)
+    two = torch.tensor(2.0, dtype=torch.float32)
+    bits = torch.zeros((), dtype=torch.float32)
+    top = torch.ones((), dtype=torch.int64)
+    fast_acc = torch.zeros(n, dtype=torch.int64, device=dev)
+    exact_packed = torch.zeros(n, dtype=torch.int64, device=dev)
+    for c in range(k):
+        mn, mx = mins[c], maxs[c]
+        span = torch.where(mx >= mn, mx - mn, torch.zeros_like(mn))
+        # span as uint64 (a wrapped int64 difference), then to float32
+        span_f = span.to(torch.float64) + torch.where(
+            span < 0, torch.tensor(2.0 ** 64, dtype=torch.float64),
+            torch.tensor(0.0, dtype=torch.float64))
+        top = top * (span + 1)
+        bits = bits + torch.log2(span_f.to(torch.float32) + two)
+        rng = span + 1
+        fast_acc = fast_acc * rng + torch.clamp(ints[c] - mn,
+                                                torch.zeros_like(mn),
+                                                rng - 1)
+        exact_packed = exact_packed * (mx - mn + 1) + torch.where(
+            valid, ints[c] - mn, torch.zeros((), dtype=torch.int64,
+                                             device=dev))
+    bits = bits + torch.log2(torch.tensor(float(n + 2),
+                                          dtype=torch.float32))
+    fast = bool(bits < 62.0)
+    w_all = 1 + (1 if k > 1 else 0) + k
+    if fast:
+        words = torch.zeros((w_all, n), dtype=torch.int64, device=dev)
+        words[0] = torch.where(valid, fast_acc, top.to(dev))
+        return words
+    rows = [(~valid).to(torch.int64)]
+    if k > 1:
+        rows.append(exact_packed)
+    rows.extend(ints)
+    return torch.stack(rows).contiguous()
+
+
+def grouped_agg_sort_plain(key_cols: tuple, valid, agg_inputs: tuple,
+                           max_groups: int, agg_kinds: tuple,
+                           traced: bool = False):
+    ints = _sortable_ints(key_cols)
+    k, n = ints.shape
+    dev = ints.device
+    if traced:
+        perm = sort_perm_plain(_group_words_traced_plain(ints, valid))
+    else:
+        i64 = torch.iinfo(torch.int64)
+        mins = torch.where(valid, ints, i64.max).amin(dim=1).tolist()
+        maxs = torch.where(valid, ints, i64.min).amax(dim=1).tolist()
+        fast, top = _pack_gate(mins, maxs, n)
+        perm = sort_perm_plain(_group_words_plain(ints, valid, mins, maxs,
+                                                  fast, top))
     s_valid = valid[perm]
     s_ints = ints[:, perm]
     differs = (s_ints != torch.roll(s_ints, 1, dims=1)).any(dim=0)
@@ -571,7 +673,7 @@ def grouped_agg_sort_plain(key_cols: tuple, valid, agg_inputs: tuple,
 
 
 def grouped_agg_sort(key_cols: tuple, valid, agg_inputs: tuple,
-                     max_groups: int, agg_kinds: tuple):
+                     max_groups: int, agg_kinds: tuple, traced: bool = False):
     """General grouped aggregation: sort on the keys (invalid rows
     last), mark group boundaries, number the groups, reduce each group.
     Returns (group key columns [max_groups], aggregate outputs
@@ -584,7 +686,13 @@ def grouped_agg_sort(key_cols: tuple, valid, agg_inputs: tuple,
     kernel), the boundaries and their scan are kernels of groupsort.cu
     and sort.cu, and the segment reduce is K4's kernel over the group
     id scattered back to row order.  One host read per call: the key
-    minima and maxima, which choose the branch and size the words."""
+    minima and maxima, which choose the branch and size the words.
+
+    `traced=True` is the form a captured fragment program runs: no
+    host read; the branch is taken on the device (csrc/groupsort.cu
+    group_gate) and the words are sized for the exact branch, the fast
+    branch's one word padded with zero words.  Groups come out in the
+    same order."""
     max_groups = int(max_groups)
     if any(k not in _AGG_KINDS for k in agg_kinds):
         raise ValueError(f"unknown aggregate kinds {agg_kinds}")
@@ -592,7 +700,7 @@ def grouped_agg_sort(key_cols: tuple, valid, agg_inputs: tuple,
         raise ValueError("grouped_agg_sort needs at least one key")
     if _on_cpu(valid, *key_cols, *agg_inputs):
         return grouped_agg_sort_plain(key_cols, valid, agg_inputs,
-                                      max_groups, agg_kinds)
+                                      max_groups, agg_kinds, traced)
     n = valid.shape[0]
     _check(valid, "valid", (torch.bool,), n)
     if max_groups < 1:
@@ -608,13 +716,22 @@ def grouped_agg_sort(key_cols: tuple, valid, agg_inputs: tuple,
     maxs = torch.full((k,), INT64_MIN, dtype=torch.int64, device=dev)
     _ok(lib.otbt_group_key_stats(_ptr(ints), k, n, _ptr(valid), _ptr(mins),
                                  _ptr(maxs), _stream()), "grouped_agg_sort")
-    mm = torch.stack([mins, maxs]).cpu().tolist()
-    fast, top = _pack_gate(mm[0], mm[1], n)
-    w = 1 if fast else 1 + k + (1 if k > 1 else 0)
-    words = torch.empty((w, n), dtype=torch.int64, device=dev)
-    _ok(lib.otbt_group_words(_ptr(ints), k, n, _ptr(valid), _ptr(mins),
-                             _ptr(maxs), int(fast), top, _ptr(words),
-                             _stream()), "grouped_agg_sort")
+    if traced:
+        w = 1 + k + (1 if k > 1 else 0)
+        words = torch.empty((w, n), dtype=torch.int64, device=dev)
+        gate = torch.empty(2, dtype=torch.int64, device=dev)
+        _ok(lib.otbt_group_words_dev(_ptr(ints), k, n, _ptr(valid),
+                                     _ptr(mins), _ptr(maxs), _ptr(gate),
+                                     _ptr(words), _stream()),
+            "grouped_agg_sort")
+    else:
+        mm = torch.stack([mins, maxs]).cpu().tolist()
+        fast, top = _pack_gate(mm[0], mm[1], n)
+        w = 1 if fast else 1 + k + (1 if k > 1 else 0)
+        words = torch.empty((w, n), dtype=torch.int64, device=dev)
+        _ok(lib.otbt_group_words(_ptr(ints), k, n, _ptr(valid), _ptr(mins),
+                                 _ptr(maxs), int(fast), top, _ptr(words),
+                                 _stream()), "grouped_agg_sort")
     m = _pow2_at_least(n)
     perm = torch.empty(m, dtype=torch.int64, device=dev)
     _ok(lib.otbt_sort_perm(_ptr(words), w, n, _ptr(perm), m, _stream()),
@@ -631,7 +748,7 @@ def grouped_agg_sort(key_cols: tuple, valid, agg_inputs: tuple,
                            _stream()), "grouped_agg_sort")
     outs, _present, _l = _agg_dense_launch(gid_row, valid, agg_inputs,
                                            max_groups, agg_kinds)
-    LAUNCHES["grouped_agg_sort"] += 1
+    _count("grouped_agg_sort", 1)
     gkeys = tuple(kc.index_select(0, take) for kc in key_cols)
     return gkeys, outs, n_groups[0]
 
@@ -669,7 +786,7 @@ def join_build(build_keys, build_valid):
                                 _ptr(masked), _ptr(perm), m,
                                 _ptr(sorted_keys), _stream())
     _ok(rc, "join_build")
-    LAUNCHES["join_build"] += 1
+    _count("join_build", 1)
     return sorted_keys, perm[:n]
 
 
@@ -740,7 +857,7 @@ def join_probe_counts(sorted_keys, probe_keys, probe_valid):
         _ptr(stats), _ptr(lo_tab), _ptr(cnt_tab), _ptr(lo), _ptr(cnt),
         _stream())
     _ok(rc, "join_probe_counts")
-    LAUNCHES["join_probe_counts"] += 1
+    _count("join_probe_counts", 1)
     return lo, cnt
 
 
@@ -807,7 +924,7 @@ def join_expand(lo, counts, perm, out_size: int, left_outer: bool = False,
         int(left_outer), _ptr(excl), _ptr(tiles), _ptr(total),
         _ptr(probe_idx), _ptr(build_idx), out_size, _stream())
     _ok(rc, "join_expand")
-    LAUNCHES["join_expand"] += 1
+    _count("join_expand", 1)
     return probe_idx, build_idx, total[0]
 
 
@@ -829,7 +946,7 @@ def compose_index(prior, take):
     rc = _lib().otbt_compose_index(_ptr(prior), prior.shape[0], _ptr(take),
                                    take.shape[0], _ptr(out), _stream())
     _ok(rc, "compose_index")
-    LAUNCHES["compose_index"] += 1
+    _count("compose_index", 1)
     return out
 
 
@@ -851,7 +968,7 @@ def _join_mask(counts, probe_valid, anti: bool, name: str):
                                _ptr(probe_valid) if anti else None, n,
                                int(anti), _ptr(out), _stream())
     _ok(rc, name)
-    LAUNCHES[name] += 1
+    _count(name)
     return out
 
 
@@ -894,7 +1011,7 @@ def hash_columns(cols):
         (ctypes.c_longlong * k)(*(_ptr(c) for c in cols)), k, n, _ptr(out),
         _stream())
     _ok(rc, "hash_columns")
-    LAUNCHES["hash_columns"] += 1
+    _count("hash_columns", 1)
     return out
 
 
@@ -950,7 +1067,7 @@ def bucket_ids(key_cols: tuple, num_buckets: int):
     out, rc = _route_launch(key_cols, None, None, None, None, 0,
                             num_buckets)
     _ok(rc, "bucket_ids")
-    LAUNCHES["bucket_ids"] += 1
+    _count("bucket_ids", 1)
     return out
 
 
@@ -973,7 +1090,7 @@ def route_dest(key_cols, null_masks, text_luts, valid, shard_map,
     out, rc = _route_launch(key_cols, null_masks, text_luts, valid,
                             shard_map, ndn, num_buckets)
     _ok(rc, "route_dest")
-    LAUNCHES["route_dest"] += 1
+    _count("route_dest", 1)
     return out
 
 
@@ -1160,7 +1277,7 @@ def exchange(cols, dest, valid, ndn_dst: int):
                                   tiles, _ptr(tile_base), region, _ptr(pos),
                                   _ptr(out_valid), ins_p, outs_p, widths, k,
                                   _stream()), "exchange")
-    LAUNCHES["exchange"] += 1
+    _count("exchange", 1)
     return outs, out_valid, cm, region
 
 
@@ -1217,5 +1334,292 @@ def compact(mask, cols: tuple, out_size: int):
     _ok(_lib().otbt_compact(_ptr(mask), n, out_size, _ptr(excl),
                             _ptr(tiles), _ptr(count), _ptr(pos), ins_p,
                             outs_p, widths, k, _stream()), "compact")
-    LAUNCHES["compact"] += 1
+    _count("compact", 1)
     return count[0], outs
+
+
+# ---------------------------------------------------------------------------
+# K14 fused scan-aggregate with a query axis (reference: exec/fused.py:511
+# _build_program, :563 run_batch, for scan -> qual -> aggregate fragments)
+# ---------------------------------------------------------------------------
+
+#: register-program op codes (csrc/fused.cu enum Op)
+FUSED_OPS = {name: i for i, name in enumerate((
+    "LDCOL", "LDLIT", "CONST", "IADD", "ISUB", "IMUL", "IDIV", "IMOD",
+    "INEG", "WRAP32", "IMIN", "IMAX", "FADD", "FSUB", "FMUL", "FDIV", "FNEG",
+    "I2F", "IEQ", "INE", "ILT", "ILE", "IGT", "IGE", "FEQ", "FNE", "FLT",
+    "FLE", "FGT", "FGE", "AND", "OR", "NOT"))}
+#: aggregate kinds of the fused kernel (csrc/fused.cu enum Agg)
+FUSED_SUM, FUSED_COUNT, FUSED_MIN, FUSED_MAX = range(4)
+#: the kernel's limits (csrc/fused.cu kMax*)
+FUSED_LIMITS = {"cols": 24, "instrs": 160, "consts": 48, "aggs": 24,
+                "regs": 64}
+_FAMILY_RAW = -1
+
+
+@dataclasses.dataclass
+class ScanAggSpec:
+    """A fused scan-aggregate program (exec/expr_compile.py
+    emit_scan_agg builds it).  Every register holds an int64 word (an
+    f64 as its bit pattern).  instrs[:n_shared] compute the aggregate
+    inputs, the group id and the four MVCC columns once per row;
+    instrs[n_shared:] compute the qual of one query from its literal row
+    (LDLIT a = literal column a).  aggs: (kind, register) pairs."""
+    instrs: list
+    n_shared: int
+    consts: list
+    aggs: list
+    gid_reg: int
+    qual_reg: int
+    n_groups: int
+    mv_regs: tuple
+    n_lits: int
+
+
+def _agg_ident(kind: int) -> int:
+    if kind == FUSED_MIN:
+        return INT64_MAX
+    if kind == FUSED_MAX:
+        return INT64_MIN
+    return 0
+
+
+def _col_kind(t: torch.Tensor) -> int:
+    if t.dtype == torch.float64:
+        return 2
+    if t.dtype in (torch.bool, torch.uint8, torch.uint16, torch.uint32):
+        return 1
+    return 0
+
+
+def _fused_spec(spec: ScanAggSpec, cols, n_rows: int,
+                aborted_ts: int) -> list:
+    """The flat int64 spec csrc/fused.cu otbt_fused_scan_agg parses."""
+    hdr = [len(cols), spec.n_shared, len(spec.instrs) - spec.n_shared,
+           len(spec.aggs), spec.gid_reg, spec.qual_reg, spec.n_groups,
+           spec.n_lits, len(spec.consts), *spec.mv_regs, int(aborted_ts),
+           int(n_rows), 0]
+    flat = list(hdr)
+    for data, aux, fam in cols:
+        if fam is None:
+            flat += [_ptr(data), 0, 0, data.element_size(), _FAMILY_RAW,
+                     _col_kind(data), 64]
+        else:
+            flat += [_ptr(data), _ptr(aux), aux.shape[0], data.element_size(),
+                     _FAMILY[fam], 1, _OUT_BITS[aux.dtype]]
+    for ins in spec.instrs:
+        flat += list(ins)
+    flat += [int(c) for c in spec.consts]
+    for kind, reg in spec.aggs:
+        flat += [kind, reg, _agg_ident(kind)]
+    return flat
+
+
+def _check_fused(spec: ScanAggSpec, cols, lits, snaps, txids):
+    lim = FUSED_LIMITS
+    if len(cols) > lim["cols"] or len(spec.instrs) > lim["instrs"] \
+            or len(spec.consts) > lim["consts"] \
+            or len(spec.aggs) > lim["aggs"]:
+        raise ValueError("fused_scan_agg: program over the kernel's limits")
+    k = snaps.shape[0]
+    _check(snaps, "snaps", (torch.int64,), k)
+    _check(txids, "txids", (torch.int64,), k)
+    if lits.dtype != torch.int64 or lits.dim() != 2 \
+            or tuple(lits.shape) != (k, spec.n_lits) \
+            or not lits.is_contiguous():
+        raise ValueError(f"lits: want a contiguous ({k}, {spec.n_lits}) "
+                         "int64 tensor")
+    n = None
+    for data, aux, fam in cols:
+        if data.dim() != 1 or not data.is_contiguous():
+            raise ValueError("fused_scan_agg: columns must be contiguous 1-D")
+        if n is not None and data.shape[0] != n:
+            raise ValueError("fused_scan_agg: columns differ in length")
+        n = data.shape[0]
+        if fam is not None:
+            _check_codec(data, aux, fam)
+        elif data.dtype not in (torch.int32, torch.int64, torch.float64,
+                                torch.bool, torch.uint8, torch.int16,
+                                torch.int8):
+            raise TypeError(f"fused_scan_agg: column dtype {data.dtype}")
+    return k
+
+
+def _fused_col_plain(data, aux, fam):
+    if fam is None:
+        if data.dtype == torch.float64:
+            return data.view(torch.int64)
+        return data.to(torch.int64)
+    return _value_plain(data, aux, fam, True).to(torch.int64)
+
+
+def _fused_run_plain(spec: ScanAggSpec, lo: int, hi: int, regs: dict,
+                     vals: list, lits):
+    """Instructions [lo, hi) over int64 word tensors: [n] in the shared
+    part, [K, n] once a literal ([K, 1]) enters."""
+    ops = FUSED_OPS
+    f64 = torch.float64
+    reads_reg = lambda op: op not in (ops["LDCOL"], ops["LDLIT"],  # noqa
+                                      ops["CONST"])
+    # the last instruction reading each register written here: [K, n]
+    # temporaries die as soon as they are dead
+    keep = {spec.qual_reg, spec.gid_reg, *spec.mv_regs,
+            *(r for _k, r in spec.aggs)}
+    last: dict = {}
+    for p, (op, _d, a, b) in enumerate(spec.instrs[lo:]):
+        if reads_reg(op):
+            last[a] = last[b] = p
+    written = {d for _o, d, _a, _b in spec.instrs[lo:hi]}
+
+    def fl(t):
+        return t.view(f64)
+
+    for p, (op, dst, a, b) in enumerate(spec.instrs[lo:hi]):
+        if op == ops["LDCOL"]:
+            v = vals[a]
+        elif op == ops["LDLIT"]:
+            v = lits[:, a:a + 1]
+        elif op == ops["CONST"]:
+            v = torch.tensor(int(spec.consts[a]), dtype=torch.int64)
+        else:
+            x = regs.get(a)
+            y = regs.get(b)
+            if op == ops["IADD"]:
+                v = x + y
+            elif op == ops["ISUB"]:
+                v = x - y
+            elif op == ops["IMUL"]:
+                v = x * y
+            elif op in (ops["IDIV"], ops["IMOD"]):
+                zero = y == 0
+                ys = torch.where(zero, torch.ones_like(y), y)
+                q = torch.div(x, ys, rounding_mode="floor") \
+                    if op == ops["IDIV"] else torch.fmod(x, ys)
+                v = torch.where(zero, torch.zeros_like(q), q)
+            elif op == ops["INEG"]:
+                v = -x
+            elif op == ops["WRAP32"]:
+                v = x.to(torch.int32).to(torch.int64)
+            elif op == ops["IMIN"]:
+                v = torch.minimum(x, y)
+            elif op == ops["IMAX"]:
+                v = torch.maximum(x, y)
+            elif op == ops["FADD"]:
+                v = (fl(x) + fl(y)).view(torch.int64)
+            elif op == ops["FSUB"]:
+                v = (fl(x) - fl(y)).view(torch.int64)
+            elif op == ops["FMUL"]:
+                v = (fl(x) * fl(y)).view(torch.int64)
+            elif op == ops["FDIV"]:
+                v = (fl(x) / fl(y)).view(torch.int64)
+            elif op == ops["FNEG"]:
+                v = (-fl(x)).view(torch.int64)
+            elif op == ops["I2F"]:
+                v = x.to(f64).view(torch.int64)
+            elif op in (ops["IEQ"], ops["INE"], ops["ILT"], ops["ILE"],
+                        ops["IGT"], ops["IGE"], ops["FEQ"], ops["FNE"],
+                        ops["FLT"], ops["FLE"], ops["FGT"], ops["FGE"]):
+                name = next(k for k, c in ops.items() if c == op)
+                if name[0] == "F":
+                    x, y = fl(x), fl(y)
+                cmp = {"EQ": torch.eq, "NE": torch.ne, "LT": torch.lt,
+                       "LE": torch.le, "GT": torch.gt, "GE": torch.ge}
+                v = cmp[name[1:]](x, y).to(torch.int64)
+            elif op == ops["AND"]:
+                v = ((x != 0) & (y != 0)).to(torch.int64)
+            elif op == ops["OR"]:
+                v = ((x != 0) | (y != 0)).to(torch.int64)
+            elif op == ops["NOT"]:
+                v = (x == 0).to(torch.int64)
+            else:
+                raise ValueError(f"fused_scan_agg: unknown op {op}")
+        regs[dst] = v
+        if reads_reg(op):
+            for r in {a, b}:
+                if last.get(r) == p and r in written and r not in keep:
+                    regs.pop(r, None)
+
+
+def fused_scan_agg_plain(spec: ScanAggSpec, cols, n_rows: int, lits, snaps,
+                         txids, aborted_ts: int):
+    """The same register program evaluated over whole columns, the
+    literals broadcast as [K, 1]: the [K, A + 1, G] int64 table
+    (aggregate rows, then the per-group row count)."""
+    k = snaps.shape[0]
+    n_rows = int(n_rows)
+    dev = snaps.device
+    vals = [_fused_col_plain(d[:n_rows], a, f) for d, a, f in cols]
+    regs: dict = {}
+    _fused_run_plain(spec, 0, spec.n_shared, regs, vals, lits)
+    g_n = spec.n_groups
+    n_aggs = len(spec.aggs)
+    gid = regs[spec.gid_reg] if spec.gid_reg >= 0 else \
+        torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    gid = gid.expand(n_rows)
+    xmin, xmax, xmin_tx, xmax_tx = (regs[r].expand(n_rows)
+                                    for r in spec.mv_regs)
+    snap = snaps.unsqueeze(1)
+    tx = txids.unsqueeze(1)
+    ins = (xmin <= snap) | ((xmin_tx == tx) & (xmin != int(aborted_ts)))
+    dele = (xmax <= snap) | (xmax_tx == tx)
+    ok = ins & ~dele & ((gid >= 0) & (gid < g_n))
+    if spec.qual_reg >= 0:
+        _fused_run_plain(spec, spec.n_shared, len(spec.instrs), regs, vals,
+                         lits)
+        ok = ok & (regs[spec.qual_reg] != 0)
+    ok = ok.expand(k, n_rows)
+    slots = k * g_n
+    idx = torch.arange(k, dtype=torch.int64, device=dev).unsqueeze(1) * g_n \
+        + torch.clamp(gid, 0, g_n - 1)
+    idx = torch.where(ok, idx, torch.full((), slots, dtype=torch.int64,
+                                          device=dev)).reshape(-1)
+    out = torch.empty((n_aggs + 1, slots + 1), dtype=torch.int64, device=dev)
+    for a, (kind, reg) in enumerate(spec.aggs):
+        v = torch.ones(n_rows, dtype=torch.int64, device=dev) \
+            if kind == FUSED_COUNT else regs[reg].expand(n_rows)
+        v = v.expand(k, n_rows).reshape(-1)
+        row = torch.full((slots + 1,), _agg_ident(kind), dtype=torch.int64,
+                         device=dev)
+        if kind in (FUSED_SUM, FUSED_COUNT):
+            row = row.index_add(0, idx, v)
+        else:
+            row = row.scatter_reduce(0, idx, v, "amin" if kind == FUSED_MIN
+                                     else "amax", include_self=True)
+        out[a] = row
+    out[n_aggs] = torch.zeros(slots + 1, dtype=torch.int64,
+                              device=dev).index_add(
+        0, idx, torch.ones_like(idx))
+    return out[:, :slots].reshape(n_aggs + 1, k, g_n).transpose(0, 1) \
+        .contiguous()
+
+
+def fused_scan_agg(spec: ScanAggSpec, cols, n_rows: int, lits, snaps, txids,
+                   aborted_ts: int):
+    """K queries' scan -> visibility -> qual -> dense aggregate over one
+    table in one pass (csrc/fused.cu).  cols: (data, aux, family) per
+    column slot (family None for a raw column), the first n_rows rows
+    live; lits: [K, n_lits] int64 literal rows (f64 as bits); snaps,
+    txids: [K] int64.  Returns the [K, A + 1, G] int64 table: row a < A
+    the aggregate spec.aggs[a] of each group (sums as int64, count,
+    min, max), row A the group's row count.  Identities where a group
+    has no row."""
+    cols = [tuple(c) for c in cols]
+    ts = [t for d, a, _f in cols for t in (d, a) if t is not None]
+    if _on_cpu(lits, snaps, txids, *ts):
+        return fused_scan_agg_plain(spec, cols, n_rows, lits, snaps, txids,
+                                    aborted_ts)
+    k = _check_fused(spec, cols, lits, snaps, txids)
+    n_aggs, g_n = len(spec.aggs), spec.n_groups
+    ws = torch.zeros((k, n_aggs + 1, g_n), dtype=torch.int64,
+                     device=snaps.device)
+    for a, (kind, _r) in enumerate(spec.aggs):
+        ident = _agg_ident(kind)
+        if ident:
+            ws[:, a].fill_(ident)
+    flat = _fused_spec(spec, cols, n_rows, aborted_ts)
+    rc = _lib().otbt_fused_scan_agg(
+        (ctypes.c_longlong * len(flat))(*flat), len(flat), _ptr(lits),
+        _ptr(snaps), _ptr(txids), k, _ptr(ws), _stream())
+    _ok(rc, "fused_scan_agg")
+    _count("fused_scan_agg")
+    return ws

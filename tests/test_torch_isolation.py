@@ -55,7 +55,17 @@ CLUSTER_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module", CLUSTER_MODULES)
+# the fused and serving tiers' modules
+FUSED_MODULES = [
+    "opentenbase_tpu_torch.exec.fused",
+    "opentenbase_tpu_torch.exec.plancache",
+    "opentenbase_tpu_torch.exec.scheduler",
+    "opentenbase_tpu_torch.exec.shield",
+    "opentenbase_tpu_torch.sql.fingerprint",
+]
+
+
+@pytest.mark.parametrize("module", CLUSTER_MODULES + FUSED_MODULES)
 def test_cluster_tier_module_loads_no_jax(module):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -144,4 +154,27 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     x = torch.zeros(8, dtype=torch.int64)
     with pytest.raises(RuntimeError, match="no kernel library"):
         K.visibility_mask(x, x, x, x, 1, 1, 1)
+    assert calls == [1]
+
+
+def test_fused_scan_agg_on_cuda_never_takes_the_plain_path(monkeypatch):
+    """The fused scan-aggregate wrapper given CUDA tensors launches its
+    kernel or raises."""
+    from opentenbase_tpu_torch.ops import kernels as K
+    calls = []
+
+    def no_library():
+        calls.append(1)
+        raise RuntimeError("no kernel library")
+    monkeypatch.setattr(K, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(K, "_lib", no_library)
+    monkeypatch.setattr(K, "fused_scan_agg_plain", None)
+    spec = K.ScanAggSpec(instrs=[], n_shared=0, consts=[], aggs=[],
+                         gid_reg=-1, qual_reg=-1, n_groups=1,
+                         mv_regs=(0, 0, 0, 0), n_lits=0)
+    x = torch.zeros(8, dtype=torch.int64)
+    one = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        K.fused_scan_agg(spec, [(x, None, None)] * 4, 8,
+                         torch.zeros((1, 0), dtype=torch.int64), one, one, 0)
     assert calls == [1]
