@@ -25,6 +25,14 @@ bulk-load all eight tables at SF1 (6.0 M lineitem rows), then
   plain version at K = 1 and K = 16; and the serving tier: 16 client
   threads through Scheduler with the TPC-H substitution parameters of
   Q1, Q6 and Q3, every result against its serial Session result.
+- slice 5, vector search: a 1 M x 128 f32 table (a 1000-cluster Gaussian
+  mixture from the seed, ann-benchmarks SIFT1M's shape) with ids and 10
+  categories through Session.query: exact l2 / cosine / ip top-10,
+  filtered on the category, and a range count on the fused tier, against
+  an f64 numpy oracle; CREATE INDEX ... USING ivfflat WITH (lists =
+  1000) twice (identical centroids); 100 IVF queries (recall@10 >= 0.8,
+  the kernel path's ids = the plain path's); IVF statements served
+  through Scheduler; the same table on Cluster(2)'s host tier.
 The slices 1-3 phases run the eager tier (Executor._fuse = False), as
 before the fused tier existed.
 Around that it builds the CUDA kernels from opentenbase_tpu_torch/csrc,
@@ -923,6 +931,9 @@ def main():
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor (default 1: about 6.0 M "
                     "lineitem rows)")
+    ap.add_argument("--vectors", type=int, default=1_000_000,
+                    help="rows of the vector table (default 1 M x 128, "
+                    "SIFT1M's shape)")
     ap.add_argument("--profile", action="store_true",
                     help="also split warm Q1/Q6/Q3/Q5 into session phases "
                     "and profile one of each (torch.profiler)")
@@ -943,6 +954,7 @@ def main():
     from opentenbase_tpu_torch.tpch.queries import Q
     from opentenbase_tpu_torch.tpch.schema import SCHEMA
     from opentenbase_tpu_torch.exec import executor as X
+    from opentenbase_tpu_torch.ops import ann as ANN
     Q_TEXT.update(Q)
     Q_TEXT.update({f"c{q}": Q[q] for q in (1, 3, 5)})
     Q_TEXT.update({f"f{q}": Q[q] for q in (1, 6, 3, 5)})
@@ -954,6 +966,7 @@ def main():
     small_kernel_check(torch, K)
     join_kernel_check(torch, K)
     cluster_kernel_check(torch, K)
+    ann_kernel_check(torch, ANN)
 
     # ---- data: all eight tables ----
     t0 = time.perf_counter()
@@ -1037,6 +1050,8 @@ def main():
         {1: want_q1, 6: want_q6, 3: want_q3, 5: want_q5}, card)
     fused_kernel_check(torch, K, calls_f, card)
     calls_srv, launches_srv = serving_path(torch, K, node, names, card)
+    # ---- slice 5: vector search ----
+    vp = vector_path(torch, K, ANN, names, card, args.vectors)
     # the timing and profile sections below time the eager tier, as
     # before; fused_path timed the fused tier against it
     X.Executor._fuse = False
@@ -1044,13 +1059,14 @@ def main():
     # ---- kernels against their plain versions, main-path inputs ----
     max_err = {n: 0.0 for n in names}
     for calls in (calls1, calls2, calls3, calls_q5s, calls_mesh, calls_f,
-                  calls_srv):
+                  calls_srv, vp["calls_k"]):
         for qcalls in calls.values():
             for n in names:
                 for a, kw in qcalls[n]:
                     max_err[n] = max(max_err[n], compare_call(
                         torch, K, plain, n, a, kw))
     say("kernels vs plain (main-path inputs of every path): ok")
+    ann_err = vector_compare(torch, ANN, vp)
 
     # sort at 2^20 rows: three keys with ties, NaN and +-0.0, and a limit
     rng = np.random.default_rng(7)
@@ -1107,7 +1123,8 @@ def main():
                    "cluster3_q5_shape": launches_q5s[n],
                    "mesh_library": launches_mesh[n],
                    "fused_q1_q6_q3_q5": launches_f[n],
-                   "serving": launches_srv[n]}
+                   "serving": launches_srv[n],
+                   "vector": vp["launches"][n]}
         launches = sum(by_path.values())
         records.append({
             "name": n, "route": "cuda", "source": src, "replaces": replaces,
@@ -1122,6 +1139,9 @@ def main():
             f" ms ({bytes_ / 1e6:.1f} MB), library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}; launches "
             f"{' + '.join(str(v) for v in by_path.values())} [{card}]")
+    records += vector_measure(torch, K, ANN, vp, ann_err, card,
+                              profile=args.profile)
+    del vp
     # sort at 2^20 rows, one int64 key: the kernel against torch.sort
     key = torch.from_numpy(rng.integers(-10**12, 10**12, m)).to(dev)
     allv = torch.ones(m, dtype=torch.bool, device=dev)
@@ -1704,6 +1724,757 @@ def profile_queries(torch, items, card):
                 f"{sum(r[1] for r in mine)} launches: " + ", ".join(
                     f"{label} {dev_us / 1e3:.4f} ms x{count}"
                     for dev_us, count, label in mine))
+
+
+# ---------------------------------------------------------------------------
+# slice 5: vector search (K15)
+# ---------------------------------------------------------------------------
+
+# K15 kernel -> (its wrapper in ops/ann.py, source, the reference kernel)
+VECTOR_KERNELS = {
+    "ann_distances": ("distances", "opentenbase_tpu_torch/csrc/ann.cu",
+                      "opentenbase_tpu/ops/ann.py:21"),
+    "ann_topk": ("topk_nearest", "opentenbase_tpu_torch/csrc/ann.cu",
+                 "opentenbase_tpu/ops/ann.py:39"),
+    "ann_assign": ("assign_clusters", "opentenbase_tpu_torch/csrc/kmeans.cu",
+                   "opentenbase_tpu/ops/ann.py:47"),
+    "ann_lloyd_update": ("lloyd_update",
+                         "opentenbase_tpu_torch/csrc/kmeans.cu",
+                         "opentenbase_tpu/ops/ann.py:65"),
+    "ann_probe_scan": ("probe_scan", "opentenbase_tpu_torch/csrc/ann.cu",
+                       "opentenbase_tpu/ops/ann.py:98"),
+}
+# the wrappers whose main-path calls are recorded (ivf_search composes
+# the others; its kernel path is held against its plain path)
+ANN_WRAPPERS = tuple(v[0] for v in VECTOR_KERNELS.values()) + ("ivf_search",)
+# the earlier kernels the vector path must reach too: the scan's
+# visibility mask, the decode of the id column, the range count's
+# aggregate, the sort (the Lloyd update's cluster order, the coordinator's
+# merge by distance)
+SLICE5_OTHERS = ("visibility_mask", "decode_column", "grouped_agg_dense",
+                 "sort_rows")
+# the configuration: ann-benchmarks sift-128-euclidean's shape (1 M x 128
+# f32, L2, recall@10) with pgvector's IVFFlat advice (lists = rows / 1000,
+# probes lists // 8); vectors a 1000-cluster Gaussian mixture from the
+# seed
+VEC_DIM = 128
+VEC_CLUSTERS = 1000
+VEC_CATS = 10
+VEC_LISTS = 1000
+VEC_K = 10
+VEC_QUERIES = (("l2", 20), ("cosine", 5), ("ip", 5))
+VEC_FILTERED = 5
+IVF_QUERIES = 100
+IVF_RECALL_MIN = 0.8
+CLUSTER_IVF_QUERIES = 20
+VEC_RTOL = 1e-5
+VEC_OPS = {"l2": "<->", "cosine": "<=>", "ip": "<#>"}
+
+
+def vec_lit(v) -> str:
+    return "[" + ",".join(f"{x:.6f}" for x in v) + "]"
+
+
+def lit_vec(np, v):
+    """The query vector as its SQL literal carries it."""
+    return np.asarray(vec_lit(v).strip("[]").split(","), dtype=np.float32)
+
+
+def vector_data(torch, np, n, seed):
+    """n x 128 f32 rows of a 1000-cluster Gaussian mixture (centers at
+    scale 4, unit noise), made on the card from the seed."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    centers = torch.randn(VEC_CLUSTERS, VEC_DIM, generator=g,
+                          device=dev) * 4.0
+    lab = torch.randint(0, VEC_CLUSTERS, (n,), generator=g, device=dev)
+    vecs = centers[lab] + torch.randn(n, VEC_DIM, generator=g, device=dev)
+    return vecs.float().cpu().numpy()
+
+
+def vec_exact(np, vecs, queries):
+    """f64 distances of every row to each (q, metric) query, with the
+    reference's formulas: the oracle."""
+    n = len(vecs)
+    qm = np.stack([q.astype(np.float64) for q, _m in queries])
+    qn2 = (qm * qm).sum(1)
+    out = np.empty((len(queries), n))
+    step = 1 << 17
+    for lo in range(0, n, step):
+        v = vecs[lo:lo + step].astype(np.float64)
+        dots = v @ qm.T
+        vn2 = (v * v).sum(1)[:, None]
+        for j, (_q, metric) in enumerate(queries):
+            d = dots[:, j]
+            if metric == "ip":
+                out[j, lo:lo + step] = -d
+            elif metric == "cosine":
+                out[j, lo:lo + step] = 1 - d / np.maximum(
+                    np.sqrt(vn2[:, 0] * qn2[j]), 1e-30)
+            else:
+                out[j, lo:lo + step] = np.sqrt(np.maximum(
+                    vn2[:, 0] - 2 * d + qn2[j], 0))
+    return out
+
+
+def vec_tol(np, vecs, q, metric, rows, dist):
+    """Absolute tolerance of the f32 distance of `rows` (tests/
+    test_torch_ann.py's): cosine 1e-5; ip 1e-5 |v| |q|; l2 through its
+    square, 1e-5 (|v|^2 + |q|^2)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    vn2 = (vecs[rows].astype(np.float64) ** 2).sum(1)
+    qn2 = float(q.astype(np.float64) @ q)
+    if metric == "cosine":
+        return np.full(len(rows), VEC_RTOL)
+    if metric == "ip":
+        return VEC_RTOL * np.sqrt(vn2 * qn2)
+    d = dist[rows]
+    return VEC_RTOL * d + VEC_RTOL * (vn2 + qn2) / np.maximum(
+        d, np.sqrt(VEC_RTOL * (vn2 + qn2)))
+
+
+def vec_rank_ok(np, got, want, vecs, q, metric, dist, what):
+    """Equal row lists but for swaps of rows whose oracle distances agree
+    within the tolerance."""
+    check(len(got) == len(want), f"{what}: {len(got)} rows, want "
+          f"{len(want)}")
+    rows = sorted(set(got) | set(want))
+    tol = dict(zip(rows, vec_tol(np, vecs, q, metric, rows, dist)))
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            check(abs(dist[g] - dist[w]) <= tol[g] + tol[w],
+                  f"{what}: rank {i} row {g} != {w} (distances {dist[g]} "
+                  f"{dist[w]})")
+
+
+def vec_top(np, dist, k, keep=None):
+    d = dist if keep is None else np.where(keep, dist, np.inf)
+    part = np.argpartition(d, k)[:k]
+    return part[np.argsort(d[part], kind="stable")].tolist()
+
+
+def ann_kernel_check(torch, ANN):
+    """Each K15 kernel on small inputs against its plain version, every
+    branch: three metrics, float4 and scalar rows, ties, masked rows, k
+    above the valid count, k at and above the kernel's largest, empty
+    clusters and invalid rows."""
+    import numpy as np
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(1)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for n, d in ((1000, 128), (777, 7), (5, 16)):
+        vecs = t(rng.normal(size=(n, d)).astype(np.float32))
+        q = t(rng.normal(size=d).astype(np.float32))
+        for metric in ("l2", "cosine", "ip"):
+            got = ANN.distances(vecs, q, metric)
+            want = ANN.distances_plain(vecs, q, metric)
+            err = float((got.double() - want.double()).abs().max())
+            check(err <= 1e-4 * (1 + float(want.abs().max())),
+                  f"ann_distances {metric} d={d} differs (small): {err}")
+    for n, k in ((64, 1), (64, 40), (3000, 10), (5000, 1024), (5000, 1500),
+                 (200_000, 100)):
+        dist = t(rng.choice(np.asarray([3.0, 1.0, 2.0, -0.0, 0.0, 0.5, -2.0],
+                                       np.float32), n))
+        valid = t(rng.random(n) < 0.5)
+        for v in (valid, None):
+            gi, gd = ANN.topk_nearest(dist, v, k)
+            wi, wd = ANN.topk_nearest_plain(dist, v, k)
+            check(torch.equal(gi, wi) and torch.equal(gd, wd),
+                  f"ann_topk n={n} k={k} differs (small)")
+    for n, nlist, d in ((3000, 70, 128), (1000, 1, 7), (500, 130, 16)):
+        vecs = t(rng.normal(size=(n, d)).astype(np.float32))
+        cents = t(rng.normal(size=(nlist, d)).astype(np.float32))
+        for metric in ("l2", "cosine", "ip"):
+            got = ANN.assign_clusters(vecs, cents, metric)
+            want = ANN.assign_clusters_plain(vecs, cents, metric)
+            assign_close(torch, got, want, vecs, cents, metric,
+                         f"ann_assign {metric} nlist={nlist} (small)")
+        valid = t(rng.random(n) < 0.8)
+        assign = t(rng.integers(0, max(nlist - 3, 1), n).astype(np.int32))
+        got = ANN.lloyd_update(vecs, valid, assign, cents, nlist)
+        want = ANN.lloyd_update_plain(vecs, valid, assign, cents, nlist)
+        lloyd_close(torch, got, want, vecs, f"ann_lloyd_update nlist={nlist}"
+                    " (small)")
+        if nlist > 3:
+            check(torch.equal(got[-1], cents[-1]), "ann_lloyd_update: an "
+                  "empty cluster moved")
+        probed = t(rng.random(nlist + 1) < 0.3)
+        probed[-1] = False
+        q = t(rng.normal(size=d).astype(np.float32))
+        for metric in ("l2", "cosine", "ip"):
+            got = ANN.probe_scan(vecs, assign, probed, valid, q, metric)
+            want = ANN.probe_scan_plain(vecs, assign, probed, valid, q,
+                                        metric)
+            dist_close(torch, got, want, vecs, q, metric,
+                       f"ann_probe_scan {metric} (small)")
+    torch.cuda.synchronize()
+    say("K15 kernels vs plain (small inputs and edge branches): ok")
+
+
+def dist_close(torch, got, want, vecs, q, metric, what) -> float:
+    """Distances within the tolerance (+inf where the plain version has
+    +inf); returns max |got - want| over the finite entries."""
+    check(got.shape == want.shape, f"{what}: shape")
+    gi, wi = torch.isinf(got), torch.isinf(want)
+    check(torch.equal(gi, wi), f"{what}: +inf pattern differs")
+    g, w = got.double()[~wi], want.double()[~wi]
+    if g.numel() == 0:
+        return 0.0
+    v = vecs.double()[~wi]
+    qn2 = float((q.double() ** 2).sum())
+    vn2 = (v * v).sum(1)
+    if metric == "cosine":
+        ok = (g - w).abs() <= VEC_RTOL * (1 + w.abs())
+    elif metric == "ip":
+        ok = (g - w).abs() <= VEC_RTOL * ((vn2 * qn2).sqrt() + w.abs())
+    else:
+        ok = (g * g - w * w).abs() <= VEC_RTOL * (vn2 + qn2) \
+            + VEC_RTOL * w * w
+    bad = int((~ok).sum())
+    check(bad == 0, f"{what}: {bad} distances outside the tolerance "
+          f"(max err {float((g - w).abs().max())})")
+    return float((g - w).abs().max())
+
+
+def _scores64(torch, vecs, cents, metric):
+    v, c = vecs.double(), cents.double()
+    dots = v @ c.T
+    if metric == "ip":
+        return dots
+    if metric == "cosine":
+        return dots / torch.clamp_min(v.norm(dim=1)[:, None]
+                                      * c.norm(dim=1)[None], 1e-30)
+    return 2 * dots - (c * c).sum(1)[None]
+
+
+def assign_close(torch, got, want, vecs, cents, metric, what) -> float:
+    """Equal assignments but for rows whose two picks score within the
+    tolerance (f32 products summed in another order); returns the
+    largest score gap at a differing row."""
+    diff = torch.nonzero(got != want).flatten()
+    if diff.numel() == 0:
+        return 0.0
+    s = _scores64(torch, vecs[diff], cents, metric)
+    r = torch.arange(diff.numel(), device=s.device)
+    gap = (s[r, got[diff].long()] - s[r, want[diff].long()]).abs()
+    if metric == "cosine":
+        tol = VEC_RTOL * 4
+    else:
+        vn = vecs[diff].double().norm(dim=1)
+        cn = cents.double().norm(dim=1).max()
+        tol = VEC_RTOL * 4 * (2 * vn * cn + cn * cn)
+    check(bool((gap <= tol).all()), f"{what}: {diff.numel()} rows differ, "
+          f"largest score gap {float(gap.max())}")
+    return float(gap.max())
+
+
+def lloyd_close(torch, got, want, vecs, what) -> float:
+    """Centroids within relative 1e-5 and 1e-5 of the largest |value| (the
+    sums' order differs)."""
+    scale = float(vecs.abs().max()) if vecs.numel() else 1.0
+    err = (got.double() - want.double()).abs()
+    ok = err <= VEC_RTOL * (want.double().abs() + scale)
+    check(bool(ok.all()), f"{what}: max err {float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def compare_ann_call(torch, ANN, name, a, kw) -> float:
+    """One recorded main-path call of a K15 wrapper rerun through the
+    kernel and its plain version; returns the error measure."""
+    fn = getattr(ANN, name)
+    got = fn(*a, **kw)
+    want = getattr(ANN, name + "_plain")(*a, **kw)
+    torch.cuda.synchronize()
+    if name == "distances":
+        return dist_close(torch, got, want, a[0], a[1],
+                          a[2] if len(a) > 2 else kw.get("metric", "l2"),
+                          "ann_distances (main path)")
+    if name == "topk_nearest":
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              "ann_topk differs from its plain version (main path)")
+        return 0.0
+    if name == "assign_clusters":
+        return assign_close(torch, got, want, a[0], a[1],
+                            a[2] if len(a) > 2 else kw.get("metric", "l2"),
+                            "ann_assign (main path)")
+    if name == "lloyd_update":
+        return lloyd_close(torch, got, want, a[0],
+                           "ann_lloyd_update (main path)")
+    if name == "probe_scan":
+        return dist_close(torch, got, want, a[0], a[4],
+                          a[5] if len(a) > 5 else kw.get("metric", "l2"),
+                          "ann_probe_scan (main path)")
+    raise KeyError(name)
+
+
+def vector_path(torch, K, ANN, names, card, n, seed=11):
+    """Slice 5 on the card: the vector table through Session, exact and
+    filtered search, a range count, the index built twice, IVF search,
+    IVF statements served through Scheduler, and the cluster's host
+    tier.  The launch counters are set to 0 just before and read just
+    after; every kernel call is recorded for the comparisons."""
+    import numpy as np
+    from opentenbase_tpu_torch.exec import plancache
+    from opentenbase_tpu_torch.exec.session import LocalNode, Session
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    vecs = vector_data(torch, np, n, seed)
+    ids = np.arange(n, dtype=np.int64)
+    cats = np.asarray([f"c{i}" for i in range(VEC_CATS)])[ids % VEC_CATS]
+
+    def near(row):
+        return lit_vec(np, vecs[row] + rng.normal(scale=0.5, size=VEC_DIM))
+    exact_q = [(m, near(int(rng.integers(n))), None)
+               for m, cnt in VEC_QUERIES for _ in range(cnt)]
+    exact_q += [("cosine", near(int(rng.integers(n))), i % VEC_CATS)
+                for i in range(VEC_FILTERED)]
+    range_q = near(int(rng.integers(n)))
+    ivf_q = [near(int(rng.integers(n))) for _ in range(IVF_QUERIES)]
+    allq = [(q, m) for m, q, _c in exact_q] + [(range_q, "l2")] \
+        + [(q, "l2") for q in ivf_q]
+    oracle = vec_exact(np, vecs, allq)
+    t_data = time.perf_counter() - t0
+    say(f"vectors: {n} x {VEC_DIM} f32 ({vecs.nbytes / 1e6:.0f} MB, "
+        f"{VEC_CLUSTERS}-cluster mixture) and the f64 oracle of "
+        f"{len(allq)} queries in {t_data:.1f} s")
+
+    node = LocalNode()
+    check(node.device.type == DEVICE, f"node on {node.device}")
+    s = Session(node)
+    s.execute(f"create table items (id bigint primary key, embedding "
+              f"vector({VEC_DIM}), cat varchar(4)) distribute by shard(id)")
+    td, st = node.catalog.table("items"), node.stores["items"]
+    t0 = time.perf_counter()
+    s._insert_rows(td, st, {"id": ids, "embedding": vecs, "cat": cats}, n)
+    say(f"vector load: {time.perf_counter() - t0:.1f} s ({n} rows)")
+
+    calls_k, restore_k = record_calls(K, names)
+    calls_a, restore_a = record_calls(ANN, ANN_WRAPPERS)
+    out = {"node": node, "session": s, "vecs": vecs, "ivf_q": ivf_q,
+           "oracle": oracle, "n_exact": len(exact_q)}
+    K.reset_launches()
+    try:
+        # (a) exact search: AnnSearch without an index, and the range count
+        t0 = time.perf_counter()
+        exact_rows = []
+        for j, (metric, q, cat) in enumerate(exact_q):
+            where = "" if cat is None else f"where cat = 'c{cat}' "
+            rows = s.query(f"select id, embedding {VEC_OPS[metric]} "
+                           f"'{vec_lit(q)}' as d from items {where}order by "
+                           f"d limit {VEC_K}")
+            exact_rows.append(rows)
+            keep = None if cat is None else (ids % VEC_CATS == cat)
+            want = vec_top(np, oracle[j], VEC_K, keep)
+            got = [r[0] for r in rows]
+            vec_rank_ok(np, got, want, vecs, q, metric, oracle[j],
+                        f"exact {metric} query {j}")
+            tol = vec_tol(np, vecs, q, metric, got, oracle[j])
+            for (rid, dd), tl in zip(rows, tol):
+                check(abs(dd - oracle[j][rid]) <= tl + VEC_RTOL * abs(dd),
+                      f"exact {metric} query {j}: distance {dd} of row "
+                      f"{rid}, oracle {oracle[j][rid]}")
+            if cat is not None:
+                check(all(r % VEC_CATS == cat for r in got), "filtered "
+                      "search returned a row of another category")
+        t_exact = time.perf_counter() - t0
+        jr = len(exact_q)
+        srt = np.sort(oracle[jr])
+        lo = min(400, n - 2)
+        win = srt[lo:min(lo + 200, n - 1) + 1]
+        g = int(np.argmax(np.diff(win)))
+        radius = float((win[g] + win[g + 1]) / 2)
+        want_count = lo + g + 1
+        check(float(win[g + 1] - win[g]) > 1e-3, "range query: no clear gap")
+        caps = plancache.FUSED.compiles
+        range_sql = (f"select count(*) from items where embedding <-> "
+                     f"'{vec_lit(range_q)}' < {radius!r}")
+        for _ in range(2):     # the capture, then a replay
+            got = s.query(range_sql)
+            check(got == [(want_count,)], f"range count {got}, oracle "
+                  f"{want_count}")
+        check(plancache.FUSED.compiles == caps + 1, "range count: not one "
+              "captured program")
+        say(f"exact search: {len(exact_q)} queries ({VEC_QUERIES}, "
+            f"{VEC_FILTERED} filtered on cat) = f64 oracle in "
+            f"{t_exact:.2f} s; range count = oracle ({want_count}) on the "
+            "fused tier (one capture, one replay)")
+
+        # (b) the index, built twice from the same rows
+        cents, builds = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            s.execute(f"create index items_emb on items using ivfflat "
+                      f"(embedding) with (lists = {VEC_LISTS})")
+            torch.cuda.synchronize()
+            builds.append(time.perf_counter() - t0)
+            cents.append(st.ann_indexes["embedding"]["centroids"].copy())
+        check(cents[0].tobytes() == cents[1].tobytes(), "two index builds "
+              "gave different centroids")
+        info = st.ann_indexes["embedding"]
+        check(cents[0].shape == (VEC_LISTS, VEC_DIM) and
+              info["nprobe"] == VEC_LISTS // 8, "index state")
+        say(f"ivfflat build (lists {VEC_LISTS}, nprobe {info['nprobe']}): "
+            f"{builds[0]:.2f} s, {builds[1]:.2f} s; centroids identical bit "
+            f"for bit [{card}]")
+        out["build_s"] = builds
+
+        # (c) IVF search
+        t0 = time.perf_counter()
+        hits = 0
+        out["ivf_rows"] = []
+        for j, q in enumerate(ivf_q):
+            rows = s.query(f"select id from items order by embedding <-> "
+                           f"'{vec_lit(q)}' limit {VEC_K}")
+            got = [r[0] for r in rows]
+            check(len(got) == VEC_K, f"IVF query {j}: {len(got)} rows")
+            exact = set(vec_top(np, oracle[jr + 1 + j], VEC_K))
+            hits += len(set(got) & exact)
+        t_ivf = time.perf_counter() - t0
+        recall = hits / (VEC_K * len(ivf_q))
+        out["recall"] = recall
+        say(f"IVF search: {len(ivf_q)} queries in {t_ivf:.2f} s, recall@10 "
+            f"{recall:.4f} against exact search [{card}]")
+        check(recall >= IVF_RECALL_MIN, f"IVF recall@10 {recall} below "
+              f"{IVF_RECALL_MIN}")
+
+        # (d) IVF statements served through Scheduler (its serial lane)
+        serve_ivf(torch, node, ivf_q, card)
+
+        # (e) the cluster: Cluster(2) on its host tier
+        out["cluster"] = vector_cluster(torch, np, exact_rows, vecs, ids,
+                                        cats, exact_q, ivf_q, oracle, card)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+    finally:
+        restore_a()
+        restore_k()
+    say(f"vector path launches: {json.dumps(launches)}")
+    for kname in tuple(VECTOR_KERNELS) + SLICE5_OTHERS:
+        check(launches[kname] > 0, f"kernel {kname} was not launched on the "
+              "vector path")
+    out["launches"] = launches
+    out["calls_k"] = {"vector": calls_k}
+    out["calls_a"] = calls_a
+    return out
+
+
+def serve_ivf(torch, node, ivf_q, card):
+    """SERVE_THREADS x SERVE_PER_THREAD IVF statements (id and distance)
+    through one Scheduler: AnnSearch declines the fused screens, so each
+    takes the serial lane; each must equal its serial result."""
+    import threading
+    from opentenbase_tpu_torch.exec import scheduler as sm
+    from opentenbase_tpu_torch.exec.session import Session
+    def stmt(t, j):
+        q = ivf_q[(t * SERVE_PER_THREAD + j) % len(ivf_q)]
+        return (f"select id, embedding <-> '{vec_lit(q)}' as d from items "
+                f"order by d limit {VEC_K}")
+    stmts = [[stmt(t, j) for j in range(SERVE_PER_THREAD)]
+             for t in range(SERVE_THREADS)]
+    ref = [[Session(node).query(sql) for sql in row] for row in stmts]
+    got = [[None] * SERVE_PER_THREAD for _ in range(SERVE_THREADS)]
+    errs = []
+    sm.reset_stats()
+    barrier = threading.Barrier(SERVE_THREADS)
+    with sm.Scheduler(node=node) as sched:
+        def client(t):
+            try:
+                sess = Session(node)
+                barrier.wait()
+                for j, sql in enumerate(stmts[t]):
+                    got[t][j] = sched.run(sess, sql)[-1].rows
+            except Exception as e:   # noqa: BLE001 (reported below)
+                errs.append(e)
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(SERVE_THREADS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if errs:
+        raise SmokeFailure(f"vector serving: {errs[0]!r}")
+    for t in range(SERVE_THREADS):
+        for j in range(SERVE_PER_THREAD):
+            check(got[t][j] == ref[t][j], f"vector serving: client {t} "
+                  f"statement {j} differs from its serial result")
+    st = sm.stats_snapshot()
+    acq, rel = sm.slot_balance()
+    check(acq == rel, f"vector serving: slots {acq} acquired, {rel} "
+          "released")
+    check(st["batched"] == 0, "vector serving: an AnnSearch statement rode "
+          "a batched dispatch")
+    n = SERVE_THREADS * SERVE_PER_THREAD
+    say(f"vector serving: {n} IVF statements from {SERVE_THREADS} threads = "
+        f"serial (bit for bit); {n / wall:.1f} statements/s ({wall:.2f} s); "
+        f"dispatches {st['dispatches']}, batched {st['batched']}; queue wait "
+        f"p50 {st['queue_wait_p50_ms']:.2f} ms, p99 "
+        f"{st['queue_wait_p99_ms']:.2f} ms [{card}]")
+
+
+def vector_cluster(torch, np, single_rows, vecs, ids, cats, exact_q, ivf_q,
+                   oracle, card):
+    """The same table on Cluster(2): exact rows on the host tier equal
+    the single node's, per-DataNode IVF indexes give a recall; the device
+    tier raises for AnnSearch."""
+    from opentenbase_tpu_torch.exec.dist_session import ClusterSession
+    from opentenbase_tpu_torch.parallel.cluster import Cluster
+    cs = ClusterSession(Cluster(2))
+    cs.execute(f"create table items (id bigint primary key, embedding "
+               f"vector({VEC_DIM}), cat varchar(4)) distribute by shard(id)")
+    t0 = time.perf_counter()
+    cs._insert_rows(cs.cluster.catalog.table("items"),
+                    {"id": ids, "embedding": vecs, "cat": cats}, len(ids))
+    t_load = time.perf_counter() - t0
+    try:
+        cs.query(f"select id from items order by embedding <-> "
+                 f"'{vec_lit(ivf_q[0])}' limit {VEC_K}")
+        raise SmokeFailure("cluster AnnSearch ran on the device tier")
+    except NotImplementedError:
+        pass
+    cs.execute("set enable_mesh_exchange = off")
+    for j, (metric, q, _cat) in enumerate(exact_q[:5]):
+        got = cs.query(f"select id, embedding {VEC_OPS[metric]} "
+                       f"'{vec_lit(q)}' as d from items order by d limit "
+                       f"{VEC_K}")
+        check(cs.last_tier == "host", f"cluster tier {cs.last_tier}")
+        if got != single_rows[j]:
+            # only an exact tie may order two rows another way
+            vec_rank_ok(np, [r[0] for r in got],
+                        [r[0] for r in single_rows[j]], vecs, q, metric,
+                        oracle[j], f"cluster exact query {j}")
+    t0 = time.perf_counter()
+    cs.execute(f"create index items_emb on items using ivfflat (embedding) "
+               f"with (lists = {VEC_LISTS})")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    jr = len(exact_q) + 1
+    hits = 0
+    for j, q in enumerate(ivf_q[:CLUSTER_IVF_QUERIES]):
+        got = [r[0] for r in cs.query(
+            f"select id from items order by embedding <-> '{vec_lit(q)}' "
+            f"limit {VEC_K}")]
+        hits += len(set(got) & set(vec_top(np, oracle[jr + j], VEC_K)))
+    recall = hits / (VEC_K * CLUSTER_IVF_QUERIES)
+    say(f"cluster (2 DataNodes, host tier): load {t_load:.1f} s; 5 exact "
+        f"queries = the oracle (as on one DataNode); per-DataNode ivfflat "
+        f"build {t_build:.2f} s; IVF recall@10 {recall:.4f} over "
+        f"{CLUSTER_IVF_QUERIES} queries; device tier: NotImplementedError "
+        f"[{card}]")
+    return {"recall": recall, "build_s": t_build}
+
+
+def vector_compare(torch, ANN, vp):
+    """Every recorded K15 call against its plain version, and the IVF
+    kernel path's ids against the plain path's; returns max error by
+    kernel."""
+    import numpy as np
+    err = {k: 0.0 for k in VECTOR_KERNELS}
+    by_wrapper = {v[0]: k for k, v in VECTOR_KERNELS.items()}
+    counts = {}
+    for wname, kname in by_wrapper.items():
+        for a, kw in vp["calls_a"][wname]:
+            err[kname] = max(err[kname],
+                             compare_ann_call(torch, ANN, wname, a, kw))
+        counts[kname] = len(vp["calls_a"][wname])
+    vecs = vp["vecs"]
+    for j, (a, kw) in enumerate(vp["calls_a"]["ivf_search"]):
+        gi, _gd = ANN.ivf_search(*a, **kw)
+        wi, _wd = ANN.ivf_search_plain(*a, **kw)
+        torch.cuda.synchronize()
+        got, want = gi.tolist(), wi.tolist()
+        if got != want:
+            # the plain path's distances of the rows involved decide
+            q, metric = a[3], a[7] if len(a) > 7 else kw.get("metric", "l2")
+            d = ANN.distances_plain(a[0], q, metric).double().cpu().numpy()
+            qn = q.cpu().numpy()
+            padded = np.zeros((len(d), vecs.shape[1]), np.float32)
+            padded[:len(vecs)] = vecs
+            vec_rank_ok(np, got, want, padded, qn, metric, d,
+                        f"IVF call {j}: kernel path vs plain path")
+    say(f"K15 kernels vs plain on every main-path call ({json.dumps(counts)}"
+        f" calls; IVF kernel path = plain path on "
+        f"{len(vp['calls_a']['ivf_search'])} calls): ok; max errors "
+        f"{json.dumps(err)}")
+    return err
+
+
+def ann_bytes_ops(torch, name, a, kw):
+    """(bytes each input read once + each output written once, ops) of
+    one K15 call, from this run's tensors."""
+    if name == "ann_distances":
+        vecs, q = a[0], a[1]
+        n, d = vecs.shape
+        return nbytes(vecs) + nbytes(q) + 4 * n, 4 * n * d
+    if name == "ann_topk":
+        dist, valid, k = a[0], a[1], a[2]
+        n = dist.shape[0]
+        return nbytes(dist) + (n if valid is not None else 0) + 12 * k, \
+            n * _lg(max(k, 2))
+    if name == "ann_assign":
+        vecs, cents = a[0], a[1]
+        n, d = vecs.shape
+        return nbytes(vecs) + nbytes(cents) + 4 * n, \
+            2 * n * cents.shape[0] * d
+    if name == "ann_lloyd_update":
+        vecs, valid, assign, cents = a[:4]
+        n, d = vecs.shape
+        live = int(valid.sum())
+        return 4 * d * live + n + 4 * n + 2 * nbytes(cents), live * d
+    if name == "ann_probe_scan":
+        vecs, assign, probed, valid, q = a[:5]
+        n, d = vecs.shape
+        nl = probed.shape[0] - 1
+        taken = int((valid & probed[assign.long().clamp(0, nl)]).sum())
+        return 4 * n + n + nbytes(probed) + nbytes(q) + 4 * d * taken \
+            + 4 * n, 4 * d * taken
+    raise KeyError(name)
+
+
+def ann_library_ms(torch, name, a, kw):
+    """One PyTorch call computing the same function, where there is one:
+    torch.cdist for l2 distances, torch.topk of the masked distances,
+    and for the assignment the product and the argmax (two calls);
+    None for the Lloyd update and the probe scan."""
+    if name == "ann_distances":
+        metric = a[2] if len(a) > 2 else kw.get("metric", "l2")
+        if metric != "l2":
+            return None
+        vecs, q = a[0], a[1]
+        return time_fn(torch, lambda: torch.cdist(vecs, q[None]), reps=10)
+    if name == "ann_topk":
+        dist, valid, k = a[0], a[1], a[2]
+        masked = dist if valid is None else torch.where(
+            valid, dist, torch.full((), float("inf"), device=dist.device))
+        return time_fn(torch, lambda: torch.topk(masked, k, largest=False),
+                       reps=10)
+    if name == "ann_assign":
+        vecs, cents = a[0], a[1]
+        return time_fn(torch, lambda: (vecs @ cents.T).argmax(1), reps=3)
+    return None
+
+
+def vector_measure(torch, K, ANN, vp, err, card, profile=False):
+    """Times of the vector path after its launches were read: one Lloyd
+    step against its plain version, the sort of its update against
+    torch.sort, exact against IVF warm ms per query in turns (with
+    `profile`, one of each under torch.profiler), the card's busy share
+    over IVF queries, and each K15 kernel at a main-path call against
+    its plain version, its bound and the library call."""
+    import numpy as np
+    s, st = vp["session"], vp["node"].stores["items"]
+    calls = vp["calls_a"]
+    a, _kw = calls["lloyd_update"][0]
+    vecs, valid, assign, cents, nlist = a[:5]
+    k_ms = time_fn(torch, lambda: ANN._lloyd_step(vecs, valid, cents, nlist),
+                   reps=3)
+    p_ms = time_fn(torch, lambda: ANN._lloyd_step_plain(vecs, valid, cents,
+                                                        nlist), reps=3)
+    say(f"one Lloyd step ({vecs.shape[0]} x {vecs.shape[1]}, {nlist} lists):"
+        f" kernels {k_ms:.3f} ms, plain {p_ms:.3f} ms [{card}]")
+    # K10 at the update's main-path call: one order word per row
+    keys = torch.where(valid, assign.to(torch.int64),
+                       torch.full((), nlist, dtype=torch.int64,
+                                  device=valid.device))
+    words = keys.unsqueeze(0).contiguous()
+    s_ms = time_fn(torch, lambda: K.sort_perm(words), reps=5)
+    t_ms = time_fn(torch, lambda: torch.sort(keys, stable=True), reps=5)
+    check(torch.equal(K.sort_perm(words), torch.sort(keys, stable=True)[1]),
+          "sort_perm differs from torch.sort on the Lloyd update's keys")
+    say(f"sort_rows at the Lloyd update's call ({keys.shape[0]} rows, one "
+        f"order word): kernel {s_ms:.3f} ms, torch.sort(stable=True) "
+        f"{t_ms:.3f} ms [{card}]")
+    q = vp["ivf_q"][0]
+    sql = (f"select id from items order by embedding <-> '{vec_lit(q)}' "
+           f"limit {VEC_K}")
+    index = st.ann_indexes["embedding"]
+    exact, ivf = [], []
+
+    def run_exact():
+        st.ann_indexes.pop("embedding")
+        try:
+            exact.append(_wall(torch, lambda: s.query(sql)))
+        finally:
+            st.ann_indexes["embedding"] = index
+    for r in range(REPS):
+        for side in ((run_exact, "ivf") if r % 2 == 0 else ("ivf", run_exact)):
+            if side == "ivf":
+                ivf.append(_wall(torch, lambda: s.query(sql)))
+            else:
+                side()
+    e_ms, i_ms = statistics.median(exact), statistics.median(ivf)
+    say(f"warm ms per query (median of {REPS} a side, in turns): exact "
+        f"{e_ms:.3f} ms, IVF {i_ms:.3f} ms [{card}]")
+    if profile:
+        st.ann_indexes.pop("embedding")
+        try:
+            profile_queries(torch, [("vector exact l2", s, sql)], card)
+        finally:
+            st.ann_indexes["embedding"] = index
+        profile_queries(torch, [("vector IVF", s, sql)], card)
+    wall, busy = busy_share(torch, lambda: [s.query(
+        f"select id from items order by embedding <-> '{vec_lit(qq)}' "
+        f"limit {VEC_K}") for qq in vp["ivf_q"][:10]])
+    say(f"IVF busy share over 10 warm queries: device {busy:.3f} ms of "
+        f"{wall:.3f} ms wall ({100 * busy / wall:.1f}%) [{card}]")
+    timed = {"ann_distances": calls["distances"][0],
+             "ann_topk": calls["topk_nearest"][0],
+             "ann_assign": next(c for c in calls["assign_clusters"]
+                                if c[0][1].shape[0] == VEC_LISTS),
+             "ann_lloyd_update": calls["lloyd_update"][0],
+             "ann_probe_scan": calls["probe_scan"][0]}
+    records = []
+    for kname, (wname, src, replaces) in VECTOR_KERNELS.items():
+        a, kw = timed[kname]
+        fn = getattr(ANN, wname)
+        plain = getattr(ANN, wname + "_plain")
+        reps = 3 if kname in ("ann_assign", "ann_lloyd_update") else 10
+        ms = time_fn(torch, lambda: fn(*a, **kw), reps=reps)
+        pms = time_fn(torch, lambda: plain(*a, **kw), reps=reps)
+        by, ops = ann_bytes_ops(torch, kname, a, kw)
+        t_bytes = by / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_OPS_PER_S * 1e3
+        lib = ann_library_ms(torch, kname, a, kw)
+        shape = "x".join(str(x) for x in a[0].shape)
+        records.append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": vp["launches"][kname],
+            "launches_by_path": {"vector": vp["launches"][kname]},
+            "max_abs_err": err[kname], "ms": ms, "plain_ms": pms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib, "timed_on": f"vector {wname} {shape}"})
+        say(f"kernel {kname}: {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({by / 1e6:.1f} MB, "
+            f"{ops / 1e9:.2f} GFLOP), library "
+            f"{'-' if lib is None else f'{lib:.4f} ms'}; launches "
+            f"{vp['launches'][kname]} ({wname} on {shape}) [{card}]")
+    return records
+
+
+def busy_share(torch, fn):
+    """(wall ms, device busy ms) of one call of `fn` under torch.profiler:
+    the device-side events' time over the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            busy += getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0))
+    return wall, busy / 1e3
 
 
 # device kernel name fragment -> label, for the cluster kernels' lines

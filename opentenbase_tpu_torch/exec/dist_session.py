@@ -11,13 +11,16 @@ writes.  Statements of the slice:
   path the TPC-H loader uses, rows routed by the locator;
 - SELECT in an implicit transaction, on the device tier by default;
 - SET / SHOW, among them `SET enable_mesh_exchange = off`, which runs
-  SELECTs on the host tier instead (the reference's own parity arm).
+  SELECTs on the host tier instead (the reference's own parity arm);
+- CREATE INDEX ... USING ivfflat, built on every DataNode.  Vector
+  top-k (AnnSearch) runs per DataNode under a coordinator merge by
+  distance on the host tier; the device tier raises for it.
 
 Kept from the reference: query, execute, tier_counts (a device-tier
 SELECT counts as "mesh"), fallbacks and last_tier.  Everything else
 raises NotImplementedError: prepared statements, DML beyond INSERT,
 explicit transactions, EXPLAIN, triggers, MERGE, COPY, resource groups,
-indexes, views and the plan cache among them.
+btree and hnsw indexes, views and the plan cache among them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..catalog.schema import DistType, TableDef
+from ..catalog.types import TypeKind
 from ..plan.distribute import DistPlan, Distributor
 from ..plan.planner import Planner
 from ..sql import ast as A
@@ -33,7 +37,7 @@ from ..sql.ddl import table_def_from_ast
 from ..sql.parser import parse_sql
 from .dist import DistExecutor
 from .executor import ExecError, materialize
-from .session import Result
+from .session import Result, check_index_method
 
 _NOT_PORTED_STMTS = {
     A.TxnStmt: "explicit transactions",
@@ -99,11 +103,31 @@ class ClusterSession:
         if isinstance(stmt, A.SetStmt):
             c.gucs[stmt.name] = str(stmt.value)
             return Result("SET")
+        if isinstance(stmt, A.CreateIndexStmt):
+            return self._exec_create_index(stmt)
         if isinstance(stmt, A.ShowStmt):
             return Result("SHOW", names=[stmt.name],
                           rows=[(c.gucs.get(stmt.name, ""),)])
         what = _NOT_PORTED_STMTS.get(type(stmt), type(stmt).__name__)
         raise NotImplementedError(f"{what} is not yet ported")
+
+    def _exec_create_index(self, stmt: A.CreateIndexStmt) -> Result:
+        """CREATE INDEX ... USING ivfflat: every DataNode builds the IVF
+        quantizer over its own rows (a local index)."""
+        check_index_method(stmt)
+        c = self.cluster
+        td = c.catalog.table(stmt.table)
+        col = stmt.columns[0]
+        if td.column(col).type.kind != TypeKind.VECTOR:
+            raise ExecError("ivfflat requires a vector column")
+        lists = int(stmt.options.get("lists", 0))
+        metric = str(stmt.options.get("metric", "l2"))
+        for dn in c.datanodes:
+            dn.build_ann_index(stmt.table, col, lists, metric)
+        c.catalog.local_indexes[stmt.name] = {
+            "table": stmt.table, "cols": list(stmt.columns),
+            "method": stmt.method}
+        return Result("CREATE INDEX")
 
     # ---- SELECT ----
     def _plan_distributed(self, stmt: A.SelectStmt) -> DistPlan:

@@ -46,9 +46,12 @@ EXEC_STATS counts per tier (single = eager, fused = traced programs) the
 joins and the host reads (`host_syncs`: one per eager join) and the
 fused tier's program hits on join fragments (`fused_join_hits`).
 
+AnnSearch (ORDER BY vec <-> q LIMIT k) runs exact or IVF top-k through
+the K15 kernels of ops/ann.py, eagerly.
+
 Still raising NotImplementedError: DISTINCT aggregates, window
-functions, set operations, Append, index and vector scans, and the
-reference's morsel / spill / work-sharing tiers.  Nothing is done
+functions, set operations, Append, btree index scans, HNSW search, and
+the reference's morsel / spill / work-sharing tiers.  Nothing is done
 another way.
 """
 
@@ -386,7 +389,7 @@ class Executor:
     # ------------------------------------------------------------------
     def exec_node(self, node: P.PhysNode) -> DBatch:
         """Run one plan node; a node type of a later slice (window, set
-        operations, Append, index and vector scans) is not yet ported."""
+        operations, Append, index scans) is not yet ported."""
         if not self._traced and self._fuse:
             from .fused import try_fused
             out = try_fused(self, node)
@@ -398,16 +401,18 @@ class Executor:
         return m(node)
 
     # ---- scan ----
-    def _scan_base(self, table, alias: str, filters, outputs):
-        """Stage the needed columns via the device cache, build the
-        qualified-name eval namespace, and combine MVCC visibility with
-        the filter quals into one mask."""
+    def _scan_base(self, table, alias: str, filters, outputs,
+                   extra_needed: set = frozenset()):
+        """Shared scan scaffolding (SeqScan + AnnSearch): stage the needed
+        columns via the device cache, build the qualified-name eval
+        namespace, and combine MVCC visibility with the filter quals into
+        one mask."""
         store = self.ctx.stores.get(table.name)
         if store is None:
             raise ExecError(f"no store for table {table.name}")
         filters = [self._prep(f) for f in filters]
         outputs = [(n, self._prep(e)) for n, e in (outputs or [])]
-        needed = set()
+        needed = set(extra_needed)
         for f in filters:
             needed |= {c.split(".", 1)[1] if "." in c else c
                        for c in _cols_of(f)}
@@ -523,6 +528,50 @@ class Executor:
             if d is not None:
                 out_dicts[name] = d
         return DBatch(out_cols, vis, out_types, out_dicts, out_nulls)
+
+    # ANN search is host-sized (one read of the rows found) and is
+    # rejected by the fused screens: it runs eager.
+    def _exec_annsearch(self, node: P.AnnSearch) -> DBatch:
+        """Top-k vector search: visibility+filters mask, IVF probe when an
+        index of the query's metric exists, exact distances otherwise,
+        top-k, gather."""
+        from ..ops import ann as ANN
+        plain_vec = node.vec_col.split(".", 1)[1] if "." in node.vec_col \
+            else node.vec_col
+        base, valid, outputs, dicts = self._scan_base(
+            node.table, node.alias, node.filters, node.outputs, {plain_vec})
+        store = self.ctx.stores[node.table.name]
+        vecs = base.cols[f"{node.alias}.{plain_vec}"]
+        padded = valid.shape[0]
+        q = device_const(np.asarray(node.query, dtype=np.float32),
+                         self.device)
+        k = min(node.k, padded)
+        idx_info = store.ann_indexes.get(plain_vec)
+        if idx_info is not None and idx_info.get("kind") == "hnsw":
+            _not_ported("HNSW index search")
+        if idx_info is not None and idx_info["metric"] == node.metric:
+            assign, centroids = _ann_assignments(store, plain_vec, vecs)
+            nprobe = min(idx_info["nprobe"], centroids.shape[0])
+            idx, dist = ANN.ivf_search(vecs, assign, centroids, q, valid,
+                                       nprobe, k, node.metric)
+        else:
+            d = ANN.distances(vecs, q, node.metric)
+            idx, dist = ANN.topk_nearest(d, valid, k)
+        # the one host read: how many of the k slots hold a row
+        found = int(torch.isfinite(dist).sum())
+
+        out_cols, out_types, out_dicts = {}, {}, {}
+        for name, oe in outputs:
+            if isinstance(oe, E.DistExpr):
+                out_cols[name] = dist.to(device_float())
+            else:
+                out_cols[name] = self._eval(oe, base).index_select(0, idx)
+            out_types[name] = oe.type
+            dd = _dict_for_expr(oe, dicts)
+            if dd is not None:
+                out_dicts[name] = dd
+        out_valid = torch.arange(k, device=self.device) < found
+        return DBatch(out_cols, out_valid, out_types, out_dicts)
 
     # ---- filter / project ----
     def _exec_filter(self, node: P.Filter) -> DBatch:
@@ -1295,6 +1344,29 @@ class Executor:
 
 def _cols_of(e: E.Expr) -> set[str]:
     return {x.name for x in E.walk(e) if isinstance(x, E.Col)}
+
+
+def _ann_assignments(store, col: str, vecs):
+    """Cluster assignments of the staged rows for the IVF index, on the
+    rows' device, recomputed when the store changed since they were made
+    (rows inserted after the build go to the build's centroids; nothing
+    is re-clustered).  Returns (assign, centroids)."""
+    from ..ops import ann as ANN
+    info = store.ann_indexes[col]
+    dkey = str(vecs.device)
+    dev_cents = info.setdefault("_dev_centroids", {})
+    centroids = dev_cents.get(dkey)
+    if centroids is None:
+        centroids = torch.from_numpy(info["centroids"]).to(vecs.device)
+        dev_cents[dkey] = centroids
+    caches = info.setdefault("_assign_cache", {})
+    cached = caches.get(dkey)
+    if cached is not None and cached[0] == store.version \
+            and cached[1].shape[0] == vecs.shape[0]:
+        return cached[1], centroids
+    assign = ANN.assign_clusters(vecs, centroids, info["metric"])
+    caches[dkey] = (store.version, assign)
+    return assign, centroids
 
 
 def _dict_for_expr(e: E.Expr, dicts: dict):

@@ -75,6 +75,9 @@ _CONSTS: dict = {}      # guarded_by: _CONST_LOCK
 _CONSTS_MAX = 4096
 
 
+_RETAIN = threading.local()
+
+
 def device_const(arr: np.ndarray, device) -> torch.Tensor:
     """A host-built constant table on `device`, cached by content: the
     same bytes give the same tensor, never written to.  A fragment
@@ -90,7 +93,25 @@ def device_const(arr: np.ndarray, device) -> torch.Tensor:
             _CONSTS[key] = t
             while len(_CONSTS) > _CONSTS_MAX:
                 _CONSTS.pop(next(iter(_CONSTS)))
+    keep = getattr(_RETAIN, "consts", None)
+    if keep is not None:
+        keep.append(t)
     return t
+
+
+class retain_consts:
+    """Within the block, the constants `device_const` hands out on this
+    thread are also collected in the list it yields: a captured program
+    keeps them, since a replay reads them in place after the cache may
+    have evicted them."""
+
+    def __enter__(self) -> list:
+        self.prev = getattr(_RETAIN, "consts", None)
+        _RETAIN.consts = []
+        return _RETAIN.consts
+
+    def __exit__(self, *exc):
+        _RETAIN.consts = self.prev
 
 
 def _common(a, b):
@@ -587,8 +608,15 @@ def compile_pair(e: E.Expr, dicts: dict, nullable=frozenset(),
             return (lambda cols: cols[name]), nf
 
         if isinstance(x, E.DistExpr):
-            raise NotImplementedError(
-                "vector distance expressions are not yet ported")
+            # K15 distances in f32, widened as the reference widens them;
+            # the query vector is a device constant (never an upload under
+            # capture), so each query vector is its own program
+            from ..ops.ann import distances
+            name = x.col.name
+            qc = device_const(np.asarray(x.query, dtype=np.float32), device)
+            metric = x.metric
+            return (lambda cols: distances(cols[name], qc, metric)
+                    .to(device_float())), None
 
         if isinstance(x, E.Extract):
             f, nf = c(x.arg)

@@ -67,6 +67,7 @@ from ..sql.fingerprint import struct_key
 from ..storage import codec
 from ..utils import locks
 from . import plancache
+from .expr_compile import retain_consts
 
 #: row floor (summed over the fragment's leaf tables) below which join
 #: fragments stay on the eager tier (reference: OTB_FUSE_JOIN_MIN_ROWS)
@@ -292,6 +293,9 @@ def _mask_node(node, lits: list):
 def _screen_fragment(ctx, node):
     """(scans, stores) when `node` is a fragment over live SeqScan leaves
     that can run as one program, else None (the reason counted)."""
+    if isinstance(node, P.AnnSearch):
+        # the reference's screens take no AnnSearch (_key_of has no case)
+        return _decline("ann_search")
     if not isinstance(node, (P.Agg, P.Project, P.Filter, P.Sort,
                              P.Limit, P.HashJoin)):
         return None   # a bare SeqScan gains nothing
@@ -543,6 +547,8 @@ class FusedProgram:
                                   device=self.device)
         self._done = None
         self._static = None
+        # the device constants the captured graph reads in place
+        self._consts: list = []
 
     # -- the traced run ---------------------------------------------------
     def _views(self):
@@ -644,7 +650,8 @@ class FusedProgram:
             torch.cuda.empty_cache()
             r0 = torch.cuda.memory_reserved(self.device)
             try:
-                with K.capture_launches() as tally:
+                with K.capture_launches() as tally, \
+                        retain_consts() as consts:
                     with torch.cuda.graph(graph,
                                           capture_error_mode="thread_local"):
                         static = self._traced_run()
@@ -656,6 +663,7 @@ class FusedProgram:
             self.pool_bytes = max(
                 torch.cuda.memory_reserved(self.device) - r0, 0)
             self.graph_launches = dict(tally)
+            self._consts = consts
             self._static = static
             self.graph = graph
             self.captured = True
@@ -667,6 +675,7 @@ class FusedProgram:
         with self._lock:
             self.graph = None
             self._static = None
+            self._consts = []
             self.captured = False
             self.pool_bytes = 0
 

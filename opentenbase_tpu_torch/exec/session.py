@@ -17,9 +17,12 @@ The node runs on the card: `LocalNode()` resolves to CUDA and raises when
 there is none.  A caller that wants the CPU (the tests) says so with
 `device="cpu"`; nothing moves execution to the CPU on its own.
 
+CREATE INDEX ... USING ivfflat builds the vector index (K15, ops/ann.py);
+ORDER BY vec <-> q LIMIT k then probes it.
+
 Statements outside the slice — explicit transactions, DELETE / UPDATE,
-views, indexes, partitions, triggers, WAL durability and the cluster
-tier among them — raise NotImplementedError.
+views, btree and hnsw indexes, partitions, triggers and WAL durability
+among them — raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -118,6 +121,17 @@ _NOT_PORTED_STMTS = {
 }
 
 
+def check_index_method(stmt: A.CreateIndexStmt) -> None:
+    """Raise for the CREATE INDEX forms not ported: only ivfflat is."""
+    if stmt.global_:
+        raise NotImplementedError("global indexes are not yet ported")
+    if stmt.method == "hnsw":
+        raise NotImplementedError("hnsw indexes are not yet ported")
+    if stmt.method != "ivfflat":
+        raise NotImplementedError("btree indexes (and IndexScan) are not "
+                                  "yet ported")
+
+
 class Session:
     def __init__(self, node: LocalNode, resource_group: str = ""):
         self.node = node
@@ -148,6 +162,8 @@ class Session:
             return self._exec_create_table(stmt)
         if isinstance(stmt, A.InsertStmt):
             return self._exec_insert(stmt)
+        if isinstance(stmt, A.CreateIndexStmt):
+            return self._exec_create_index(stmt)
         what = _NOT_PORTED_STMTS.get(type(stmt), type(stmt).__name__)
         raise NotImplementedError(f"{what} is not yet ported")
 
@@ -163,6 +179,21 @@ class Session:
         self.node.stores.setdefault(td.name, TableStore(td))
         self.node.ddl_gen += 1
         return Result("CREATE TABLE")
+
+    def _exec_create_index(self, stmt: A.CreateIndexStmt) -> Result:
+        """CREATE INDEX ... USING ivfflat (col) [WITH (lists, metric)]:
+        the IVF coarse quantizer, built on the node's device."""
+        check_index_method(stmt)
+        # a schema change: cached plans of this node are rebuilt
+        self.node.ddl_gen += 1
+        try:
+            self.node.stores[stmt.table].build_ann_index(
+                stmt.columns[0], int(stmt.options.get("lists", 0)),
+                str(stmt.options.get("metric", "l2")),
+                device=self.node.device)
+        except ValueError as e:
+            raise ExecError(str(e)) from None
+        return Result("CREATE INDEX")
 
     def _plan_select(self, stmt: A.SelectStmt) -> PlannedStmt:
         if stmt.for_update:

@@ -58,9 +58,16 @@ SIGNATURES = {
     "otbt_fused_scan_agg": [_P, _LL, _P, _P, _P, _I, _P, _P],
     "otbt_exchange_scatter": [_P, _P, _P, _I, _I, _LL, _P, _LL, _P, _P,
                               _P, _P, _P, _I, _P],
+    "otbt_ann_distances": [_P, _P, _LL, _I, _I, _I, _P, _P],
+    "otbt_ann_probe_scan": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _I, _P,
+                            _P],
+    "otbt_ann_topk_scratch": [_LL, _I],
+    "otbt_ann_topk": [_P, _P, _LL, _I, _P, _P, _P, _P],
+    "otbt_ann_assign": [_P, _LL, _P, _I, _I, _I, _P, _P, _P],
+    "otbt_ann_lloyd_update": [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _P],
 }
 RESTYPES = {"otbt_scan_tiles": _LL, "otbt_exchange_tiles": _LL,
-            "otbt_exchange_max_dn": _LL}
+            "otbt_exchange_max_dn": _LL, "otbt_ann_topk_scratch": _LL}
 
 _lock = threading.Lock()
 _lib = None

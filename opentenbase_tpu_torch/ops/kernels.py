@@ -44,7 +44,9 @@ LAUNCHES = {"visibility_mask": 0, "decode_column": 0, "cmp_on_codes": 0,
             "join_probe_counts": 0, "join_expand": 0, "compose_index": 0,
             "semi_mask": 0, "anti_mask": 0, "sort_rows": 0,
             "hash_columns": 0, "bucket_ids": 0, "route_dest": 0,
-            "exchange": 0, "compact": 0, "fused_scan_agg": 0}
+            "exchange": 0, "compact": 0, "fused_scan_agg": 0,
+            "ann_distances": 0, "ann_topk": 0, "ann_assign": 0,
+            "ann_lloyd_update": 0, "ann_probe_scan": 0}
 _LAUNCH_LOCK = threading.Lock()
 _CAPTURE = threading.local()
 

@@ -15,7 +15,8 @@ the kernels (the tests).
 
 Not ported: the datadir (WAL, checkpoints, recovery, barriers), standbys
 and failover, the in-doubt resolver, jobs, audit, statistics views,
-resource queues, indexes and multi-coordinator catalog sync.
+resource queues, btree and hnsw indexes and multi-coordinator catalog
+sync.  A DataNode builds its own IVFFlat index (build_ann_index).
 """
 
 from __future__ import annotations
@@ -90,6 +91,12 @@ class DataNode:
         arrive as HostBatches keyed by exchange index."""
         return _to_host(self.exec_plan_device(plan, snapshot_ts, txid,
                                               params, sources))
+
+    def build_ann_index(self, table: str, col: str, lists: int = 0,
+                        metric: str = "l2", nprobe: int = 0) -> int:
+        """Build an IVFFlat index over a VECTOR column on this node."""
+        return self.stores[table].build_ann_index(
+            col, lists, metric, nprobe, device=self.cache.device)
 
     def prepare(self, gid: str, txid: int):
         self.prepared_gids[gid] = (txid, time.monotonic())

@@ -619,6 +619,51 @@ class TableStore:
                 np.asarray(sids, dtype=np.int32), "n": n_out,
                 "masks": masks}
 
+    def build_ann_index(self, col: str, lists: int = 0,
+                        metric: str = "l2", nprobe: int = 0,
+                        device=None) -> int:
+        """IVFFlat coarse quantizer over a VECTOR column (kmeans over
+        this store's rows on `device`, the card unless the caller names
+        another) — contrib/pgvector ivfflat analog."""
+        cd = self._vector_column(col)
+        from ..ops.ann import kmeans
+        parts = [ch.columns[col][:ch.nrows] for _, ch in
+                 self.scan_chunks()]
+        vecs = np.concatenate(parts) if parts else \
+            np.zeros((0, cd.type.dim), np.float32)
+        n = len(vecs)
+        if lists <= 0:
+            lists = max(1, min(int(np.sqrt(max(n, 1))), 1024))
+        centroids = kmeans(vecs.astype(np.float32), lists,
+                           device=device) if n else \
+            np.zeros((lists, cd.type.dim), np.float32)
+        return self.adopt_ann_index(col, centroids, metric, nprobe)
+
+    def adopt_ann_index(self, col: str, centroids: np.ndarray,
+                        metric: str = "l2", nprobe: int = 0) -> int:
+        """Install an IVFFlat index from its state (centroids as a
+        (lists, dim) array): the build's last step, and the way a test
+        hands another engine's index to this store."""
+        cd = self._vector_column(col)
+        c = np.array(centroids, dtype=np.float32, order="C")
+        if c.ndim != 2 or c.shape[1] != cd.type.dim or len(c) == 0:
+            raise ValueError(f"ivfflat centroids of shape {c.shape} for "
+                             f"vector({cd.type.dim})")
+        if nprobe <= 0:
+            nprobe = max(1, len(c) // 8)
+        self.ann_indexes[col] = {"centroids": c, "metric": metric,
+                                 "nprobe": nprobe,
+                                 "version": self.version}
+        return len(c)
+
+    def _vector_column(self, col: str):
+        cd = self.td.column(col)
+        if cd.type.kind != TypeKind.VECTOR:
+            raise ValueError(
+                f"ivfflat index requires a vector column, {col!r} is "
+                f"{cd.type}")
+        return cd
+
     def build_btree_index(self, col: str) -> int:
         """(Re)build the sorted index over one column.  Positions address
         the live-row concatenation order scans use.  Rebuilds are lazy:

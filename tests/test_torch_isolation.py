@@ -55,6 +55,13 @@ CLUSTER_MODULES = [
 ]
 
 
+# the vector search modules
+ANN_MODULES = [
+    "opentenbase_tpu_torch.ops.ann",
+    "opentenbase_tpu_torch.storage.store",
+]
+
+
 # the fused and serving tiers' modules
 FUSED_MODULES = [
     "opentenbase_tpu_torch.exec.fused",
@@ -65,7 +72,8 @@ FUSED_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module", CLUSTER_MODULES + FUSED_MODULES)
+@pytest.mark.parametrize("module",
+                         CLUSTER_MODULES + FUSED_MODULES + ANN_MODULES)
 def test_cluster_tier_module_loads_no_jax(module):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
