@@ -33,6 +33,18 @@ bulk-load all eight tables at SF1 (6.0 M lineitem rows), then
   1000) twice (identical centroids); 100 IVF queries (recall@10 >= 0.8,
   the kernel path's ids = the plain path's); IVF statements served
   through Scheduler; the same table on Cluster(2)'s host tier.
+- slice 6, TPC-DS and window functions (K13): the 20 TPC-DS tables with
+  store_sales at its SF1 size (2,880,400 rows, 9.7 M rows in all) in a
+  LocalNode of its own; the 8 window queries, two more window
+  statements (a moving min / max and lag over a grouped aggregate; rank
+  and a ROWS-frame min over every store_sales row) and 63 of the 64 plain
+  queries through Session.query on the default (fused) tier; the window
+  statements and 8 plain queries against the port on the CPU over the
+  same stores, the other 56 plain queries the same way at sf 72.01 in a
+  second load (q85 runs there only: its many-to-many join outgrows the
+  card at SF1 size); the 27 queries outside the slice raise; the 8 window
+  queries on Cluster(2) against the single node; warm ms of each window
+  query, eager against the default tier, in turns, and their busy share.
 The slices 1-3 phases run the eager tier (Executor._fuse = False), as
 before the fused tier existed.
 Around that it builds the CUDA kernels from opentenbase_tpu_torch/csrc,
@@ -106,6 +118,13 @@ KERNEL_SOURCES = {
                 "opentenbase_tpu/ops/kernels.py:103", "c3"),
     "fused_scan_agg": ("opentenbase_tpu_torch/csrc/fused.cu",
                        "opentenbase_tpu/exec/fused.py:563", "f1"),
+    "window_bounds": ("opentenbase_tpu_torch/csrc/window.cu",
+                      "opentenbase_tpu/exec/executor.py:1523", "dsx2"),
+    "window_frame_reduce": ("opentenbase_tpu_torch/csrc/window.cu",
+                            "opentenbase_tpu/exec/executor.py:1733",
+                            "dsx2"),
+    "range_minmax": ("opentenbase_tpu_torch/csrc/window.cu",
+                     "opentenbase_tpu/exec/executor.py:1765", "dsx2"),
 }
 SLICE1 = ("visibility_mask", "decode_column", "cmp_on_codes",
           "grouped_agg_dense", "sort_rows")
@@ -507,6 +526,132 @@ def cluster_kernel_check(torch, K):
         "branch, small and large inputs): ok")
 
 
+WIN_RTOL = 1e-12    # K13b f64 sums / averages: the scan adds in tiles
+
+
+def compare_window(torch, got, want, what, rtol=0.0):
+    """A K13 result (tensor or tuple of tensors / None) against its plain
+    version: integers and nulls exactly, f64 within rtol (NaN = NaN).
+    Returns the max abs error."""
+    if isinstance(got, torch.Tensor) or got is None:
+        got, want = (got,), (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        if g is None or w is None:
+            check(g is None and w is None, f"K13 {what}: null mask "
+                  "present on one side only")
+            continue
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"K13 {what}: shape/dtype {g.shape} {g.dtype} != "
+              f"{w.shape} {w.dtype}")
+        if g.dtype.is_floating_point:
+            both_nan = torch.isnan(g) & torch.isnan(w)
+            d = torch.where(both_nan, torch.zeros_like(g), (g - w).abs())
+            d = torch.where(torch.isinf(g) & (g == w), torch.zeros_like(g), d)
+            bad = ~((d == 0) | (d <= rtol * w.abs()))
+            check(not bool(bad.any()), f"K13 {what}: f64 values differ "
+                  f"beyond {rtol} ({int(bad.sum())} rows)")
+            if d.numel():
+                err = max(err, float(d.max()))
+        else:
+            check(torch.equal(g, w), f"K13 {what}: values differ")
+    return err
+
+
+def window_case(torch, K, rng, n, n_part, n_order, float_order, dev):
+    """Sorted order words as the executor makes them (K10 over keys with
+    ties, NaN and +-0.0, invalid rows anywhere in the input), and their
+    sort permutation and sorted validity."""
+    import numpy as np
+    valid = rng.random(n) < 0.8
+    keys, descs = [], []
+    for _ in range(n_part):
+        keys.append(torch.from_numpy(rng.integers(0, 3, n)).to(dev))
+        descs.append(False)
+    for j in range(n_order):
+        if float_order and j == 0:
+            keys.append(torch.from_numpy(rng.choice(
+                [np.nan, -0.0, 0.0, 1.5, -2.0], n)).to(dev))
+        else:
+            keys.append(torch.from_numpy(rng.integers(0, 4, n)).to(dev))
+        descs.append(bool(rng.integers(0, 2)))
+    valid_t = torch.from_numpy(valid).to(dev)
+    words = K.order_words(tuple(keys), valid_t, tuple(descs))
+    perm = K.sort_perm(words)
+    fw = tuple(1 + j for j, k in enumerate(keys) if k.dtype.is_floating_point)
+    return (words.index_select(1, perm).contiguous(), fw,
+            valid_t.index_select(0, perm), perm)
+
+
+WIN_FRAMES = (None, ("rows", ("preceding", 2), ("following", 1)),
+              ("rows", ("preceding", 3), ("preceding", 2)),
+              ("rows", ("current", None), ("unbounded_following", None)),
+              ("rows", ("following", 1), ("following", 4)),
+              ("range", ("unbounded_preceding", None), ("current", None)),
+              ("range", ("current", None), ("unbounded_following", None)))
+
+
+def window_kernel_check(torch, K):
+    """K13a-K13c against their plain versions on inputs that take every
+    branch: n = 1 to 2^20 + 3, partition / order word counts, NaN and
+    +-0.0 order keys, invalid rows sorted to the end, every function
+    over every frame kind, int64 and f64 arguments with NULLs, lag/lead
+    with and without a default."""
+    import numpy as np
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(5)
+    for n, n_part, n_order, flt in ((1, 0, 1, False), (1, 1, 0, False),
+                                    (2, 0, 0, False), (37, 1, 1, True),
+                                    (1000, 2, 1, True), (1025, 0, 2, False),
+                                    ((1 << 20) + 3, 1, 1, True)):
+        words, fw, s_valid, perm = window_case(torch, K, rng, n, n_part,
+                                               n_order, flt, dev)
+        bounds = K.window_bounds(words, n_part, fw, s_valid)
+        compare_window(torch, bounds, K.window_bounds_plain(
+            words, n_part, fw, s_valid), f"window_bounds n={n}")
+        for is_f in (False, True):
+            a = torch.from_numpy(rng.integers(-50, 50, n)).to(dev)
+            if is_f:
+                a = a.to(torch.float64) * 0.25
+            anm = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+            dflt = torch.from_numpy(rng.integers(-9, 9, n)).to(dev).to(
+                a.dtype)
+            dnull = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+            contrib = s_valid & ~anm
+            for func in K.WIN_FUNCS:
+                framed = func not in ("row_number", "rank", "dense_rank",
+                                      "lag", "lead")
+                frames = WIN_FRAMES if framed and n < (1 << 20) else \
+                    (WIN_FRAMES[:2] if framed else (None,))
+                table = None
+                if func in ("min", "max"):
+                    table = K.range_minmax(a, contrib, func == "min")
+                    compare_window(torch, table, K.range_minmax_plain(
+                        a, contrib, func == "min"), f"range_minmax n={n}")
+                for fr in frames:
+                    for dflt_on in ((False, True) if func in ("lag", "lead")
+                                    else (False,)):
+                        kw = dict(offset=2, scale=2, table=table)
+                        if dflt_on:
+                            kw.update(dflt_s=dflt, dnull_s=dnull,
+                                      has_default=True)
+                        args = (func, bounds, K.window_frame(fr, n_order > 0),
+                                perm, s_valid, a, anm)
+                        compare_window(
+                            torch, K.window_frame_reduce(*args, **kw),
+                            K.window_frame_reduce_plain(*args, **kw),
+                            f"window_frame_reduce {func} n={n} {fr} "
+                            f"{'f64' if is_f else 'int64'}", rtol=WIN_RTOL)
+        cnt = K.window_frame_reduce("count", bounds, K.window_frame(None, 1),
+                                    perm, s_valid)
+        compare_window(torch, cnt, K.window_frame_reduce_plain(
+            "count", bounds, K.window_frame(None, 1), perm, s_valid),
+            f"count(*) n={n}")
+    torch.cuda.synchronize()
+    say("window kernels (K13a-c) vs plain (every function and frame kind, "
+        "n = 1 to 2^20 + 3): ok")
+
+
 def compare_agg(got, want, kinds, what):
     import torch
     (gouts, gp), (wouts, wp) = got, want
@@ -830,6 +975,8 @@ def call_bytes_ops(name, a, kw, out):
         return by, mask.shape[0] * (1 + len(cols))
     if name == "fused_scan_agg":
         return fused_bytes_ops(a, out)
+    if name in WINDOW_KERNELS:
+        return window_bytes_ops(name, a, kw, out)
     raise KeyError(name)
 
 
@@ -889,6 +1036,9 @@ def compare_call(torch, K, plain, name, a, kw):
         check(torch.equal(got, want), "fused_scan_agg differs from its "
               "plain version on a main-path call")
         return 0.0
+    if name in WINDOW_KERNELS:
+        return compare_window(torch, got, want, f"{name} main path",
+                              rtol=WIN_RTOL)
     e = result_err(torch, got, want)
     check(e == 0.0, f"{name} differs from its plain version on a main-path "
           f"call (max err {e})")
@@ -934,6 +1084,9 @@ def main():
     ap.add_argument("--vectors", type=int, default=1_000_000,
                     help="rows of the vector table (default 1 M x 128, "
                     "SIFT1M's shape)")
+    ap.add_argument("--tpcds-sf", type=float, default=TPCDS_SF,
+                    help="TPC-DS scale of the generator (default 720.1: "
+                    "store_sales at its SF1 size, 2,880,400 rows)")
     ap.add_argument("--profile", action="store_true",
                     help="also split warm Q1/Q6/Q3/Q5 into session phases "
                     "and profile one of each (torch.profiler)")
@@ -967,6 +1120,7 @@ def main():
     join_kernel_check(torch, K)
     cluster_kernel_check(torch, K)
     ann_kernel_check(torch, ANN)
+    window_kernel_check(torch, K)
 
     # ---- data: all eight tables ----
     t0 = time.perf_counter()
@@ -1020,11 +1174,7 @@ def main():
     check(len(got2[3]) == 10 and len(got2[5]) == 5, "Q3/Q5 result shape")
     say(f"Q3 = numpy oracle ({len(got2[3])} rows, top revenue "
         f"{got2[3][0][1]}); Q5 = numpy oracle ({len(got2[5])} nations)")
-    cpu = LocalNode(device="cpu")
-    # the same tables (host stores, catalog, timestamps) behind a CPU
-    # buffer cache: the port's plain versions answer there
-    cpu.catalog, cpu.stores, cpu.gts = node.catalog, node.stores, node.gts
-    cs = Session(cpu)
+    cs = Session(_cpu_twin(node))
     for q in (4, 13, 22):
         want = cs.query(Q[q])
         rows_equal(got2[q], want, f"Q{q} (card vs the port on the CPU)")
@@ -1052,6 +1202,8 @@ def main():
     calls_srv, launches_srv = serving_path(torch, K, node, names, card)
     # ---- slice 5: vector search ----
     vp = vector_path(torch, K, ANN, names, card, args.vectors)
+    # ---- slice 6: TPC-DS and window functions ----
+    tp = tpcds_path(torch, K, card, args.tpcds_sf)
     # the timing and profile sections below time the eager tier, as
     # before; fused_path timed the fused tier against it
     X.Executor._fuse = False
@@ -1059,10 +1211,10 @@ def main():
     # ---- kernels against their plain versions, main-path inputs ----
     max_err = {n: 0.0 for n in names}
     for calls in (calls1, calls2, calls3, calls_q5s, calls_mesh, calls_f,
-                  calls_srv, vp["calls_k"]):
+                  calls_srv, vp["calls_k"], tp["calls"], tp["calls_c"]):
         for qcalls in calls.values():
             for n in names:
-                for a, kw in qcalls[n]:
+                for a, kw in qcalls.get(n, ()):
                     max_err[n] = max(max_err[n], compare_call(
                         torch, K, plain, n, a, kw))
     say("kernels vs plain (main-path inputs of every path): ok")
@@ -1102,7 +1254,7 @@ def main():
             f"({n_li / ms / 1e3:.1f} M lineitem rows/s) over {REPS} runs "
             f"[{card}]")
     qcalls = {**calls1, **calls2, **calls3, **calls_q5s, **calls_mesh,
-              **calls_f}
+              **calls_f, **tp["calls"]}
     records = []
     for n in names:
         src, replaces, tq = KERNEL_SOURCES[n]
@@ -1124,7 +1276,10 @@ def main():
                    "mesh_library": launches_mesh[n],
                    "fused_q1_q6_q3_q5": launches_f[n],
                    "serving": launches_srv[n],
-                   "vector": vp["launches"][n]}
+                   "vector": vp["launches"][n],
+                   "tpcds_sf1": tp["launches"][n],
+                   "tpcds_check": tp["launches_k"][n],
+                   "tpcds_cluster2": tp["launches_c"][n]}
         launches = sum(by_path.values())
         records.append({
             "name": n, "route": "cuda", "source": src, "replaces": replaces,
@@ -1142,6 +1297,7 @@ def main():
     records += vector_measure(torch, K, ANN, vp, ann_err, card,
                               profile=args.profile)
     del vp
+    window_measure(torch, K, tp, card)
     # sort at 2^20 rows, one int64 key: the kernel against torch.sort
     key = torch.from_numpy(rng.integers(-10**12, 10**12, m)).to(dev)
     allv = torch.ones(m, dtype=torch.bool, device=dev)
@@ -1482,6 +1638,14 @@ def join_shapes(torch, calls):
 def _qname(q) -> str:
     if isinstance(q, int):
         return f"Q{q}"
+    if q.startswith("dsx"):
+        return f"TPC-DS window statement {q[3:]}"
+    if q.startswith("dsc"):
+        return f"cluster TPC-DS q{q[3:]}"
+    if q.startswith("dsk"):
+        return f"TPC-DS q{q[3:]} (check load)"
+    if q.startswith("ds"):
+        return f"TPC-DS q{q[2:]}"
     if q == "mesh":
         return "parallel/mesh.py path"
     if q.startswith("f"):
@@ -2505,7 +2669,8 @@ def _library_ms(torch, K, name, calls):
     widening `.to()` of a pack-family decode; a stable torch.sort of the
     masked build keys (join_build); two torch.searchsorted (the probe's
     match ranges, without the table); index_select (compose_index);
-    `counts > 0` (semi_mask); `x[mask]` on the first column (compact).
+    `counts > 0` (semi_mask); `x[mask]` on the first column (compact);
+    torch.cumsum of the argument (window_frame_reduce's prefix sums).
     None for the others: no single call computes a visibility mask, a
     code-space compare, Q1's eleven mixed aggregates, a multi-key sort,
     a grouped aggregate, a pair expansion, an anti mask, a splitmix64
@@ -2533,11 +2698,317 @@ def _library_ms(torch, K, name, calls):
         elif name == "compact":
             # boolean-mask indexing of the first column
             fn = (lambda a=a: a[1][0][a[0]])
+        elif name == "window_frame_reduce":
+            # the prefix sum of the argument (of the validity for ranks)
+            x = a[5] if len(a) > 5 and a[5] is not None else a[4].to(
+                torch.int64)
+            fn = (lambda x=x: torch.cumsum(x, 0))
         else:
             return None
         total += time_fn(torch, fn)
     return total
 
+
+# ---------------------------------------------------------------------------
+# slice 6: TPC-DS and window functions (K13)
+# ---------------------------------------------------------------------------
+
+WINDOW_KERNELS = ("window_bounds", "window_frame_reduce", "range_minmax")
+# TPC-DS at the size of its SF1 fact table: the specification (v3.2,
+# clause 3.4, Table 3-2) gives store_sales 2,880,404 rows at SF1; the
+# repository's generator (tpcds/datagen.py: store_sales = 4000 sf) gives
+# 2,880,400 at sf 720.1
+TPCDS_SF = 720.1
+TPCDS_WINDOW = (12, 20, 44, 53, 63, 67, 89, 98)
+TPCDS_NOT_IN_SLICE = (2, 4, 5, 11, 14, 16, 18, 22, 28, 33, 36, 38, 49, 56,
+                      60, 66, 70, 71, 74, 75, 76, 77, 80, 86, 87, 94, 95)
+TPCDS_PLAIN = tuple(q for q in range(1, 100) if q not in TPCDS_WINDOW
+                    and q not in TPCDS_NOT_IN_SLICE)
+# plain queries the port on the CPU checks at SF1 (the rest in a second
+# load at a tenth of the scale)
+TPCDS_CPU_SF1 = (3, 7, 19, 42, 43, 52, 55, 96)
+# q85 joins web_returns and store_returns on the item key alone: under
+# the generator's Zipf(1.3) item skew its pairs grow with the square of
+# the scale (2^21 at sf 7.2, 2^25 at 28.8, measured on the CPU), about
+# 2e10 at sf 720.1, over 300 GB of pair indices: on the card it runs in
+# the second load only
+TPCDS_CHECK_ONLY = (85,)
+# two window statements besides the queries: a moving min / max and a lag
+# over a grouped aggregate, and rank plus a ROWS-frame min over every
+# store_sales row (K13 at the fact table's size; the 8 queries use no
+# min/max window)
+TPCDS_EXTRA = {
+    "dsx1": "select i_category, d_moy, sum(ss_ext_sales_price) rev, "
+            "min(sum(ss_ext_sales_price)) over (partition by i_category "
+            "order by d_moy rows between 2 preceding and current row) mn, "
+            "max(sum(ss_ext_sales_price)) over (partition by i_category) mx, "
+            "lag(sum(ss_ext_sales_price), 1) over (partition by i_category "
+            "order by d_moy) prev "
+            "from store_sales, item, date_dim where ss_item_sk = i_item_sk "
+            "and ss_sold_date_sk = d_date_sk and d_year = 1999 "
+            "group by i_category, d_moy order by i_category, d_moy",
+    "dsx2": "select ss_store_sk, count(*), sum(rk), sum(mn) from ("
+            "select ss_store_sk, rank() over (partition by ss_store_sk "
+            "order by ss_net_profit desc) rk, min(ss_net_profit) over "
+            "(partition by ss_store_sk order by ss_ticket, ss_item_sk rows "
+            "between 10 preceding and current row) mn from store_sales) z "
+            "where rk <= 100 group by ss_store_sk order by ss_store_sk",
+}
+TPCDS_RTOL = SUMF_RTOL       # f64 outputs: the card's atomics add in
+                             # another order than the CPU's plain sums
+
+
+def rows_close(got, want, what):
+    """Rows equal, f64 values within TPCDS_RTOL (NaN = NaN)."""
+    check(len(got) == len(want), f"{what}: {len(got)} rows, want "
+          f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(len(g) == len(w), f"{what} row {i}: arity")
+        for j, (a, b) in enumerate(zip(g, w)):
+            if isinstance(a, float) and isinstance(b, float):
+                ok = (a != a and b != b) or a == b \
+                    or abs(a - b) <= TPCDS_RTOL * abs(b)
+            else:
+                ok = a == b
+            check(ok, f"{what} row {i} col {j}: {a!r} != {b!r}")
+
+
+def _cpu_twin(node):
+    """A CPU node over the same catalog, stores and timestamps: the
+    port's plain versions answer there."""
+    from opentenbase_tpu_torch.exec.session import LocalNode
+    cpu = LocalNode(device="cpu")
+    cpu.catalog, cpu.stores, cpu.gts = node.catalog, node.stores, node.gts
+    return cpu
+
+
+def _tpcds_load(torch, sf, tables=None, cluster=False):
+    """(session, data, load s): TPC-DS at `sf` in a new LocalNode (or a
+    new Cluster(2)) on the card; prints each table's rows and seconds."""
+    from opentenbase_tpu_torch.exec.dist_session import ClusterSession
+    from opentenbase_tpu_torch.exec.session import LocalNode, Session
+    from opentenbase_tpu_torch.parallel.cluster import Cluster
+    from opentenbase_tpu_torch.tpcds import datagen
+    from opentenbase_tpu_torch.tpcds.schema import SCHEMA
+    t0 = time.perf_counter()
+    data = datagen.generate(sf=sf)
+    say(f"TPC-DS datagen sf={sf}: {time.perf_counter() - t0:.1f} s")
+    if cluster:
+        c = Cluster(n_datanodes=2)
+        check(c.device.type == DEVICE, f"cluster on {c.device}")
+        s = ClusterSession(c)
+    else:
+        node = LocalNode()
+        check(node.device.type == DEVICE, f"node on {node.device}")
+        s = Session(node)
+    s.execute(SCHEMA)
+    t_load = 0.0
+    for tname in tables or datagen.TABLES:
+        t0 = time.perf_counter()
+        if cluster:
+            datagen.load_into_cluster(s, data, (tname,))
+        else:
+            datagen.load_into(s, data, (tname,))
+        dt = time.perf_counter() - t0
+        t_load += dt
+        say(f"TPC-DS load {'Cluster(2) ' if cluster else ''}{tname}: "
+            f"{dt:.1f} s ({len(next(iter(data[tname].values())))} rows)")
+    return s, data, t_load
+
+
+def tpcds_path(torch, K, card, sf):
+    """Slice 6: TPC-DS at store_sales' SF1 size through Session.query on
+    the card's default (fused) tier: the 8 window queries, 2 more window
+    statements and the plain queries but q85, the launch counters set to 0
+    before the path and read after it (and per query), the K13 calls
+    recorded; the window statements and TPCDS_CPU_SF1 against the port
+    on the CPU over the same stores, the other plain queries the same
+    way in a second load at sf / 10; the 27 queries outside the slice
+    raise; the 8 window queries on Cluster(2) against the single node;
+    warm ms of each window query, eager against the default tier, in
+    turns, and the window queries' busy share."""
+    from opentenbase_tpu_torch.exec import executor as X, fused
+    from opentenbase_tpu_torch.exec.session import Session
+    from opentenbase_tpu_torch.tpcds.queries import Q
+    for q, sql in Q.items():
+        for pre in ("ds", "dsk", "dsc"):
+            Q_TEXT[f"{pre}{q}"] = sql
+    Q_TEXT.update(TPCDS_EXTRA)
+    X.Executor._fuse = True
+    s, data, t_load = _tpcds_load(torch, sf)
+    n_ss = len(data["store_sales"]["ss_item_sk"])
+    check(n_ss == int(round(4000 * sf)), f"store_sales has {n_ss} rows")
+    wq = [f"ds{q}" for q in TPCDS_WINDOW] + list(TPCDS_EXTRA)
+    pq = [f"ds{q}" for q in TPCDS_PLAIN if q not in TPCDS_CHECK_ONLY]
+    dec0 = fused.declines_snapshot().get("window", 0)
+    got, cold, calls, launches, per_q = run_path(torch, K, s, wq + pq,
+                                                 WINDOW_KERNELS)
+    say(f"slice 6 path launches (TPC-DS sf={sf}: {len(wq)} window "
+        f"statements + {len(pq)} plain queries): {json.dumps(launches)}")
+    for n in WINDOW_KERNELS + ("sort_rows",):
+        check(launches[n] > 0, f"kernel {n} was not launched on slice 6's "
+              "path")
+    for q in wq:
+        pl = per_q[q]
+        check(pl["window_bounds"] > 0 and pl["window_frame_reduce"] > 0
+              and pl["sort_rows"] >= pl["window_bounds"],
+              f"{_qname(q)}: its windows did not run on K10 + K13")
+        say(f"{_qname(q)}: {len(got[q])} rows, cold {cold[q]:.1f} ms; "
+            "launches " + ", ".join(f"{n} {pl[n]}" for n in
+                                    WINDOW_KERNELS + ("sort_rows",)))
+    check(fused.declines_snapshot().get("window", 0) > dec0,
+          "the fused tier did not decline a Window")
+    check(all(len(got[q]) > 0 for q in wq), "a window statement returned "
+          "no rows")
+    say("cold ms of the plain queries: " + ", ".join(
+        f"q{q[2:]} {cold[q]:.0f}" for q in pq))
+    for q in TPCDS_NOT_IN_SLICE:
+        try:
+            s.query(Q[q])
+        except NotImplementedError:
+            continue
+        raise SmokeFailure(f"TPC-DS q{q} is outside the slice and ran")
+    say(f"the {len(TPCDS_NOT_IN_SLICE)} queries outside the slice raise "
+        "NotImplementedError")
+    # the port on the CPU over the same stores
+    cs_cpu = Session(_cpu_twin(s.node))
+    t0 = time.perf_counter()
+    for q in wq + [f"ds{q}" for q in TPCDS_CPU_SF1]:
+        rows_close(got[q], cs_cpu.query(Q_TEXT[q]),
+                   f"{_qname(q)} (card vs the port on the CPU)")
+    say(f"{len(wq) + len(TPCDS_CPU_SF1)} statements at sf={sf} on the card "
+        f"= the port on the CPU ({time.perf_counter() - t0:.1f} s)")
+    # the other plain queries at a tenth of the scale: card against CPU
+    check_sf = round(sf / 10, 6)
+    sk, _dk, t_load_k = _tpcds_load(torch, check_sf)
+    kq = [f"dsk{q}" for q in TPCDS_PLAIN if q not in TPCDS_CPU_SF1]
+    got_k, _cold, _calls, launches_k, _pq = run_path(torch, K, sk, kq,
+                                                     WINDOW_KERNELS)
+    ck_cpu = Session(_cpu_twin(sk.node))
+    t0 = time.perf_counter()
+    for q in kq:
+        rows_close(got_k[q], ck_cpu.query(Q_TEXT[q]),
+                   f"{_qname(q)} (card vs the port on the CPU)")
+    say(f"{len(kq)} plain queries at sf={check_sf} on the card = the port "
+        f"on the CPU ({time.perf_counter() - t0:.1f} s)")
+    del sk, ck_cpu, got_k
+    # the window queries on Cluster(2), against the single node
+    tables = ("date_dim", "item", "store", "store_sales", "catalog_sales",
+              "web_sales")
+    cs, _dc, t_load_c = _tpcds_load(torch, sf, tables, cluster=True)
+    cq = [f"dsc{q}" for q in TPCDS_WINDOW]
+    got_c, _cold, calls_c, launches_c, per_qc = run_path(
+        torch, K, cs, cq, WINDOW_KERNELS)
+    for q in TPCDS_WINDOW:
+        rows_close(got_c[f"dsc{q}"], got[f"ds{q}"],
+                   f"cluster TPC-DS q{q} vs the single node")
+        check(per_qc[f"dsc{q}"]["window_bounds"] > 0,
+              f"cluster TPC-DS q{q}: no window kernel launched")
+    check(cs.tier_counts.get("mesh", 0) >= len(cq) and cs.fallbacks == [],
+          "a cluster TPC-DS query left the device tier")
+    say(f"the {len(cq)} window queries on Cluster(2) (device tier) = the "
+        f"single node; launches {json.dumps(launches_c)}")
+    del cs
+    # warm ms, eager tier against the default tier, in turns
+    warm = {}
+    for q in TPCDS_WINDOW:
+        ms = {True: [], False: []}
+        for r in range(REPS):
+            for fuse in ((False, True) if r % 2 == 0 else (True, False)):
+                X.Executor._fuse = fuse
+                ms[fuse].append(_wall(torch, lambda: s.query(Q[q])))
+        warm[q] = (statistics.median(ms[False]), statistics.median(ms[True]))
+        say(f"TPC-DS q{q} warm median: eager {warm[q][0]:.3f} ms, default "
+            f"(fused) tier {warm[q][1]:.3f} ms, {REPS} a side in turns "
+            f"[{card}]")
+    X.Executor._fuse = True
+    # the profiler's first window in a process carries its start-up on the
+    # host clock, not on the device's: discard one window
+    busy_share(torch, lambda: s.query(Q[TPCDS_WINDOW[0]]))
+    wall, busy = busy_share(torch, lambda: [s.query(Q[q])
+                                            for q in TPCDS_WINDOW])
+    say(f"window queries' busy share (the 8, warm, default tier): device "
+        f"{busy:.3f} ms of {wall:.3f} ms wall ({100 * busy / wall:.1f}%) "
+        f"[{card}]")
+    return {"session": s, "calls": calls, "calls_c": calls_c,
+            "launches": launches, "launches_k": launches_k,
+            "launches_c": launches_c, "per_q": per_q,
+            "load_s": t_load + t_load_k + t_load_c}
+
+
+def window_measure(torch, K, tp, card):
+    """Each K13 kernel's device ms and bound summed over each window
+    statement's calls, with its launches on that statement."""
+    for q, qcalls in tp["calls"].items():
+        if not any(qcalls[n] for n in WINDOW_KERNELS):
+            continue
+        parts = []
+        for n in WINDOW_KERNELS:
+            ms = by = 0.0
+            for a, kw in qcalls[n]:
+                out = getattr(K, n)(*a, **kw)
+                ms += time_fn(torch, lambda: getattr(K, n)(*a, **kw), reps=5)
+                by += window_bytes_ops(n, a, kw, out)[0]
+            parts.append(f"{n} {ms:.4f} ms (bound "
+                         f"{by / HBM_BYTES_PER_S * 1e3:.4f}, "
+                         f"{tp['per_q'][q][n]} launches)")
+        say(f"K13 on {_qname(q)}: " + "; ".join(parts) + f" [{card}]")
+
+
+_WFR_PARAMS = ("func", "bounds", "frame", "s_iota", "s_valid", "a_s",
+               "anm_s", "offset", "dflt_s", "dnull_s", "has_default",
+               "scale", "table")   # window_frame_reduce's parameters
+
+
+def window_bytes_ops(name, a, kw, out):
+    """(bytes: each input the function reads read once, each output
+    written once; ops) of one K13 call."""
+    if name == "window_bounds":
+        # word 0 (~valid) is never compared: the key words and s_valid
+        # read, the five bounds written
+        words, _np, _fw, s_valid = a
+        w, n = words.shape
+        return (w - 1) * 8 * n + nbytes(s_valid) + 5 * 8 * n, n * (w + 12)
+    if name == "range_minmax":
+        a_s, contrib = a[0], a[1]
+        return nbytes(a_s) + nbytes(contrib) + nbytes(out), out.numel()
+    # window_frame_reduce: s_iota, p_start and what the function and its
+    # frame read; min / max read two words of the sparse table a row
+    from opentenbase_tpu_torch.ops.kernels import WIN_BOUNDS
+    p = dict(zip(_WFR_PARAMS, a))
+    p.update(kw)
+    func, s_iota, s_valid = p["func"], p["s_iota"], p["s_valid"]
+    a_s, anm_s = p.get("a_s"), p.get("anm_s")
+    p_start, peer_start, peer_end_v, p_end, ob_cum = p["bounds"]
+    n = s_iota.shape[0]
+    ins = [s_iota, p_start]
+    extra = 0
+    if func == "rank":
+        ins.append(peer_start)
+    elif func == "dense_rank":
+        ins.append(ob_cum)
+    elif func in ("lag", "lead"):
+        ins += [s_valid, a_s, anm_s]
+        if p.get("has_default"):
+            ins += [p.get("dflt_s"), p.get("dnull_s")]
+    elif func != "row_number":
+        mode, sbk, _so, ebk, _eo, has_order = p["frame"]
+        ins += [p_end, s_valid, anm_s]
+        if mode == 0 and has_order:
+            ins.append(peer_end_v)
+        elif mode == 2:
+            if sbk != WIN_BOUNDS["unbounded_preceding"]:
+                ins.append(peer_start)
+            if ebk != WIN_BOUNDS["unbounded_following"]:
+                ins.append(peer_end_v)
+        if func in ("min", "max"):
+            extra = 2 * n * p["table"].element_size()
+        elif func != "count":
+            ins.append(a_s)
+    val, nul = out
+    by = sum(nbytes(t) for t in ins if t is not None) + extra \
+        + nbytes(val) + (nbytes(nul) if nul is not None else 0)
+    return by, 12 * n
 
 if __name__ == "__main__":
     try:

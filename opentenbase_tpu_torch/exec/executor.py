@@ -49,10 +49,12 @@ fused tier's program hits on join fragments (`fused_join_hits`).
 AnnSearch (ORDER BY vec <-> q LIMIT k) runs exact or IVF top-k through
 the K15 kernels of ops/ann.py, eagerly.
 
-Still raising NotImplementedError: DISTINCT aggregates, window
-functions, set operations, Append, btree index scans, HNSW search, and
-the reference's morsel / spill / work-sharing tiers.  Nothing is done
-another way.
+Window functions (K13) sort each (partition, order) spec with K10 and
+run the ops/kernels.py window kernels over the sorted rows.
+
+Still raising NotImplementedError: DISTINCT aggregates, set operations,
+Append, btree index scans, HNSW search, and the reference's morsel /
+spill / work-sharing tiers.  Nothing is done another way.
 """
 
 from __future__ import annotations
@@ -388,7 +390,7 @@ class Executor:
 
     # ------------------------------------------------------------------
     def exec_node(self, node: P.PhysNode) -> DBatch:
-        """Run one plan node; a node type of a later slice (window, set
+        """Run one plan node; a node type of a later slice (set
         operations, Append, index scans) is not yet ported."""
         if not self._traced and self._fuse:
             from .fused import try_fused
@@ -1271,6 +1273,169 @@ class Executor:
                                          key_dicts, outs, out_specs,
                                          out_valid, gkey_nulls)
 
+    # ---- window functions (K13) ----
+    def _win_key(self, e: E.Expr, b: DBatch, for_order: bool):
+        """Sortable key + null mask for a window partition/order
+        expression (reference: executor.py:1499).  The caller adds the
+        null mask as its OWN sort/grouping key, so NULL never collides
+        with +inf/INT64_MAX values (NULL is a distinct peer group)."""
+        arr, nm = self._eval_pair(e, b)
+        if arr.dim() == 0:   # constant key: broadcast
+            arr = arr.expand(b.padded)
+        d = _dict_for_expr(e, b.dicts)
+        if d is not None and for_order:
+            # dictionary codes are unordered: map code -> rank
+            rank, _order = _text_ranks(d, self.device)
+            arr = rank[torch.clamp(arr.to(torch.int64), 0, len(d) - 1)]
+        if arr.dtype == torch.bool:
+            arr = arr.to(torch.int32)
+        if not arr.dtype.is_floating_point:
+            arr = arr.to(torch.int64)
+        if nm is not None:
+            # canonicalize the value under NULL so grouping is stable
+            arr = torch.where(nm, torch.zeros((), dtype=arr.dtype,
+                                              device=arr.device), arr)
+        return arr, nm
+
+    def _win_arg(self, e: E.Expr, b: DBatch, s_iota):
+        """(sorted argument as int64 / float64, its sorted null mask,
+        the argument's own dtype)."""
+        a, anm = self._eval_pair(e, b)
+        if a.dim() == 0:
+            a = a.expand(b.padded)
+        dtype = a.dtype
+        a_s = a.index_select(0, s_iota)
+        a_s = a_s.to(torch.float64 if dtype.is_floating_point
+                     else torch.int64)
+        anm_s = anm.index_select(0, s_iota) if anm is not None else None
+        return a_s, anm_s, dtype
+
+    def _exec_window(self, node: P.Window) -> DBatch:
+        """Sorted-partition window computation (reference: executor.py
+        :1523; nodeWindowAgg.c): one K10 sort per distinct (partition,
+        order) spec, K13a partition/peer bounds over the sorted rows,
+        then one K13b launch per call (its frames, its function and the
+        scatter back to input row order); min/max read K13c's sparse
+        table."""
+        b = self.exec_node(node.child).ensure_all()
+        new_cols: dict = {}
+        new_nulls: dict = {}
+        new_dicts: dict = {}
+        specs: dict = {}
+        for name, wc in node.calls:
+            specs.setdefault((wc.partition, wc.order), []).append(
+                (name, wc))
+        for (part, order), calls in specs.items():
+            keys, descs = [], []
+            for pe in part:
+                arr, nm = self._win_key(pe, b, for_order=False)
+                if nm is not None:
+                    keys.append(nm.to(torch.int64))
+                    descs.append(False)
+                keys.append(arr)
+                descs.append(False)
+            n_part = len(keys)
+            for oe, desc in order:
+                arr, nm = self._win_key(oe, b, for_order=True)
+                if nm is not None:
+                    # NULLS LAST asc / FIRST desc, as a separate key so
+                    # NULL stays a distinct peer group
+                    keys.append(nm.to(torch.int64))
+                    descs.append(bool(desc))
+                keys.append(arr)
+                descs.append(bool(desc))
+            # K10: the input index is the last key (the sort is stable)
+            words = K.order_words(tuple(keys), b.valid, tuple(descs))
+            s_iota = K.sort_perm(words)
+            s_valid = b.valid.index_select(0, s_iota)
+            float_words = tuple(1 + j for j, k in enumerate(keys)
+                                if k.dtype.is_floating_point)
+            bounds = K.window_bounds(
+                words.index_select(1, s_iota).contiguous(), n_part,
+                float_words, s_valid)
+            for name, wc in calls:
+                val, nul, d = self._window_call(wc, b, bool(order), bounds,
+                                                s_iota, s_valid)
+                new_cols[name] = val
+                if nul is not None:
+                    new_nulls[name] = nul
+                if d is not None:   # TEXT results keep their decode
+                    new_dicts[name] = d
+        cols = dict(b.cols)
+        cols.update(new_cols)
+        types = dict(b.types)
+        for name, wc in node.calls:
+            types[name] = wc.type
+        nulls = dict(b.nulls)
+        nulls.update(new_nulls)
+        dicts = dict(b.dicts)
+        dicts.update(new_dicts)
+        return DBatch(cols, b.valid, types, dicts, nulls)
+
+    def _window_call(self, wc: E.WindowCall, b: DBatch, has_order: bool,
+                     bounds, s_iota, s_valid):
+        """One window call over its spec's sorted rows: (values, null
+        mask or None, TEXT dictionary or None), in input row order."""
+        f = wc.func
+        if f in ("row_number", "rank", "dense_rank"):
+            val, _ = K.window_frame_reduce(f, bounds, None, s_iota, s_valid)
+            return val, None, None
+        a_s = anm_s = dtype = d = None
+        if wc.arg is not None:
+            a_s, anm_s, dtype = self._win_arg(wc.arg, b, s_iota)
+            d = _dict_for_expr(wc.arg, b.dicts)
+        if f in ("lag", "lead"):
+            # ROW offset within the partition; the default fills only
+            # out-of-partition offsets and evaluates in INPUT row order
+            # (re-sorted here), a NULL source value stays NULL
+            dflt_s = dnull_s = None
+            if wc.default is not None:
+                dv, dnm = self._eval_pair(wc.default, b)
+                dv = dv.to(dtype).to(a_s.dtype)
+                dflt_s = dv.expand(b.padded).index_select(0, s_iota) \
+                    if dv.dim() == 0 else dv.index_select(0, s_iota)
+                if dnm is not None:
+                    dnull_s = dnm.index_select(0, s_iota)
+            val, nul = K.window_frame_reduce(
+                f, bounds, None, s_iota, s_valid, a_s, anm_s,
+                offset=wc.offset, dflt_s=dflt_s, dnull_s=dnull_s,
+                has_default=wc.default is not None)
+            return val.to(dtype), nul, d
+        frame = K.window_frame(wc.frame, has_order)
+        if f in ("min", "max"):
+            if d is not None:
+                # dictionary codes are unordered: reduce over
+                # lexicographic ranks, then map the winning rank back
+                rank, order = _text_ranks(d, self.device)
+                ranked = rank[torch.clamp(a_s, 0, len(d) - 1)]
+                table = self._range_minmax(ranked, s_valid, anm_s, f)
+                rr, nul = K.window_frame_reduce(
+                    f, bounds, frame, s_iota, s_valid, ranked, anm_s,
+                    table=table)
+                return order[torch.clamp(rr, 0, len(d) - 1)].to(
+                    torch.int32), nul, d
+            table = self._range_minmax(a_s, s_valid, anm_s, f)
+            val, nul = K.window_frame_reduce(f, bounds, frame, s_iota,
+                                             s_valid, a_s, anm_s,
+                                             table=table)
+            return val.to(dtype), nul, None
+        if f not in ("count", "sum", "avg", "first_value", "last_value"):
+            raise ExecError(f"window function {f} unsupported")
+        scale = wc.arg.type.scale if f == "avg" and \
+            wc.arg.type.kind == TypeKind.DECIMAL else 0
+        val, nul = K.window_frame_reduce(f, bounds, frame, s_iota, s_valid,
+                                         a_s, anm_s, scale=scale)
+        if f in ("first_value", "last_value"):
+            return val.to(dtype), nul, d
+        return val, nul, None
+
+    @staticmethod
+    def _range_minmax(a_s, s_valid, anm_s, func: str):
+        """K13c: the min/max sparse table over the contributing rows
+        (reference: executor.py:1765)."""
+        contrib = s_valid if anm_s is None else (s_valid & ~anm_s)
+        return K.range_minmax(a_s, contrib, func == "min")
+
     # ---- sort / limit ----
     def _exec_sort(self, node: P.Sort) -> DBatch:
         # width-consuming: every carried column rides the sort payload
@@ -1281,11 +1446,8 @@ class Executor:
             d = _dict_for_expr(ke, b.dicts)
             if d is not None:
                 # dictionary codes are unordered: map code -> rank
-                order = np.argsort(np.asarray(d, dtype=object))
-                rank = np.empty(max(len(d), 1), dtype=np.int32)
-                rank[order] = np.arange(len(d), dtype=np.int32)
-                arr = device_const(rank, self.device)[
-                    torch.clamp(arr, 0, len(d) - 1).to(torch.int64)]
+                rank, _order = _text_ranks(d, self.device)
+                arr = rank[torch.clamp(arr, 0, len(d) - 1).to(torch.int64)]
             if nm is not None:
                 # NULLs sort as +infinity: last under ASC, first under
                 # DESC — PostgreSQL's default NULLS LAST/FIRST pairing
@@ -1387,6 +1549,34 @@ def _dict_for_expr(e: E.Expr, dicts: dict):
         from .expr_compile import case_text_dict
         return case_text_dict(e)
     return None
+
+
+#: TEXT dictionary -> (code -> lexicographic rank, rank -> code) for
+#: ORDER BY and window keys, the port's own cache (the reference rebuilds
+#: them per call); the entry holds its dictionary, so the id stays its
+#: own while cached, and the length keys appends.
+_RANKS: dict = {}           # guarded_by: _RANKS_LOCK
+_RANKS_LOCK = threading.Lock()
+_RANKS_MAX = 256
+
+
+def _text_ranks(d: list, device):
+    """(rank, order) int64 tensors on `device` of dictionary `d`: rank
+    maps a code to its string's lexicographic rank, order a rank back
+    to its code."""
+    key = (id(d), len(d))
+    with _RANKS_LOCK:
+        hit = _RANKS.get(key)
+    if hit is None or hit[0] is not d:
+        order = np.argsort(np.asarray(d, dtype=object))
+        rank = np.empty(max(len(d), 1), dtype=np.int64)
+        rank[order] = np.arange(len(d), dtype=np.int64)
+        hit = (d, rank, np.asarray(order, dtype=np.int64))
+        with _RANKS_LOCK:
+            _RANKS[key] = hit
+            while len(_RANKS) > _RANKS_MAX:
+                _RANKS.pop(next(iter(_RANKS)))
+    return device_const(hit[1], device), device_const(hit[2], device)
 
 
 def _host(t) -> np.ndarray:

@@ -290,12 +290,25 @@ def _mask_node(node, lits: list):
     return node
 
 
+def _has_window(node) -> bool:
+    if isinstance(node, P.Window):
+        return True
+    if isinstance(node, (P.Filter, P.Project, P.Sort, P.Limit, P.Agg)):
+        return _has_window(node.child)
+    if isinstance(node, P.HashJoin):
+        return _has_window(node.left) or _has_window(node.right)
+    return False
+
+
 def _screen_fragment(ctx, node):
     """(scans, stores) when `node` is a fragment over live SeqScan leaves
     that can run as one program, else None (the reason counted)."""
     if isinstance(node, P.AnnSearch):
         # the reference's screens take no AnnSearch (_key_of has no case)
         return _decline("ann_search")
+    if _has_window(node):
+        # nor a Window: the subtree below it is offered on its own
+        return _decline("window")
     if not isinstance(node, (P.Agg, P.Project, P.Filter, P.Sort,
                              P.Limit, P.HashJoin)):
         return None   # a bare SeqScan gains nothing

@@ -37,9 +37,11 @@ repeat stages nothing; any write on any DataNode restages it).  Not
 ported: the append-only tail path (_stage_incremental).
 
 A plan the tier cannot carry raises NotImplementedError (MeshUnsupported)
-instead of falling back to the host tier, in whole or in part: where
+instead of falling back to the host tier, in whole or in part.  Where
 the reference runs a fragment over a gathered input on its host tier
-and the rest on the mesh, the port raises.
+and the rest on the mesh, the port runs that fragment once on the card
+over the gathered rows when it reads no table and hands its rows back to
+the DataNodes (K11 + K12); any other such plan raises.
 """
 
 from __future__ import annotations
@@ -140,9 +142,10 @@ class MeshRunner:
     # ------------------------------------------------------------------
     # plan screening
     # ------------------------------------------------------------------
-    def _screen(self, dp: DistPlan) -> None:
+    def _screen(self, dp: DistPlan) -> set:
         """Validate the plan: every fragment but the coordinator's runs
-        on the DataNodes over device-resident inputs."""
+        on the DataNodes over device-resident inputs, or once over
+        gathered rows (the indices returned)."""
         if dp.fqs_node is not None:
             raise MeshUnsupported("a fast-query-shipping plan")
         for ex in dp.exchanges:
@@ -152,19 +155,24 @@ class MeshRunner:
             for k in ex.keys or []:
                 if not isinstance(k, (E.Col, E.TextExpr)):
                     raise MeshUnsupported("a non-column exchange key")
-        self._check_fragments(dp)
+        once = self._check_fragments(dp)
         for frag in dp.fragments:
             if frag.index != dp.top_fragment:
                 self._screen_node(frag.plan)
+        return once
 
-    def _check_fragments(self, dp) -> None:
-        """The reference runs a fragment that consumes a gather (a
-        coordinator-side combine feeding the DataNodes again) on its
-        host tier and the rest of the plan on the mesh; the port has no
-        such split, so that plan raises.  The coordinator's fragment
-        must consume a gather of a DataNode fragment."""
+    def _check_fragments(self, dp) -> set:
+        """The coordinator's fragment must consume gathers of DataNode
+        fragments.  A fragment that consumes a gather and hands its rows
+        back to the DataNodes (a window over all rows feeding a join,
+        e.g. TPC-DS q44) runs ONCE, on the card, over the gathered rows,
+        and K11 + K12 route its output on (the reference runs such
+        fragments on its host tier, the rest on the mesh).  It reads
+        gathers only and no table; any other fragment over a gather
+        raises.  Returns the indices of the fragments that run once."""
         gathers = {ex.index for ex in dp.exchanges
                    if ex.kind in ("gather", "gather_one")}
+        once: set = set()
         for frag in dp.fragments:
             refs = {n.index for n in self._walk(frag.plan)
                     if isinstance(n, ExchangeRef)}
@@ -172,12 +180,22 @@ class MeshRunner:
                 if refs - gathers:
                     raise MeshUnsupported("a coordinator fragment over a "
                                           "DataNode-side exchange")
-            elif refs & gathers:
+                continue
+            fed = refs & gathers
+            if not fed:
+                continue
+            routed = all(ex.kind in ("redistribute", "broadcast")
+                         for ex in dp.exchanges
+                         if ex.source_fragment == frag.index)
+            if fed != refs or not routed or any(
+                    isinstance(n, P.SeqScan) for n in self._walk(frag.plan)):
                 raise MeshUnsupported("a DataNode fragment over a gathered "
                                       "input")
+            once.add(frag.index)
         if not gathers:
             raise MeshUnsupported("a plan without a gather to the "
                                   "coordinator")
+        return once
 
     @staticmethod
     def _walk(node):
@@ -511,7 +529,7 @@ class MeshRunner:
             params: dict) -> dict:
         """Execute every DataNode fragment of `dp` and its exchanges;
         returns {gather exchange index: the coordinator's input}."""
-        self._screen(dp)
+        once = self._screen(dp)
         tables = set()
         for frag in dp.fragments:
             if frag.index != dp.top_fragment:
@@ -536,9 +554,11 @@ class MeshRunner:
             only_one = consumers and all(ex.kind == "gather_one"
                                          for ex in consumers)
             outs = []
-            for d in ([0] if only_one else range(ndn)):
+            for d in ([0] if only_one or frag.index in once
+                      else range(ndn)):
                 plan = self._bind(frag.plan, {i: bs[d] for i, bs
-                                              in ex_batches.items()})
+                                              in ex_batches.items()}
+                                  if frag.index not in once else gathered)
                 ctx = ExecContext(views, snapshot_ts, txid,
                                   self.cluster.pool, params=dict(params),
                                   staged=shards[d])

@@ -27,6 +27,7 @@ CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_D = ctypes.c_double
 #: C entry points: name -> argtypes (every one but those in RESTYPES
 #: returns cudaGetLastError() as an int)
 SIGNATURES = {
@@ -65,6 +66,11 @@ SIGNATURES = {
     "otbt_ann_topk": [_P, _P, _LL, _I, _P, _P, _P, _P],
     "otbt_ann_assign": [_P, _LL, _P, _I, _I, _I, _P, _P, _P],
     "otbt_ann_lloyd_update": [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _P],
+    "otbt_window_bounds": [_P, _I, _I, _LL, _LL] + [_P] * 12,
+    "otbt_window_frame_reduce": [_I, _LL] + [_P] * 8 + [_I, _P, _LL, _P, _P,
+                                 _I, _D, _P] + [_I] * 3 + [_LL, _I, _LL, _I]
+                                + [_P] * 6,
+    "otbt_range_minmax": [_P, _I, _P, _LL, _I, _I, _P, _P],
 }
 RESTYPES = {"otbt_scan_tiles": _LL, "otbt_exchange_tiles": _LL,
             "otbt_exchange_max_dn": _LL, "otbt_ann_topk_scratch": _LL}

@@ -46,7 +46,9 @@ LAUNCHES = {"visibility_mask": 0, "decode_column": 0, "cmp_on_codes": 0,
             "hash_columns": 0, "bucket_ids": 0, "route_dest": 0,
             "exchange": 0, "compact": 0, "fused_scan_agg": 0,
             "ann_distances": 0, "ann_topk": 0, "ann_assign": 0,
-            "ann_lloyd_update": 0, "ann_probe_scan": 0}
+            "ann_lloyd_update": 0, "ann_probe_scan": 0,
+            "window_bounds": 0, "window_frame_reduce": 0,
+            "range_minmax": 0}
 _LAUNCH_LOCK = threading.Lock()
 _CAPTURE = threading.local()
 
@@ -1625,3 +1627,339 @@ def fused_scan_agg(spec: ScanAggSpec, cols, n_rows: int, lits, snaps, txids,
     _ok(rc, "fused_scan_agg")
     _count("fused_scan_agg")
     return ws
+
+
+# ---------------------------------------------------------------------------
+# K13 window functions (reference: exec/executor.py:1523 _exec_window,
+# :1733 _frame_bounds, :1765 _range_minmax).  The sort is K10's
+# (order_words + sort_perm); these three kernels run on the sorted rows.
+# ---------------------------------------------------------------------------
+
+#: K13b function codes (csrc/window.cu enum Func)
+WIN_FUNCS = {name: i for i, name in enumerate((
+    "row_number", "rank", "dense_rank", "lag", "lead", "count", "sum",
+    "avg", "first_value", "last_value", "min", "max"))}
+#: frame bound kinds (csrc/window.cu enum Bound)
+WIN_BOUNDS = {name: i for i, name in enumerate((
+    "unbounded_preceding", "preceding", "current", "following",
+    "unbounded_following"))}
+_WIN_TILE = 1024          # csrc/window.cu kTile: rows per scan tile
+_INF_WORD = 0x7FF0000000000000   # _float_word(+inf); a NaN's word is above
+
+
+def window_frame(frame, has_order: bool) -> tuple:
+    """(mode, start kind, start offset, end kind, end offset, has_order)
+    of a WindowCall frame: mode 0 is the default frame, 1 ROWS, 2 RANGE
+    (only unbounded / current-row bounds, as the reference reads it)."""
+    if frame is None:
+        return (0, 0, 0, 0, 0, int(has_order))
+    mode, (sk, so), (ek, eo) = frame
+    return (1 if mode == "rows" else 2, WIN_BOUNDS[sk], int(so or 0),
+            WIN_BOUNDS[ek], int(eo or 0), int(has_order))
+
+
+def window_bounds_plain(words, n_part: int, float_words: tuple, s_valid):
+    """Partition and peer bounds of sorted rows.  words: the sorted
+    order words [w, n] (order_words rows: ~valid, then n_part partition
+    words, then the order words); float_words: the rows that hold float
+    keys (a NaN is never its neighbour's peer, as in the reference's
+    float compare); s_valid: the sorted validity.  Returns (p_start,
+    peer_start, peer_end_v, p_end, ob_cum), int64 [n]: p_end is the last
+    valid row of the partition (-1 if none), peer_end_v the peer group's
+    last row clipped to it, ob_cum the inclusive count of order
+    boundaries."""
+    w, n = words.shape
+    iota = torch.arange(n, dtype=torch.int64, device=words.device)
+    p_bound = iota == 0
+    o_bound = p_bound.clone()
+    for r in range(1, w):
+        x = words[r]
+        d = x != torch.roll(x, 1)
+        if r in float_words:
+            d = d | (x > _INF_WORD)
+        if r <= n_part:
+            p_bound = p_bound | d
+        else:
+            o_bound = o_bound | d
+    o_bound = o_bound | p_bound
+    zero = torch.zeros((), dtype=torch.int64, device=words.device)
+    p_start = torch.cummax(torch.where(p_bound, iota, zero), 0).values
+    peer_start = torch.cummax(torch.where(o_bound, iota, zero), 0).values
+    ob_cum = torch.cumsum(o_bound.to(torch.int64), 0)
+    end = torch.full((1,), n, dtype=torch.int64, device=words.device)
+
+    def next_bound(flag):
+        nb = torch.where(flag, iota, torch.full_like(iota, n))
+        nxt = torch.flip(torch.cummin(torch.flip(nb, (0,)), 0).values, (0,))
+        return torch.cat([nxt[1:], end]) - 1
+
+    peer_end = next_bound(o_bound)
+    part_last = next_bound(p_bound)
+    gv = torch.cummax(torch.where(s_valid, iota, torch.full_like(iota, -1)),
+                      0).values[part_last]
+    p_end = torch.where(gv >= p_start, gv, torch.full_like(gv, -1))
+    return p_start, peer_start, torch.minimum(peer_end, p_end), p_end, ob_cum
+
+
+def window_bounds(words, n_part: int, float_words: tuple, s_valid):
+    """K13a (csrc/window.cu): window_bounds_plain's outputs from the
+    neighbour-compare flags and six block scans (four forward, two
+    backward)."""
+    if _on_cpu(words, s_valid):
+        return window_bounds_plain(words, n_part, float_words, s_valid)
+    if words.dtype != torch.int64 or words.dim() != 2 \
+            or not words.is_contiguous():
+        raise ValueError("words: want a contiguous [w, n] int64 tensor")
+    w, n = words.shape
+    _check(s_valid, "s_valid", (torch.bool,), n)
+    if n < 1 or not 0 <= n_part < w or w > 64:
+        raise ValueError(f"window_bounds: n={n}, n_part={n_part}, w={w}")
+    mask = 0
+    for r in float_words:
+        mask |= 1 << r
+    if mask >= 1 << 63:
+        mask -= 1 << 64
+    dev = words.device
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    tmp = torch.empty((3, n), dtype=torch.int64, device=dev)
+    tiles = torch.empty(max((n + _WIN_TILE - 1) // _WIN_TILE, 1),
+                        dtype=torch.int64, device=dev)
+    outs = torch.empty((5, n), dtype=torch.int64, device=dev)
+    rc = _lib().otbt_window_bounds(
+        _ptr(words), w, n_part, mask, n, _ptr(s_valid), _ptr(flags),
+        _ptr(tmp[0]), _ptr(tmp[1]), _ptr(tmp[2]), _ptr(tiles),
+        *(_ptr(o) for o in outs), _stream())
+    _ok(rc, "window_bounds")
+    _count("window_bounds")
+    return tuple(outs)
+
+
+def _frame_plain(frame, iota, p_start, p_end, peer_start, peer_end_v):
+    """Per-row inclusive [fs, fe] of a window_frame() code (reference
+    _frame_bounds)."""
+    mode, sbk, so, ebk, eo, has_order = frame
+    if mode == 0:
+        return (p_start, peer_end_v) if has_order else (p_start, p_end)
+    if mode == 1:
+        def rows_bound(kind, k):
+            return (p_start, iota - k, iota, iota + k, p_end)[kind]
+        return (torch.maximum(rows_bound(sbk, so), p_start),
+                torch.minimum(rows_bound(ebk, eo), p_end))
+    fs = p_start if sbk == WIN_BOUNDS["unbounded_preceding"] else peer_start
+    fe = p_end if ebk == WIN_BOUNDS["unbounded_following"] else peer_end_v
+    return fs, fe
+
+
+def _minmax_plain(lo, hi, is_min: bool):
+    return torch.minimum(lo, hi) if is_min else torch.maximum(lo, hi)
+
+
+def window_frame_reduce_plain(func: str, bounds, frame, s_iota, s_valid,
+                              a_s=None, anm_s=None, offset: int = 1,
+                              dflt_s=None, dnull_s=None,
+                              has_default: bool = False, scale: int = 0,
+                              table=None):
+    """One window function over sorted rows, scattered back to input
+    order by s_iota.  bounds: window_bounds' outputs; frame: a
+    window_frame() code (frame functions only); a_s: the sorted argument
+    (int64 or float64) and anm_s its null mask; lag/lead take offset and
+    (has_default) the sorted default dflt_s with its null mask dnull_s;
+    avg divides by 10**scale; min/max read `table`, range_minmax's sparse
+    table.  Returns (values, null mask or None), both in input order."""
+    p_start, peer_start, peer_end_v, p_end, ob_cum = bounds
+    n = s_iota.shape[0]
+    dev = s_iota.device
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    nul = None
+    if func == "row_number":
+        res = iota - p_start + 1
+    elif func == "rank":
+        res = peer_start - p_start + 1
+    elif func == "dense_rank":
+        res = ob_cum - ob_cum[p_start] + 1
+    elif func in ("lag", "lead"):
+        src = iota - offset if func == "lag" else iota + offset
+        srcc = torch.clamp(src, 0, n - 1)
+        inside = (src >= 0) & (src < n) & (p_start[srcc] == p_start) \
+            & s_valid[srcc]
+        res = a_s[srcc]
+        src_null = anm_s[srcc] if anm_s is not None else \
+            torch.zeros(n, dtype=torch.bool, device=dev)
+        if has_default:
+            res = torch.where(inside, res, dflt_s)
+            nul = inside & src_null
+            if dnull_s is not None:
+                nul = nul | (~inside & dnull_s)
+        else:
+            nul = ~inside | src_null
+    else:
+        contrib = s_valid if anm_s is None else (s_valid & ~anm_s)
+        fs, fe = _frame_plain(frame, iota, p_start, p_end, peer_start,
+                              peer_end_v)
+        fsc = torch.clamp(fs, 0, n - 1)
+        fec = torch.clamp(fe, 0, n - 1)
+        empty = (fe < fs) | ~s_valid
+        cvals = contrib.to(torch.int64)
+        ccum = torch.cumsum(cvals, 0)
+        rcount = torch.where(empty, torch.zeros_like(ccum),
+                             ccum[fec] - (ccum - cvals)[fsc])
+        if func == "count":
+            res = rcount
+        elif func in ("first_value", "last_value"):
+            pos = fsc if func == "first_value" else fec
+            res = a_s[pos]
+            nul = empty if anm_s is None else (empty | anm_s[pos])
+        elif func in ("min", "max"):
+            levels = table.shape[0]
+            length = torch.clamp(fec - fsc + 1, min=1)
+            j = torch.clamp(63 - _clz64(length), 0, levels - 1)
+            span = torch.ones_like(j) << j
+            lo = table[j, fsc]
+            hi = table[j, torch.clamp(fec - span + 1, min=0)]
+            res = _minmax_plain(lo, hi, func == "min")
+            nul = rcount == 0
+        elif func in ("sum", "avg"):
+            av = a_s.to(torch.float64) if func == "avg" else a_s
+            av = torch.where(contrib, av, torch.zeros((), dtype=av.dtype,
+                                                      device=dev))
+            scum = torch.cumsum(av, 0)
+            rsum = torch.where(empty, torch.zeros((), dtype=av.dtype,
+                                                  device=dev),
+                               scum[fec] - (scum - av)[fsc])
+            if func == "avg":
+                res = torch.where(
+                    rcount > 0,
+                    rsum / torch.clamp(rcount, min=1) / float(10 ** scale),
+                    torch.zeros((), dtype=torch.float64, device=dev))
+            else:
+                res = rsum
+            nul = rcount == 0
+        else:
+            raise ValueError(f"window function {func} unsupported")
+    out = torch.empty_like(res).index_put_((s_iota,), res)
+    if nul is not None:
+        nul = torch.empty_like(nul).index_put_((s_iota,), nul)
+    return out, nul
+
+
+def _clz64(x):
+    """Leading zero bits of positive int64 values."""
+    bits = torch.zeros_like(x)
+    for sh in (32, 16, 8, 4, 2, 1):
+        big = (x >> sh) > 0
+        bits = bits + torch.where(big, sh, 0)
+        x = torch.where(big, x >> sh, x)
+    return 63 - bits
+
+
+def window_frame_reduce(func: str, bounds, frame, s_iota, s_valid,
+                        a_s=None, anm_s=None, offset: int = 1,
+                        dflt_s=None, dnull_s=None,
+                        has_default: bool = False, scale: int = 0,
+                        table=None):
+    """K13b (csrc/window.cu): window_frame_reduce_plain's result; the
+    prefix sums of the contributions are block scans, then one kernel
+    computes each row's frame, its function and the scatter to input
+    order."""
+    opt = [t for t in (a_s, anm_s, dflt_s, dnull_s, table)
+           if t is not None]
+    if _on_cpu(s_iota, s_valid, *bounds, *opt):
+        return window_frame_reduce_plain(func, bounds, frame, s_iota,
+                                         s_valid, a_s, anm_s, offset,
+                                         dflt_s, dnull_s, has_default,
+                                         scale, table)
+    code = WIN_FUNCS[func]
+    n = s_iota.shape[0]
+    _check(s_iota, "s_iota", (torch.int64,), n)
+    _check(s_valid, "s_valid", (torch.bool,), n)
+    for i, t in enumerate(bounds):
+        _check(t, f"bounds[{i}]", (torch.int64,), n)
+    for t, nm in ((a_s, "a_s"), (dflt_s, "dflt_s")):
+        if t is not None:
+            _check(t, nm, (torch.int64, torch.float64), n)
+    for t, nm in ((anm_s, "anm_s"), (dnull_s, "dnull_s")):
+        if t is not None:
+            _check(t, nm, (torch.bool,), n)
+    ranks = func in ("row_number", "rank", "dense_rank")
+    if a_s is None and func not in ("count",) and not ranks:
+        raise ValueError(f"window_frame_reduce: {func} needs an argument")
+    if has_default and (dflt_s is None or dflt_s.dtype != a_s.dtype):
+        raise ValueError("window_frame_reduce: default must match a_s")
+    levels = 0
+    if func in ("min", "max"):
+        if table is None or table.dim() != 2 or table.shape[1] != n \
+                or table.dtype != a_s.dtype or not table.is_contiguous():
+            raise ValueError("window_frame_reduce: bad sparse table")
+        levels = table.shape[0]
+    fr = frame if frame is not None else (0, 0, 0, 0, 0, 0)
+    a_float = int(a_s is not None and a_s.dtype == torch.float64)
+    if ranks or func == "count":
+        out_dtype = torch.int64
+    elif func == "avg":
+        out_dtype = torch.float64
+    else:
+        out_dtype = a_s.dtype
+    dev = s_iota.device
+    out = torch.empty(n, dtype=out_dtype, device=dev)
+    out_null = None if ranks or func == "count" else \
+        torch.empty(n, dtype=torch.bool, device=dev)
+    scratch = torch.empty((2, n), dtype=torch.int64, device=dev)
+    tiles = torch.empty(max((n + _WIN_TILE - 1) // _WIN_TILE, 1),
+                        dtype=torch.int64, device=dev)
+
+    def p(t):
+        return None if t is None else _ptr(t)
+
+    rc = _lib().otbt_window_frame_reduce(
+        code, n, *(_ptr(t) for t in bounds), _ptr(s_iota), _ptr(s_valid),
+        p(a_s), a_float, p(anm_s), int(offset), p(dflt_s), p(dnull_s),
+        int(bool(has_default)), float(10 ** scale), p(table), levels,
+        *(int(x) for x in fr), _ptr(scratch[0]), _ptr(scratch[1]),
+        _ptr(tiles), _ptr(out), p(out_null), _stream())
+    _ok(rc, "window_frame_reduce")
+    _count("window_frame_reduce")
+    return out, out_null
+
+
+def _minmax_neutral(dtype, is_min: bool):
+    if dtype == torch.float64:
+        return float("inf") if is_min else float("-inf")
+    return INT64_MAX if is_min else INT64_MIN
+
+
+def range_minmax_plain(a_s, contrib, is_min: bool):
+    """The reference's log-doubling sparse table, [floor(log2 n) + 1, n]:
+    level 0 is a_s with non-contributing rows at the neutral element,
+    level j + 1 the min (max) of level j at i and i + 2^j."""
+    n = a_s.shape[0]
+    neutral = torch.full((), _minmax_neutral(a_s.dtype, is_min),
+                         dtype=a_s.dtype, device=a_s.device)
+    levels = [torch.where(contrib, a_s, neutral)]
+    j = 0
+    while (1 << (j + 1)) <= n:
+        half = 1 << j
+        prev = levels[-1]
+        shifted = torch.cat([prev[half:], neutral.expand(half)])
+        levels.append(_minmax_plain(prev, shifted, is_min))
+        j += 1
+    return torch.stack(levels)
+
+
+def range_minmax(a_s, contrib, is_min: bool):
+    """K13c (csrc/window.cu): range_minmax_plain's table, one launch per
+    level; window_frame_reduce's min/max query it."""
+    if _on_cpu(a_s, contrib):
+        return range_minmax_plain(a_s, contrib, is_min)
+    n = a_s.shape[0]
+    _check(a_s, "a_s", (torch.int64, torch.float64), n)
+    _check(contrib, "contrib", (torch.bool,), n)
+    if n < 1:
+        raise ValueError("range_minmax: no rows")
+    levels = n.bit_length()
+    table = torch.empty((levels, n), dtype=a_s.dtype, device=a_s.device)
+    rc = _lib().otbt_range_minmax(_ptr(a_s), int(a_s.dtype == torch.float64),
+                                  _ptr(contrib), n, levels, int(is_min),
+                                  _ptr(table), _stream())
+    _ok(rc, "range_minmax")
+    _count("range_minmax")
+    return table

@@ -72,8 +72,19 @@ FUSED_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module",
-                         CLUSTER_MODULES + FUSED_MODULES + ANN_MODULES)
+# TPC-DS and the window functions (K13)
+WINDOW_MODULES = [
+    "opentenbase_tpu_torch.tpcds",
+    "opentenbase_tpu_torch.tpcds.datagen",
+    "opentenbase_tpu_torch.tpcds.queries",
+    "opentenbase_tpu_torch.tpcds.schema",
+    "opentenbase_tpu_torch.exec.executor",
+    "opentenbase_tpu_torch.ops.kernels",
+]
+
+
+@pytest.mark.parametrize("module", CLUSTER_MODULES + FUSED_MODULES
+                         + ANN_MODULES + WINDOW_MODULES)
 def test_cluster_tier_module_loads_no_jax(module):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -185,4 +196,36 @@ def test_fused_scan_agg_on_cuda_never_takes_the_plain_path(monkeypatch):
     with pytest.raises(RuntimeError, match="no kernel library"):
         K.fused_scan_agg(spec, [(x, None, None)] * 4, 8,
                          torch.zeros((1, 0), dtype=torch.int64), one, one, 0)
+    assert calls == [1]
+
+
+def _window_call(K, name):
+    x = torch.zeros(8, dtype=torch.int64)
+    v = torch.ones(8, dtype=torch.bool)
+    if name == "window_bounds":
+        return lambda: K.window_bounds(torch.zeros((2, 8), dtype=torch.int64),
+                                       1, (), v)
+    if name == "window_frame_reduce":
+        return lambda: K.window_frame_reduce("row_number", (x,) * 5, None,
+                                             x, v)
+    return lambda: K.range_minmax(x, v, True)
+
+
+@pytest.mark.parametrize("name", ["window_bounds", "window_frame_reduce",
+                                  "range_minmax"])
+def test_window_kernels_on_cuda_never_take_the_plain_path(monkeypatch,
+                                                          name):
+    """The K13 wrappers given CUDA tensors launch their kernels or
+    raise."""
+    from opentenbase_tpu_torch.ops import kernels as K
+    calls = []
+
+    def no_library():
+        calls.append(1)
+        raise RuntimeError("no kernel library")
+    monkeypatch.setattr(K, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(K, "_lib", no_library)
+    monkeypatch.setattr(K, name + "_plain", None)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        _window_call(K, name)()
     assert calls == [1]

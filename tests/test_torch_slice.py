@@ -209,6 +209,7 @@ SMALL_QUERIES = [
     "select k from t where g in ('x', 'zz') and not b order by k limit 5",
     "select sum(cast(d as double precision)), max(cast(i as bigint)) "
     "from t where i <> 0",
+    "select k, row_number() over (order by k) from t",
 ]
 
 
@@ -220,7 +221,7 @@ def test_small_select_matches_reference(small_sessions, sql):
 
 @pytest.mark.parametrize("sql", [
     "select count(distinct i) from t",               # DISTINCT aggregate
-    "select k, row_number() over (order by k) from t",   # window
+    "select k from t union select k from t",         # Append
     "begin",                                         # explicit txn
     "delete from t where k = 1",
 ])
