@@ -17,6 +17,16 @@ bulk-load all eight tables at SF1 (6.0 M lineitem rows), then
   of __graft_entry__.dryrun_multichip on Cluster(3) (a shard map that
   is not hash % 3), device tier against host tier; and the port of
   parallel/mesh.py (redistribute, psum_partial) on 2 DataNodes;
+- slice 7, the cluster program (K16): Q1, Q3 and Q5 on the same
+  Cluster(2) and Q5 on a Cluster(4) loaded from the same data, the
+  DataNode side of each one captured program (the fragments, the K12
+  exchange in its fixed-capacity form, K3 at the gather class): one
+  capture on the first call, then each warm call one graph replay with
+  one host read (the size-class ladder's); rows against the oracles,
+  the single-node Session and the host tier; the learned ladder, the
+  count matrices, warm ms captured against eager in turns, the replay's
+  device ms against the same body launched op by op, and the busy
+  share;
 - slice 4, the fused tier: Q1, Q6, Q3 and Q5 through Session.query, each
   fragment one captured program (CUDA graph; Q1 and Q6 through the fused
   scan-aggregate kernel), checked against the oracles and the eager tier,
@@ -43,10 +53,12 @@ bulk-load all eight tables at SF1 (6.0 M lineitem rows), then
   same stores, the other 56 plain queries the same way at sf 72.01 in a
   second load (q85 runs there only: its many-to-many join outgrows the
   card at SF1 size); the 27 queries outside the slice raise; the 8 window
-  queries on Cluster(2) against the single node; warm ms of each window
-  query, eager against the default tier, in turns, and their busy share.
-The slices 1-3 phases run the eager tier (Executor._fuse = False), as
-before the fused tier existed.
+  queries on Cluster(2) (each as a cluster program) against the single
+  node; warm ms of each window query, eager against the default tier, in
+  turns, and their busy share.
+The slices 1-3 phases run the eager tiers (Executor._fuse = False,
+MeshRunner._capture = False), as before the fused tier and the cluster
+program existed.
 Around that it builds the CUDA kernels from opentenbase_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version on small inputs
 (every branch) and on the inputs the main paths gave it, shows from the
@@ -114,6 +126,8 @@ KERNEL_SOURCES = {
                    "opentenbase_tpu/ops/kernels.py:509", "mesh"),
     "exchange": ("opentenbase_tpu_torch/csrc/exchange.cu",
                  "opentenbase_tpu/exec/mesh_exec.py:610", "c5"),
+    "exchange_fixed": ("opentenbase_tpu_torch/csrc/exchange.cu",
+                       "opentenbase_tpu/exec/mesh_exec.py:610", "m5"),
     "compact": ("opentenbase_tpu_torch/csrc/compact.cu",
                 "opentenbase_tpu/ops/kernels.py:103", "c3"),
     "fused_scan_agg": ("opentenbase_tpu_torch/csrc/fused.cu",
@@ -436,6 +450,20 @@ def compare_exchange(torch, got, want, what):
               f"exchange column differs ({what})")
 
 
+def compare_exchange_fixed(torch, got, want, what):
+    """The fixed-capacity K12 against its plain version: the count
+    matrix, the overflow and the valid mask equal, every column equal
+    where the valid mask is set (the kernel leaves the other slots
+    unwritten, the plain version zero-fills them)."""
+    (go, gv, gc, gover), (wo, wv, wc, wover) = got, want
+    check(torch.equal(gc, wc) and torch.equal(gover, wover),
+          f"exchange_fixed counts or overflow differ ({what})")
+    check(torch.equal(gv, wv), f"exchange_fixed valid mask differs ({what})")
+    for g, w in zip(go, wo):
+        check(g.dtype == w.dtype and torch.equal(g[gv], w[wv]),
+              f"exchange_fixed column differs ({what})")
+
+
 def compare_compact(torch, got, want, what):
     (gc, go), (wc, wo) = got, want
     check(int(gc) == int(wc), f"compact count differs ({what})")
@@ -508,12 +536,24 @@ def cluster_kernel_check(torch, K):
                                           dest), "3 DNs, dn2 empty"))
             for d, what in cases:
                 ds = [d[r] for r in rs]
-                compare_exchange(torch, K.exchange(srcs, ds, vs, ndn),
-                                 K.exchange_plain(srcs, ds, vs, ndn),
+                want = K.exchange_plain(srcs, ds, vs, ndn)
+                compare_exchange(torch, K.exchange(srcs, ds, vs, ndn), want,
                                  f"{what}, {n} rows")
+                # the fixed-capacity form: a region that fits, one that
+                # fits exactly and one too small (rows dropped, overflow)
+                most = int(want[2].sum(axis=0).max())
+                for region in (want[3], max(most, 1), max(most // 2, 1)):
+                    compare_exchange_fixed(
+                        torch, K.exchange_fixed(srcs, ds, vs, ndn, region),
+                        K.exchange_fixed_plain(srcs, ds, vs, ndn, region),
+                        f"{what}, {n} rows, region {region}")
             compare_exchange(torch, K.exchange(srcs, None, vs, 1),
                              K.exchange_plain(srcs, None, vs, 1),
                              f"broadcast from {ndn} DNs, {n} rows")
+            compare_exchange_fixed(
+                torch, K.exchange_fixed(srcs, None, vs, 1, n),
+                K.exchange_fixed_plain(srcs, None, vs, 1, n),
+                f"broadcast from {ndn} DNs, {n} rows, fixed form")
         for density in (0.0, 0.3, 1.0):
             mask = t(rng.random(n) < density)
             for out_size in (1, n // 2, n, n + 100):
@@ -522,8 +562,8 @@ def cluster_kernel_check(torch, K):
                                 K.compact_plain(mask, cc, out_size),
                                 f"density {density}, out {out_size}")
     torch.cuda.synchronize()
-    say("cluster kernels vs plain (routing, exchange, compaction; every "
-        "branch, small and large inputs): ok")
+    say("cluster kernels vs plain (routing, exchange in both forms, "
+        "compaction; every branch, small and large inputs): ok")
 
 
 WIN_RTOL = 1e-12    # K13b f64 sums / averages: the scan adds in tiles
@@ -967,6 +1007,19 @@ def call_bytes_ops(name, a, kw, out):
         by = n + (4 * n if dest is not None else 0) \
             + moved * (2 * width + 1) + 8 * cm.size
         return by, n + moved * len(_outs)
+    if name == "exchange_fixed":
+        # as the sized form, the rows that moved being those that fit
+        # their region; the whole valid mask, the count matrix, the
+        # totals and the overflow written once
+        cols, dest, valid, region = a[0], a[1], a[2], int(a[4])
+        _outs, _ovalid, cm, _over = out
+        moved = int(torch_min_sum(cm, region))
+        width = sum(o.element_size() for o in _outs)
+        n = sum(v.shape[0] for v in valid)
+        by = n + (4 * n if dest is not None else 0) \
+            + moved * 2 * width + _ovalid.numel() + 8 * cm.numel() \
+            + 16 * cm.shape[1]
+        return by, n + moved * len(_outs)
     if name == "compact":
         mask, cols = a[0], a[1]
         _count, outs = out
@@ -978,6 +1031,12 @@ def call_bytes_ops(name, a, kw, out):
     if name in WINDOW_KERNELS:
         return window_bytes_ops(name, a, kw, out)
     raise KeyError(name)
+
+
+def torch_min_sum(cm, region: int):
+    """Rows of a fixed-capacity exchange that fit: per destination the
+    smaller of its row count and the region, summed."""
+    return cm.sum(dim=0).clamp(max=region).sum()
 
 
 def fused_bytes_ops(a, out):
@@ -1028,6 +1087,9 @@ def compare_call(torch, K, plain, name, a, kw):
         return 0.0
     if name == "exchange":
         compare_exchange(torch, got, want, "main path")
+        return 0.0
+    if name == "exchange_fixed":
+        compare_exchange_fixed(torch, got, want, "main path")
         return 0.0
     if name == "compact":
         compare_compact(torch, got, want, "main path")
@@ -1107,12 +1169,15 @@ def main():
     from opentenbase_tpu_torch.tpch.queries import Q
     from opentenbase_tpu_torch.tpch.schema import SCHEMA
     from opentenbase_tpu_torch.exec import executor as X
+    from opentenbase_tpu_torch.exec import mesh_exec as ME
     from opentenbase_tpu_torch.ops import ann as ANN
     Q_TEXT.update(Q)
     Q_TEXT.update({f"c{q}": Q[q] for q in (1, 3, 5)})
     Q_TEXT.update({f"f{q}": Q[q] for q in (1, 6, 3, 5)})
-    # slices 1-3 drive the eager tier, as they did before the fused tier
+    # slices 1-3 drive the eager tiers, as they did before the fused tier
+    # and the cluster program
     X.Executor._fuse = False
+    ME.MeshRunner._capture = False
 
     t_start = time.perf_counter()
     card = setup(torch)
@@ -1191,6 +1256,10 @@ def main():
         {1: want_q1, 3: want_q3, 5: want_q5})
     calls_q5s, launches_q5s = q5_shape_path(torch, K, names)
     calls_mesh, launches_mesh = mesh_library_path(torch, K, names)
+    # ---- slice 7: the cluster tier's DataNode side as one program ----
+    calls7, launches7, k16 = mesh_program_path(
+        torch, K, cs, data, names, {1: got1[1], 3: got2[3], 5: got2[5]},
+        {1: want_q1, 3: want_q3, 5: want_q5}, card)
 
     # ---- slice 4: the fused tier and the serving tier ----
     X.Executor._fuse = True
@@ -1204,14 +1273,17 @@ def main():
     vp = vector_path(torch, K, ANN, names, card, args.vectors)
     # ---- slice 6: TPC-DS and window functions ----
     tp = tpcds_path(torch, K, card, args.tpcds_sf)
-    # the timing and profile sections below time the eager tier, as
-    # before; fused_path timed the fused tier against it
+    # the timing and profile sections below time the eager tiers, as
+    # before; fused_path and mesh_program_path timed the programs against
+    # them
     X.Executor._fuse = False
+    ME.MeshRunner._capture = False
 
     # ---- kernels against their plain versions, main-path inputs ----
     max_err = {n: 0.0 for n in names}
-    for calls in (calls1, calls2, calls3, calls_q5s, calls_mesh, calls_f,
-                  calls_srv, vp["calls_k"], tp["calls"], tp["calls_c"]):
+    for calls in (calls1, calls2, calls3, calls_q5s, calls_mesh, calls7,
+                  calls_f, calls_srv, vp["calls_k"], tp["calls"],
+                  tp["calls_c"]):
         for qcalls in calls.values():
             for n in names:
                 for a, kw in qcalls.get(n, ()):
@@ -1254,7 +1326,7 @@ def main():
             f"({n_li / ms / 1e3:.1f} M lineitem rows/s) over {REPS} runs "
             f"[{card}]")
     qcalls = {**calls1, **calls2, **calls3, **calls_q5s, **calls_mesh,
-              **calls_f, **tp["calls"]}
+              **calls7, **calls_f, **tp["calls"]}
     records = []
     for n in names:
         src, replaces, tq = KERNEL_SOURCES[n]
@@ -1274,6 +1346,7 @@ def main():
                    "cluster2_q1_q3_q5": launches3[n],
                    "cluster3_q5_shape": launches_q5s[n],
                    "mesh_library": launches_mesh[n],
+                   "cluster_program": launches7[n],
                    "fused_q1_q6_q3_q5": launches_f[n],
                    "serving": launches_srv[n],
                    "vector": vp["launches"][n],
@@ -1294,6 +1367,7 @@ def main():
             f" ms ({bytes_ / 1e6:.1f} MB), library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}; launches "
             f"{' + '.join(str(v) for v in by_path.values())} [{card}]")
+    records.append(k16)
     records += vector_measure(torch, K, ANN, vp, ann_err, card,
                               profile=args.profile)
     del vp
@@ -1648,6 +1722,9 @@ def _qname(q) -> str:
         return f"TPC-DS q{q[2:]}"
     if q == "mesh":
         return "parallel/mesh.py path"
+    if q.startswith("m"):
+        return f"cluster program Q{q[1:].replace('c4', '')}" + (
+            " (4 DataNodes)" if q.endswith("c4") else "")
     if q.startswith("f"):
         return f"fused Q{q[1:]}"
     return f"cluster Q{q[1:]}"
@@ -1888,6 +1965,256 @@ def profile_queries(torch, items, card):
                 f"{sum(r[1] for r in mine)} launches: " + ", ".join(
                     f"{label} {dev_us / 1e3:.4f} ms x{count}"
                     for dev_us, count, label in mine))
+
+
+# ---------------------------------------------------------------------------
+# slice 7: the whole cluster plan as one captured program (K16)
+# ---------------------------------------------------------------------------
+
+# cluster Q1, Q3, Q5 on Cluster(2) and Q5 on Cluster(4), one program each
+PROGRAM_QUERIES = (("m1", 2, 1), ("m3", 2, 3), ("m5", 2, 5),
+                   ("m5c4", 4, 5))
+SLICE7 = ("mesh_program", "route_dest", "exchange_fixed", "compact",
+          "visibility_mask", "decode_column", "grouped_agg_dense",
+          "grouped_agg_sort", "join_build", "join_probe_counts",
+          "join_expand", "compose_index", "sort_rows")
+
+
+def _mesh_counters(K):
+    from opentenbase_tpu_torch.exec import mesh_exec as ME, plancache
+    return (plancache.MESH.compiles, ME.LADDER_READS,
+            K.LAUNCHES["mesh_program"], plancache.MESH.hits)
+
+
+def _mesh_lookups() -> int:
+    from opentenbase_tpu_torch.exec import plancache
+    return plancache.MESH.hits + plancache.MESH.misses
+
+
+def _program_of(sess, sql):
+    """(MeshProgram, run arguments) of the statement's DataNode side: one
+    warm call, its program's run recorded."""
+    from opentenbase_tpu_torch.exec import mesh_exec as ME
+    seen = []
+    orig = ME.MeshProgram.run
+
+    def rec(self, *a):
+        seen.append((self, a))
+        return orig(self, *a)
+    ME.MeshProgram.run = rec
+    try:
+        sess.query(sql)
+    finally:
+        ME.MeshProgram.run = orig
+    check(len(seen) == 1 and seen[0][0].captured,
+          "not one run of one captured cluster program")
+    return seen[0]
+
+
+def program_bytes(prog):
+    """Bytes the DataNode side must read: the needed columns of every
+    scan of its fragments at their staged widths plus the four MVCC
+    columns, over every DataNode's live rows, read once."""
+    from opentenbase_tpu_torch.exec import fused
+    from opentenbase_tpu_torch.exec.mesh_exec import MeshRunner
+    from opentenbase_tpu_torch.plan import physical as P
+    by = 0
+    for plan in prog.plans.values():
+        for scan in MeshRunner._walk(plan):
+            if not isinstance(scan, P.SeqScan):
+                continue
+            st = prog.staged[scan.table.name]
+            need = fused._needed_columns(plan, scan.alias) | {
+                "__xmin_ts", "__xmax_ts", "__xmin_txid", "__xmax_txid"}
+            by += sum(sum(st.counts) * st.arrs[c].element_size()
+                      for c in need if c in st.arrs)
+    return by
+
+
+def program_err(torch, got, want) -> float:
+    """max |replay - eager run| over the gathered outputs' live rows; the
+    valid masks, the overflow vectors and the count matrices must be
+    equal."""
+    (g_outs, g_vec, g_cnt), (w_outs, w_vec, w_cnt) = got, want
+    check(torch.equal(g_vec, w_vec) and torch.equal(g_cnt, w_cnt),
+          "K16: the replay's overflow or count matrices differ")
+    err = 0.0
+    for gi, (gc, gv, gn) in g_outs.items():
+        wc, wv, wn = w_outs[gi]
+        check(torch.equal(gv, wv), f"K16: gather {gi} valid mask differs")
+        for n in gc:
+            a, b = gc[n][gv], wc[n][wv]
+            if a.dtype.is_floating_point:
+                e = float((a - b).abs().max()) if a.numel() else 0.0
+                check(e <= SUMF_RTOL * max(float(b.abs().max()), 1.0),
+                      f"K16: gather {gi} column {n} differs by {e}")
+                err = max(err, e)
+            else:
+                check(torch.equal(a, b), f"K16: gather {gi} column {n} "
+                      "differs")
+        for n in gn:
+            check(torch.equal(gn[n][gv], wn[n][wv]),
+                  f"K16: gather {gi} null mask {n} differs")
+    return err
+
+
+def mesh_program_path(torch, K, cs, data, names, single, oracles, card):
+    """Slice 7: cluster Q1, Q3 and Q5 at SF1 on Cluster(2) (`cs`, loaded
+    by slice 3) and Q5 on a Cluster(4) loaded here, through
+    ClusterSession.query with the DataNode side as one program each
+    (MeshRunner._capture, the default), the launch counters set to 0
+    before the path and read after it.  The first call of each runs the
+    traced body and captures it (after the ladder's growth, if any); the
+    REPS warm calls that follow must each be one graph replay with no
+    capture, no decline and one host read (the ladder's).  Rows against
+    the numpy oracles, the single-node Session and the host tier.  Then
+    the learned ladder values, each exchange's count matrix (read after
+    the call), warm ms captured against eager in turns, the replay's
+    device ms and the K16 record."""
+    from opentenbase_tpu_torch.exec import mesh_exec as ME
+    from opentenbase_tpu_torch.exec.dist_session import ClusterSession
+    from opentenbase_tpu_torch.parallel.cluster import Cluster
+    from opentenbase_tpu_torch.tpch import datagen
+    from opentenbase_tpu_torch.tpch.queries import Q
+    from opentenbase_tpu_torch.tpch.schema import SCHEMA
+    cluster4 = Cluster(n_datanodes=4)
+    check(cluster4.device.type == DEVICE, f"cluster on {cluster4.device}")
+    cs4 = ClusterSession(cluster4)
+    cs4.execute(SCHEMA)
+    t0 = time.perf_counter()
+    datagen.load_into_cluster(cs4, data)
+    per_dn = [dn.stores["lineitem"].row_count() for dn in cluster4.datanodes]
+    say(f"cluster load (4 DataNodes): {time.perf_counter() - t0:.1f} s; "
+        f"lineitem rows per DataNode {per_dn}")
+    sessions = {2: cs, 4: cs4}
+    host = {}
+    for key, ndn, q in PROGRAM_QUERIES:
+        sessions[ndn].execute("set enable_mesh_exchange = off")
+        host[key] = sessions[ndn].query(Q[q])
+        sessions[ndn].execute("set enable_mesh_exchange = on")
+    ME.MeshRunner._capture = True
+    calls, restore = record_calls(K, names)
+    per_query, matrices = {}, {}
+    K.reset_launches()
+    try:
+        for key, ndn, q in PROGRAM_QUERIES:
+            sess = sessions[ndn]
+            for c in calls.values():
+                c.clear()
+            cap0, lr0, rp0, _hit0 = _mesh_counters(K)
+            t0 = time.perf_counter()
+            rows = sess.query(Q[q])
+            torch.cuda.synchronize()
+            cold = (time.perf_counter() - t0) * 1e3
+            cap1, lr1, rp1, hit1 = _mesh_counters(K)
+            check(cap1 - cap0 == 1 and rp1 == rp0, f"{_qname(key)}: "
+                  f"{cap1 - cap0} captures and {rp1 - rp0} replays on the "
+                  "first call, want 1 and 0")
+            approx = (6, 7, 8) if q == 1 else ()
+            for want, what in ((oracles[q], "numpy oracle"),
+                               (single[q], "single-node Session"),
+                               (host[key], "host tier")):
+                rows_equal(rows, want, f"{_qname(key)} vs the {what}",
+                           approx)
+            for _ in range(REPS):
+                check(sess.query(Q[q]) == rows, f"{_qname(key)}: a warm "
+                      "replay returned other rows")
+                check(sess.last_tier == "mesh" and sess.fallbacks == [],
+                      f"{_qname(key)} left the device tier")
+            torch.cuda.synchronize()
+            cap2, lr2, rp2, hit2 = _mesh_counters(K)
+            check(cap2 == cap1, f"{_qname(key)}: a warm call recaptured")
+            check(rp2 - rp1 == REPS and hit2 - hit1 == REPS,
+                  f"{_qname(key)}: {rp2 - rp1} replays of {hit2 - hit1} "
+                  f"program hits in {REPS} warm calls")
+            check(lr2 - lr1 == REPS, f"{_qname(key)}: {lr2 - lr1} ladder "
+                  f"host reads in {REPS} warm calls, want one a call")
+            runner = ME.mesh_runner_for(sess.cluster)
+            matrices[key] = [(i, kind, c.tolist())
+                             for i, kind, c in runner.last_exchanges]
+            per_query[key] = {n: list(c) for n, c in calls.items()}
+            say(f"{_qname(key)}: rows = oracle = single node = host tier "
+                f"({len(rows)} rows); first call {cold:.1f} ms, "
+                f"{cap1 - cap0} capture, {lr1 - lr0} ladder read(s); "
+                f"{REPS} warm calls: {rp2 - rp1} graph replays, 0 captures, "
+                f"{(lr2 - lr1) / REPS:g} host read a call")
+        launches = dict(K.LAUNCHES)
+    finally:
+        restore()
+    say(f"slice 7 path launches (cluster programs Q1 + Q3 + Q5 on 2 "
+        f"DataNodes, Q5 on 4; first calls and {REPS} warm replays each): "
+        f"{json.dumps(launches)}")
+    for n in SLICE7:
+        check(launches[n] > 0, f"kernel {n} was not launched on slice 7's "
+              "path")
+    for ndn, sess in sessions.items():
+        for lkey, (factors, mults, gathers) in \
+                ME.mesh_runner_for(sess.cluster)._ladder.items():
+            say(f"learned ladder, {ndn} DataNodes, plan {lkey}: join "
+                f"factors {factors}, exchange multipliers {mults}, gather "
+                f"classes {gathers}")
+    for key, mats in matrices.items():
+        for i, kind, cm in mats:
+            say(f"{_qname(key)} exchange {i} ({kind}) rows [source DN x "
+                f"destination DN]: {cm}")
+    # warm ms, captured against eager, in turns; the replay's device ms
+    record = None
+    for key, ndn, q in PROGRAM_QUERIES:
+        sess = sessions[ndn]
+        ms = {True: [], False: []}
+        for r in range(REPS):
+            for cap in ((True, False) if r % 2 == 0 else (False, True)):
+                ME.MeshRunner._capture = cap
+                ms[cap].append(_wall(torch, lambda: sess.query(Q[q])))
+        ME.MeshRunner._capture = True
+        pm, em = statistics.median(ms[True]), statistics.median(ms[False])
+        prog, args = _program_of(sess, Q[q])
+        dev_ms = time_fn(torch, lambda: prog.run(*args), reps=REPS)
+        with prog._lock:
+            plain = prog._traced_run()
+        replay = prog.run(*args)
+        torch.cuda.synchronize()
+        err = program_err(torch, (
+            {gi: (b.cols, b.valid, b.nulls) for gi, b in replay[0].items()},
+            replay[1], replay[2]), plain)
+
+        def eager_body(prog=prog):
+            with prog._lock:
+                prog._traced_run()
+        plain_ms = time_fn(torch, eager_body, reps=REPS)
+        by = program_bytes(prog)
+        bound = by / HBM_BYTES_PER_S * 1e3
+        per_replay = sum(v for k, v in prog.graph_launches.items()
+                         if k != "mesh_program")
+        say(f"{_qname(key)} warm median: captured {pm:.3f} ms, eager "
+            f"{em:.3f} ms ({em / pm:.2f}x), {REPS} a side in turns; "
+            f"captured {' '.join(f'{v:.3f}' for v in ms[True])}; eager "
+            f"{' '.join(f'{v:.3f}' for v in ms[False])} [{card}]")
+        say(f"K16 {_qname(key)}: replay {dev_ms:.4f} ms device "
+            f"({100 * dev_ms / pm:.1f}% of the warm call), the same body "
+            f"launched op by op {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by / 1e6:.1f} MB of needed columns), {per_replay} kernel "
+            f"launches a replay, graph pool {prog.pool_bytes / 2**20:.1f} "
+            f"MiB, replay = eager run (max err {err:g}) [{card}]")
+        if key == "m5":
+            record = {
+                "name": "mesh_program", "route": "cuda",
+                "source": "opentenbase_tpu_torch/exec/mesh_exec.py",
+                "replaces": "opentenbase_tpu/exec/mesh_exec.py:950",
+                "launches": launches["mesh_program"],
+                "max_abs_err": err, "ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+                "timed_on": _qname(key), "launches_per_replay": per_replay}
+    # the profiler's first window in a process carries its start-up on the
+    # host clock: discard one window
+    busy_share(torch, lambda: cs.query(Q[1]))
+    wall, busy = busy_share(torch, lambda: [cs.query(Q[q])
+                                            for q in (1, 3, 5)])
+    say(f"cluster programs' busy share (Q1 + Q3 + Q5 on 2 DataNodes, warm): "
+        f"device {busy:.3f} ms of {wall:.3f} ms wall "
+        f"({100 * busy / wall:.1f}%) [{card}]")
+    del cs4, sessions
+    return per_query, launches, record
 
 
 # ---------------------------------------------------------------------------
@@ -2828,6 +3155,7 @@ def tpcds_path(torch, K, card, sf):
     warm ms of each window query, eager against the default tier, in
     turns, and the window queries' busy share."""
     from opentenbase_tpu_torch.exec import executor as X, fused
+    from opentenbase_tpu_torch.exec import mesh_exec as ME
     from opentenbase_tpu_torch.exec.session import Session
     from opentenbase_tpu_torch.tpcds.queries import Q
     for q, sql in Q.items():
@@ -2897,8 +3225,20 @@ def tpcds_path(torch, K, card, sf):
               "web_sales")
     cs, _dc, t_load_c = _tpcds_load(torch, sf, tables, cluster=True)
     cq = [f"dsc{q}" for q in TPCDS_WINDOW]
+    tiers, seen = {}, [_mesh_lookups()]
+
+    def tier_of(q):
+        # the tier each query's DataNode side took: a program (the
+        # default) or the eager tier
+        tiers[q] = "program" if _mesh_lookups() > seen[0] else "eager"
+        seen[0] = _mesh_lookups()
+    check(ME.MeshRunner._capture, "the cluster program is off")
     got_c, _cold, calls_c, launches_c, per_qc = run_path(
-        torch, K, cs, cq, WINDOW_KERNELS)
+        torch, K, cs, cq, WINDOW_KERNELS, tier_of)
+    say("cluster TPC-DS tiers: " + ", ".join(
+        f"q{q[3:]} {tiers[q]}" for q in cq))
+    check(all(t == "program" for t in tiers.values()),
+          "a cluster TPC-DS window query did not run as a program")
     for q in TPCDS_WINDOW:
         rows_close(got_c[f"dsc{q}"], got[f"ds{q}"],
                    f"cluster TPC-DS q{q} vs the single node")

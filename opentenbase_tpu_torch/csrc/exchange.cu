@@ -20,8 +20,7 @@
 //     histogram of destinations;
 // (b) xchg_tile_scan: one block per destination scans the tile counts
 //     in (source, tile) order (scan.cuh's block scan) into each tile's
-//     base offset, and writes the ndn_src x ndn_dst count matrix the
-//     host reads once to size the outputs;
+//     base offset, and writes the ndn_src x ndn_dst count matrix;
 // (c) xchg_positions: each tile again, in four rounds of 256 rows; a
 //     row's rank among its tile's rows bound for the same destination
 //     comes from warp ballots and the per-warp totals, so every live
@@ -30,6 +29,17 @@
 //     source, up to 16 columns of mixed widths a launch.
 // Bound: bytes (destinations and the valid mask read twice, each column
 // read once and written once for its live rows).
+//
+// Two forms.  The sized form (otbt_exchange_count, then
+// otbt_exchange_scatter) lets the host read the count matrix once and
+// size each destination's region to fit.  The fixed-capacity form
+// (otbt_exchange_fixed, the reference's static all_to_all buckets) takes
+// the region from the caller and reads nothing back: a row whose slot
+// falls beyond its destination's region is dropped, (b) writes each
+// destination's overflow (rows beyond the region) to a device tensor,
+// and (e) xchg_fill_valid writes the whole output valid mask from the
+// destinations' totals, so nothing is zero-filled and a captured
+// program can run it.
 #include "rows.cuh"
 #include "scan.cuh"
 
@@ -78,11 +88,15 @@ __global__ void xchg_tile_counts(Segs segs, int ndst, long long tiles,
 
 // One block per destination d.  tile_base[(s, t), d] = rows bound for d
 // in all earlier (source, tile) pairs; counts[s, d] = rows of source s
-// bound for d.
+// bound for d; where given, totals[d] = rows bound for d and over[d] =
+// those beyond the region.
 __global__ void xchg_tile_scan(const long long* __restrict__ tile_counts,
                                int nsrc, int ndst, long long tiles,
                                long long* __restrict__ tile_base,
-                               long long* __restrict__ counts) {
+                               long long* __restrict__ counts,
+                               long long region,
+                               long long* __restrict__ totals,
+                               long long* __restrict__ over) {
   __shared__ long long sh[otbt::kScanThreads];
   const int d = blockIdx.x;
   const long long total_tiles = (long long)nsrc * tiles;
@@ -102,6 +116,10 @@ __global__ void xchg_tile_scan(const long long* __restrict__ tile_counts,
                         ? tile_base[((long long)(s + 1) * tiles) * ndst + d]
                         : carry;
     counts[(long long)s * ndst + d] = end - start;
+  }
+  if (threadIdx.x == 0) {
+    if (totals != nullptr) totals[d] = carry;
+    if (over != nullptr) over[d] = carry > region ? carry - region : 0;
   }
 }
 
@@ -133,12 +151,15 @@ __global__ void xchg_positions(Segs segs, int ndst, long long tiles,
     }
     __syncthreads();
     if (in) {
+      long long local = region;   // dead rows and overflow: dropped
       if (d < ndst) {
-        long long p = run[d] + rank;
-        for (int ww = 0; ww < w; ++ww) p += warp_cnt[ww][d];
-        p += (long long)d * region;
+        local = run[d] + rank;
+        for (int ww = 0; ww < w; ++ww) local += warp_cnt[ww][d];
+      }
+      if (local < region) {
+        long long p = (long long)d * region + local;
         pos[segs.off[s] + i] = p;
-        out_valid[p] = true;
+        if (out_valid != nullptr) out_valid[p] = true;
       } else {
         pos[segs.off[s] + i] = -1;
       }
@@ -151,6 +172,17 @@ __global__ void xchg_positions(Segs segs, int ndst, long long tiles,
     }
     __syncthreads();
   }
+}
+
+// out_valid[d * region + j] = j < totals[d], over every slot.
+__global__ void xchg_fill_valid(const long long* __restrict__ totals,
+                                int ndst, long long region,
+                                bool* __restrict__ out_valid) {
+  long long n = (long long)ndst * region;
+  long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += stride)
+    out_valid[i] = (i % region) < totals[i / region];
 }
 
 bool make_segs(const long long* dest_ptrs, const long long* valid_ptrs,
@@ -166,6 +198,24 @@ bool make_segs(const long long* dest_ptrs, const long long* valid_ptrs,
     segs->valid[s] = on ? (const bool*)valid_ptrs[s] : nullptr;
   }
   return true;
+}
+
+// rows.cuh's scatter of every source's columns to the slots in pos.
+int scatter_sources(const Segs& segs, const long long* pos,
+                    const long long* in_ptrs, const long long* out_ptrs,
+                    const int* widths, int k, cudaStream_t s) {
+  for (int src = 0; src < segs.n; ++src) {
+    long long n = segs.off[src + 1] - segs.off[src];
+    if (n == 0) continue;
+    int rc = otbt::for_column_sets(
+        in_ptrs + (long long)src * k, out_ptrs, widths, k,
+        [&](const otbt::ColSet& c) {
+          otbt::scatter_rows<<<otbt::grid_for(n), otbt::kThreads, 0, s>>>(
+              c, pos + segs.off[src], n);
+        });
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -200,7 +250,7 @@ extern "C" int otbt_exchange_count(const long long* dest_ptrs,
       segs, ndst, tiles, (long long*)tile_counts);
   xchg_tile_scan<<<ndst, otbt::kScanThreads, 0, s>>>(
       (const long long*)tile_counts, nsrc, ndst, tiles,
-      (long long*)tile_base, (long long*)counts);
+      (long long*)tile_base, (long long*)counts, 0, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -209,7 +259,7 @@ extern "C" int otbt_exchange_count(const long long* dest_ptrs,
 // output valid mask (ndst * region bools, zeroed by the caller), then
 // the columns.  in_ptrs: HOST array of nsrc * k entries, source s's k
 // columns at [s * k, (s + 1) * k) (0: the source lacks that column, its
-// rows keep the output's zeros); out_ptrs / widths: HOST arrays of k.
+// rows get zeros there); out_ptrs / widths: HOST arrays of k.
 extern "C" int otbt_exchange_scatter(const long long* dest_ptrs,
                                      const long long* valid_ptrs,
                                      const long long* rows, int nsrc,
@@ -231,17 +281,46 @@ extern "C" int otbt_exchange_scatter(const long long* dest_ptrs,
       (long long*)pos, (bool*)out_valid);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long* p = (const long long*)pos;
-  for (int src = 0; src < nsrc; ++src) {
-    long long n = segs.off[src + 1] - segs.off[src];
-    if (n == 0) continue;
-    int rc = otbt::for_column_sets(
-        in_ptrs + (long long)src * k, out_ptrs, widths, k,
-        [&](const otbt::ColSet& c) {
-          otbt::scatter_rows<<<otbt::grid_for(n), otbt::kThreads, 0, s>>>(
-              c, p + segs.off[src], n);
-        });
-    if (rc != 0) return rc;
-  }
-  return 0;
+  return scatter_sources(segs, (const long long*)pos, in_ptrs, out_ptrs,
+                         widths, k, s);
+}
+
+// The fixed-capacity form, in one call: destination d owns rows [d *
+// region, (d + 1) * region) of every output column and of out_valid
+// (ndst * region bools, written here in full); rows beyond a region are
+// dropped and counted in over[d].  counts: nsrc * ndst int64 (the count
+// matrix, left on the device); totals, over: ndst int64 each.  The other
+// arguments as for otbt_exchange_count and otbt_exchange_scatter.
+extern "C" int otbt_exchange_fixed(const long long* dest_ptrs,
+                                   const long long* valid_ptrs,
+                                   const long long* rows, int nsrc,
+                                   int ndst, long long tiles,
+                                   void* tile_counts, void* tile_base,
+                                   void* counts, void* totals, void* over,
+                                   long long region, void* pos,
+                                   void* out_valid, const long long* in_ptrs,
+                                   const long long* out_ptrs,
+                                   const int* widths, int k, void* stream) {
+  Segs segs;
+  if (!make_segs(dest_ptrs, valid_ptrs, rows, nsrc, &segs) || ndst < 1 ||
+      ndst > kMaxDn || tiles < 1 || region < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid((unsigned)tiles, (unsigned)nsrc);
+  xchg_tile_counts<<<grid, otbt::kScanThreads, 0, s>>>(
+      segs, ndst, tiles, (long long*)tile_counts);
+  xchg_tile_scan<<<ndst, otbt::kScanThreads, 0, s>>>(
+      (const long long*)tile_counts, nsrc, ndst, tiles,
+      (long long*)tile_base, (long long*)counts, region,
+      (long long*)totals, (long long*)over);
+  xchg_positions<<<grid, otbt::kScanThreads, 0, s>>>(
+      segs, ndst, tiles, (const long long*)tile_base, region,
+      (long long*)pos, nullptr);
+  xchg_fill_valid<<<otbt::grid_for((long long)ndst * region),
+                    otbt::kThreads, 0, s>>>(
+      (const long long*)totals, ndst, region, (bool*)out_valid);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return scatter_sources(segs, (const long long*)pos, in_ptrs, out_ptrs,
+                         widths, k, s);
 }

@@ -36,8 +36,27 @@ __device__ __forceinline__ void copy_entry(const ColSet& c, int j,
   }
 }
 
+// out[p] = 0 in a column of width c.width[j].
+__device__ __forceinline__ void zero_entry(const ColSet& c, int j,
+                                           long long dst) {
+  switch (c.width[j]) {
+    case 1:
+      ((uint8_t*)c.out[j])[dst] = 0;
+      break;
+    case 2:
+      ((uint16_t*)c.out[j])[dst] = 0;
+      break;
+    case 4:
+      ((uint32_t*)c.out[j])[dst] = 0;
+      break;
+    default:
+      ((unsigned long long*)c.out[j])[dst] = 0;
+  }
+}
+
 // out[pos[i]] = in[i] for every row with pos[i] >= 0; a column whose
-// `in` is null is left as it is (the exchange's outputs start zeroed).
+// `in` is null gets zero there (a source that never set a null mask:
+// its rows are not null).
 __global__ void scatter_rows(ColSet c, const long long* __restrict__ pos,
                              long long n) {
   long long stride = (long long)gridDim.x * blockDim.x;
@@ -45,8 +64,12 @@ __global__ void scatter_rows(ColSet c, const long long* __restrict__ pos,
        i < n; i += stride) {
     long long p = pos[i];
     if (p < 0) continue;
-    for (int j = 0; j < c.k; ++j)
-      if (c.in[j] != nullptr) copy_entry(c, j, i, p);
+    for (int j = 0; j < c.k; ++j) {
+      if (c.in[j] != nullptr)
+        copy_entry(c, j, i, p);
+      else
+        zero_entry(c, j, p);
+    }
   }
 }
 

@@ -9,7 +9,9 @@ one of these tiers:
 - mesh, the device tier (exec/mesh_exec.py): every DataNode fragment
   runs on its DataNode's share of the cluster-staged tables, and the
   exchanges run as hand-written kernels on the card (K11 routing, K12
-  exchange, K3 gather compaction);
+  exchange, K3 gather compaction), by default all of it as one
+  captured program whose gathered outputs arrive here as copies; the
+  coordinator's fragment then runs over them;
 - host, the host-mediated exchange tier, only when the session says
   `SET enable_mesh_exchange = off`: each fragment runs per DataNode, its
   output comes to the host (TEXT decoded to strings), is hash-routed

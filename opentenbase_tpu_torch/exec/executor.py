@@ -90,14 +90,15 @@ class ExecError(Exception):
 # executor telemetry (reference: exec/executor.py:53-110).  Per-tier
 # counter bundles: "single" is the eager per-operator dispatch, "fused"
 # counts the traced runs of fragment programs (a program's warm-up and
-# capture; a replay runs no Python) plus program hits on join fragments.
+# capture; a replay runs no Python) plus program hits on join fragments,
+# "mesh" the traced runs of the cluster programs (exec/mesh_exec.py).
 # Increments go through bump_stat() under STATS_LOCK; the attribution
 # tier is thread-local.
 # ---------------------------------------------------------------------------
 STAT_FIELDS = ("joins", "host_syncs", "fused_join_hits")
 STATS_LOCK = locks.Lock("exec.executor.STATS_LOCK")
 EXEC_STATS: dict = {t: {f: 0 for f in STAT_FIELDS}   # guarded_by: STATS_LOCK
-                    for t in ("single", "fused")}
+                    for t in ("single", "fused", "mesh")}
 _TIER = threading.local()   # per-thread counter attribution
 
 

@@ -23,7 +23,8 @@ as ONE jitted XLA program; here the same fragment runs as one CUDA graph:
   every later call writes the input buffer and replays the graph.  A
   replay overwrites the graph's outputs, so a call's outputs leave as
   copies made under the program's lock.  On the CPU there is no graph:
-  every call is the traced run.
+  every call is the traced run.  `CapturedProgram` holds that machinery
+  for the cluster program too (exec/mesh_exec.py MeshProgram).
 - The join-size ladder: after a call the host reads the per-join required
   totals once (the tier's one host read); on overflow the factor of that
   join grows to the class that fits, the overflowed output is discarded
@@ -526,7 +527,136 @@ def _lit_view(lits: torch.Tensor, i: int, j: int, t):
     return v.view(torch.float64) if t.kind == TypeKind.FLOAT64 else v
 
 
-class FusedProgram:
+def _clone_tree(x):
+    """Copies of the tensors of a nested tuple / list / dict of outputs."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone_tree(v) for v in x)
+    return x
+
+
+class CapturedProgram:
+    """A traced run (`_traced_run`, defined by the subclass) that reads
+    its per-call values from one int64 device input buffer, and on the
+    card its captured CUDA graph.  The first call on the card runs the
+    traced body eagerly (the warm-up: it fills the constant cache, loads
+    every kernel, and its outputs are the call's answer); after
+    capture_if_new() every call writes the input buffer and replays the
+    graph, and its outputs leave as copies made under the program's lock
+    (a replay overwrites the graph's outputs).  On the CPU there is no
+    graph: every call is the traced run.  `tier` is the plancache tier
+    that counts the captures and bounds the pools; `replay_tag`, where
+    set, is the LAUNCHES entry one replay adds besides the kernels it
+    replays."""
+
+    tier: "plancache.ProgramCache"
+    replay_tag: Optional[str] = None
+
+    def __init__(self, device, n_inputs: int):
+        self.captured = False
+        self.pool_bytes = 0
+        self.device = device
+        self._lock = threading.Lock()
+        self.graph = None
+        self.graph_launches: dict = {}
+        # the one input buffer
+        self.inputs = torch.zeros(n_inputs, dtype=torch.int64,
+                                  device=device)
+        self._done = None
+        self._static = None
+        # the device constants the captured graph reads in place
+        self._consts: list = []
+
+    def _traced_run(self):
+        raise NotImplementedError
+
+    def _host_words(self, words: list) -> torch.Tensor:
+        host = torch.tensor(words, dtype=torch.int64)
+        return host.pin_memory() if self.device.type == "cuda" else host
+
+    def _call(self, host: torch.Tensor):
+        """One call with the input buffer set to `host`: the traced run,
+        or a replay and copies of its outputs."""
+        if self.device.type != "cuda":
+            with self._lock:
+                self.inputs.copy_(host)
+                return self._traced_run()
+        with self._lock:
+            cur = torch.cuda.current_stream(self.device)
+            if self._done is not None:
+                cur.wait_event(self._done)
+            self.inputs.copy_(host, non_blocking=True)
+            if self.graph is None:
+                out = self._traced_run()
+            else:
+                self.graph.replay()
+                K.add_launches(self.graph_launches)
+                out = _clone_tree(self._static)
+            if self._done is None:
+                self._done = torch.cuda.Event()
+            self._done.record(cur)
+        return out
+
+    def capture_if_new(self) -> None:
+        """Capture the program (on the card, once): called after a run
+        whose classes fit, so an overflowing class is never captured.
+        On the CPU there is no graph; the program counts as captured at
+        the same point, so the tier's counters read the same there."""
+        if self.captured:
+            return
+        t0 = time.perf_counter()
+        if self.device.type != "cuda":
+            with self._lock:
+                if self.captured:
+                    return
+                self.captured = True
+            self.tier.record_capture(t0)
+            return
+        with self._lock, _CAPTURE_LOCK:
+            if self.graph is not None:
+                return
+            graph = torch.cuda.CUDAGraph()
+            # torch.cuda.graph empties the allocator's cache on entry:
+            # empty it first, so the pool's new segments are the delta
+            torch.cuda.empty_cache()
+            r0 = torch.cuda.memory_reserved(self.device)
+            try:
+                with K.capture_launches() as tally, \
+                        retain_consts() as consts:
+                    with torch.cuda.graph(graph,
+                                          capture_error_mode="thread_local"):
+                        static = self._traced_run()
+            except RuntimeError as e:
+                if "capture" in str(e).lower() or \
+                        "not permitted" in str(e).lower():
+                    raise _MaskedHostRead(str(e)) from e
+                raise
+            self.pool_bytes = max(
+                torch.cuda.memory_reserved(self.device) - r0, 0)
+            self.graph_launches = dict(tally)
+            if self.replay_tag is not None:
+                self.graph_launches[self.replay_tag] = 1
+            self._consts = consts
+            self._static = static
+            self.graph = graph
+            self.captured = True
+        self.tier.record_capture(t0)
+
+    def release(self) -> None:
+        """Drop the graph and its pool (eviction from its tier).  A
+        caller still holding the program runs it eagerly from then on."""
+        with self._lock:
+            self.graph = None
+            self._static = None
+            self._consts = []
+            self.captured = False
+            self.pool_bytes = 0
+
+
+class FusedProgram(CapturedProgram):
     """One fragment at one key: the traced executor over a batch of
     `kclass` query slots, and on the card its captured CUDA graph.
 
@@ -534,10 +664,12 @@ class FusedProgram:
     kclass; the tail pads with the last query) and returns (per-slot
     (cols, valid, nulls), required join totals [kclass, joins])."""
 
+    tier = plancache.FUSED
+
     def __init__(self, ctx, plan, baked: dict, names: list, types: list,
                  factors: dict, kclass: int, entries: dict):
-        self.captured = False
-        self.pool_bytes = 0
+        # the input buffer: snapshots, txids, literal rows
+        super().__init__(ctx.device, kclass * (2 + len(names)))
         self.plan = plan
         self.baked = dict(baked)
         self.names = list(names)
@@ -546,22 +678,10 @@ class FusedProgram:
         self.kclass = kclass
         self.stores = ctx.stores
         self.cache = ctx.cache
-        self.device = ctx.device
         # the program reads these staged tensors in place (and keeps
         # them alive for as long as it may replay)
         self.staged = {t: (e.arrs, e.n) for t, e in entries.items()}
         self.meta: dict = {}
-        self._lock = threading.Lock()
-        self.graph = None
-        self.graph_launches: dict = {}
-        n_l = len(self.names)
-        # the one input buffer: snapshots, txids, literal rows
-        self.inputs = torch.zeros(kclass * (2 + n_l), dtype=torch.int64,
-                                  device=self.device)
-        self._done = None
-        self._static = None
-        # the device constants the captured graph reads in place
-        self._consts: list = []
 
     # -- the traced run ---------------------------------------------------
     def _views(self):
@@ -608,89 +728,10 @@ class FusedProgram:
         words = [int(q[0]) for q in padded] + [int(q[1]) for q in padded]
         for q in padded:
             words += [_lit_word(v, t) for v, t in zip(q[2], self.types)]
-        host = torch.tensor(words, dtype=torch.int64)
-        return host.pin_memory() if self.device.type == "cuda" else host
+        return self._host_words(words)
 
     def run(self, queries: list):
-        host = self._pack(queries)
-        if self.device.type != "cuda":
-            with self._lock:
-                self.inputs.copy_(host)
-                return self._traced_run()
-        with self._lock:
-            cur = torch.cuda.current_stream(self.device)
-            if self._done is not None:
-                cur.wait_event(self._done)
-            self.inputs.copy_(host, non_blocking=True)
-            if self.graph is None:
-                outs, req = self._traced_run()
-            else:
-                self.graph.replay()
-                K.add_launches(self.graph_launches)
-                s_outs, s_req = self._static
-                outs = [({n: a.clone() for n, a in cols.items()},
-                         valid.clone(),
-                         {n: a.clone() for n, a in nulls.items()})
-                        for cols, valid, nulls in s_outs]
-                req = s_req.clone()
-            if self._done is None:
-                self._done = torch.cuda.Event()
-            self._done.record(cur)
-        return outs, req
-
-    def capture_if_new(self) -> None:
-        """Capture the program (on the card, once): called after a run
-        whose join totals fit, so an overflowing class is never
-        captured.  On the CPU there is no graph; the program counts as
-        captured at the same point, so the tier's counters read the
-        same there."""
-        if self.captured:
-            return
-        t0 = time.perf_counter()
-        if self.device.type != "cuda":
-            with self._lock:
-                if self.captured:
-                    return
-                self.captured = True
-            plancache.FUSED.record_capture(t0)
-            return
-        with self._lock, _CAPTURE_LOCK:
-            if self.graph is not None:
-                return
-            graph = torch.cuda.CUDAGraph()
-            # torch.cuda.graph empties the allocator's cache on entry:
-            # empty it first, so the pool's new segments are the delta
-            torch.cuda.empty_cache()
-            r0 = torch.cuda.memory_reserved(self.device)
-            try:
-                with K.capture_launches() as tally, \
-                        retain_consts() as consts:
-                    with torch.cuda.graph(graph,
-                                          capture_error_mode="thread_local"):
-                        static = self._traced_run()
-            except RuntimeError as e:
-                if "capture" in str(e).lower() or \
-                        "not permitted" in str(e).lower():
-                    raise _MaskedHostRead(str(e)) from e
-                raise
-            self.pool_bytes = max(
-                torch.cuda.memory_reserved(self.device) - r0, 0)
-            self.graph_launches = dict(tally)
-            self._consts = consts
-            self._static = static
-            self.graph = graph
-            self.captured = True
-        plancache.FUSED.record_capture(t0)
-
-    def release(self) -> None:
-        """Drop the graph and its pool (FUSED-tier eviction).  A caller
-        still holding the program runs it eagerly from then on."""
-        with self._lock:
-            self.graph = None
-            self._static = None
-            self._consts = []
-            self.captured = False
-            self.pool_bytes = 0
+        return self._call(self._pack(queries))
 
 
 # ---------------------------------------------------------------------------

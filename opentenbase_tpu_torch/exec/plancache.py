@@ -10,7 +10,9 @@ port has:
   owns a captured CUDA graph and that graph's private memory pool, so the
   tier's live budget counts pool bytes (FUSED_POOL_BUDGET), where the
   reference counted live XLA executables.  Eviction releases the graph
-  and its pool.  "compiles" counts captures.
+  and its pool.  "compiles" counts captures.  The MESH tier holds the
+  cluster programs of exec/mesh_exec.py (MeshProgram, the whole
+  DataNode side of a plan), its pools bounded by MESH_POOL_BUDGET.
 - get_or_build: the exact-statement plan cache (the CachedPlanSource
   generic-plan arm) behind Session._plan_select, feeding the PLAN tier's
   hit and miss counters.
@@ -33,6 +35,9 @@ _SEQ = itertools.count()
 
 #: bytes of captured-graph memory pools the FUSED tier may hold live
 FUSED_POOL_BUDGET = 24 << 30
+#: bytes of captured-graph memory pools the MESH tier may hold live (a
+#: cluster program holds every DataNode's traced intermediates)
+MESH_POOL_BUDGET = 16 << 30
 
 
 def _pool_bytes(value) -> int:
@@ -133,6 +138,7 @@ class ProgramCache:
 
 FUSED = ProgramCache("fused", max_entries=192,
                      pool_budget=FUSED_POOL_BUDGET)
+MESH = ProgramCache("mesh", max_entries=64, pool_budget=MESH_POOL_BUDGET)
 PLAN = ProgramCache("plan", max_entries=256)
 
 

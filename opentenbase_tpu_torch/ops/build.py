@@ -59,6 +59,8 @@ SIGNATURES = {
     "otbt_fused_scan_agg": [_P, _LL, _P, _P, _P, _I, _P, _P],
     "otbt_exchange_scatter": [_P, _P, _P, _I, _I, _LL, _P, _LL, _P, _P,
                               _P, _P, _P, _I, _P],
+    "otbt_exchange_fixed": [_P, _P, _P, _I, _I, _LL, _P, _P, _P, _P, _P,
+                            _LL, _P, _P, _P, _P, _P, _I, _P],
     "otbt_ann_distances": [_P, _P, _LL, _I, _I, _I, _P, _P],
     "otbt_ann_probe_scan": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _I, _P,
                             _P],

@@ -11,8 +11,9 @@ three parts:
   shape and contiguity, allocates the outputs, launches on PyTorch's
   current stream, raises on a nonzero CUDA status, and adds one to
   LAUNCHES[name] per launch (_count: a launch recorded into a CUDA
-  graph under capture is not a launch; the fused tier adds a captured
-  graph's launches at every replay, exec/fused.py);
+  graph under capture is not a launch; the fused tier and the cluster
+  program add a captured graph's launches at every replay, exec/fused.py
+  and exec/mesh_exec.py, the latter also one "mesh_program" a replay);
 - a plain PyTorch version (`*_plain`) of the same function.  The wrapper
   takes it only for tensors that lie on the CPU (the tests run there);
   for a CUDA tensor it launches the kernel or raises.
@@ -44,11 +45,12 @@ LAUNCHES = {"visibility_mask": 0, "decode_column": 0, "cmp_on_codes": 0,
             "join_probe_counts": 0, "join_expand": 0, "compose_index": 0,
             "semi_mask": 0, "anti_mask": 0, "sort_rows": 0,
             "hash_columns": 0, "bucket_ids": 0, "route_dest": 0,
-            "exchange": 0, "compact": 0, "fused_scan_agg": 0,
+            "exchange": 0, "exchange_fixed": 0, "compact": 0,
+            "fused_scan_agg": 0,
             "ann_distances": 0, "ann_topk": 0, "ann_assign": 0,
             "ann_lloyd_update": 0, "ann_probe_scan": 0,
             "window_bounds": 0, "window_frame_reduce": 0,
-            "range_minmax": 0}
+            "range_minmax": 0, "mesh_program": 0}
 _LAUNCH_LOCK = threading.Lock()
 _CAPTURE = threading.local()
 
@@ -1165,7 +1167,11 @@ def _region(counts: np.ndarray) -> int:
     return next_pow2(max(int(counts.sum(axis=0).max()), 1))
 
 
-def exchange_plain(cols, dest, valid, ndn_dst: int):
+def _exchange_slots_plain(cols, dest, valid, ndn_dst: int):
+    """The exchange's routing, as the plain versions compute it: (rows,
+    k, dtypes, the [nsrc, ndn_dst] int64 count matrix, the global row of
+    each live row in destination order (stable: source order, then row
+    order), its destination, its rank within the destination)."""
     rows, k, dtypes = _exchange_args(cols, dest, valid, ndn_dst)
     dev = valid[0].device
     n = sum(rows)
@@ -1184,17 +1190,20 @@ def exchange_plain(cols, dest, valid, ndn_dst: int):
                          device=dev)
     counts.index_put_((src, d), torch.ones(n, dtype=torch.int64,
                                            device=dev), accumulate=True)
-    counts = counts[:, :ndn_dst].cpu().numpy()
-    region = _region(counts)
     # a stable sort by destination keeps row order within each one
     order = torch.argsort(d, stable=True)
     sd = d[order]
     start = torch.searchsorted(sd, torch.arange(ndn_dst + 1, device=dev))
     rank = torch.arange(n, device=dev) - start[sd]
     keep = sd < ndn_dst
-    slot = sd[keep] * region + rank[keep]
-    take = order[keep]
-    out_valid = torch.zeros(ndn_dst * region, dtype=torch.bool, device=dev)
+    return (rows, k, dtypes, counts[:, :ndn_dst], order[keep], sd[keep],
+            rank[keep])
+
+
+def _scatter_plain(cols, rows, k, dtypes, slot, take, size: int, dev):
+    """Zero-filled [size] output columns with the rows `take` (global
+    row space) at `slot`, and the valid mask of the slots."""
+    out_valid = torch.zeros(size, dtype=torch.bool, device=dev)
     out_valid[slot] = True
     outs = []
     for j in range(k):
@@ -1202,11 +1211,82 @@ def exchange_plain(cols, dest, valid, ndn_dst: int):
         c = torch.cat([cs[j] if cs[j] is not None
                        else torch.zeros(r, dtype=dt, device=dev)
                        for cs, r in zip(cols, rows)])
-        o = torch.zeros(ndn_dst * region, dtype=dt, device=dev)
+        o = torch.zeros(size, dtype=dt, device=dev)
         sv = _SIGNED_VIEW.get(dt, dt)
         o.view(sv)[slot] = _take_rows(c, take).view(sv)
         outs.append(o)
-    return tuple(outs), out_valid, counts, region
+    return tuple(outs), out_valid
+
+
+def exchange_plain(cols, dest, valid, ndn_dst: int):
+    rows, k, dtypes, counts, take, sd, rank = _exchange_slots_plain(
+        cols, dest, valid, ndn_dst)
+    cm = counts.cpu().numpy()
+    region = _region(cm)
+    outs, out_valid = _scatter_plain(cols, rows, k, dtypes,
+                                     sd * region + rank, take,
+                                     ndn_dst * region, valid[0].device)
+    return outs, out_valid, cm, region
+
+
+class _XchgArgs:
+    """The exchange kernels' arguments on CUDA tensors, checked: the
+    host pointer arrays of the sources' destinations, valid masks and
+    row counts, the tile count, and the int64 tile scratch."""
+
+    def __init__(self, name: str, cols, dest, valid, ndn_dst: int):
+        self.rows, self.k, self.dtypes = _exchange_args(cols, dest, valid,
+                                                        ndn_dst)
+        self.lib = lib = _lib()
+        self.nsrc = nsrc = len(self.rows)
+        max_dn = lib.otbt_exchange_max_dn()
+        if nsrc > max_dn or ndn_dst > max_dn:
+            raise ValueError(f"{name}: {nsrc} sources, {ndn_dst} "
+                             f"destinations (1..{max_dn} each)")
+        for s in range(nsrc):
+            _check(valid[s], "valid", (torch.bool,), self.rows[s])
+            if dest is not None:
+                _check(dest[s], "dest", (torch.int32,), self.rows[s])
+            for c in cols[s]:
+                if c is not None and not c.is_contiguous():
+                    raise ValueError(f"{name}: column not contiguous")
+        for dt in self.dtypes:
+            if torch.empty(0, dtype=dt).element_size() not in (1, 2, 4, 8):
+                raise TypeError(f"{name}: unsupported dtype {dt}")
+        self.cols = cols
+        self.dev = dev = valid[0].device
+        arr = ctypes.c_longlong * nsrc
+        self.dptrs = arr(*([0] * nsrc if dest is None else map(_ptr, dest)))
+        self.vptrs = arr(*(_ptr(v) for v in valid))
+        self.nrows = arr(*self.rows)
+        self.tiles = lib.otbt_exchange_tiles(max(self.rows))
+        scratch = nsrc * self.tiles * ndn_dst
+        self.tile_counts = torch.empty(scratch, dtype=torch.int64, device=dev)
+        self.tile_base = torch.empty(scratch, dtype=torch.int64, device=dev)
+        self.pos = torch.empty(max(sum(self.rows), 1), dtype=torch.int64,
+                               device=dev)
+
+    def columns(self, outs):
+        """(source column pointers, output column pointers, widths):
+        the host arrays of the scatter (0 where a source lacks a
+        column)."""
+        nsrc, k = self.nsrc, self.k
+        kk = max(k, 1)
+        ins_p = (ctypes.c_longlong * (nsrc * kk))(
+            *[0 if c is None else _ptr(c) for cs in self.cols for c in cs],
+            *([0] * (nsrc * kk - nsrc * k)))
+        outs_p = (ctypes.c_longlong * kk)(*(_ptr(o) for o in outs))
+        widths = (ctypes.c_int * kk)(*(o.element_size() for o in outs))
+        return ins_p, outs_p, widths
+
+
+def _xchg_inputs(cols, dest, valid):
+    cols = [tuple(c) for c in cols]
+    valid = list(valid)
+    dest = None if dest is None else list(dest)
+    ts = [c for cs in cols for c in cs if c is not None] + valid \
+        + [d for d in (dest or ()) if d is not None]
+    return cols, dest, valid, _on_cpu(*ts)
 
 
 def exchange(cols, dest, valid, ndn_dst: int):
@@ -1228,61 +1308,82 @@ def exchange(cols, dest, valid, ndn_dst: int):
     sizes the outputs (region = next_pow2 of the largest destination's
     rows).  On the card: csrc/exchange.cu (tile histograms, their scan,
     the slot of every row, the scatter of every source's columns)."""
-    cols = [tuple(c) for c in cols]
-    valid = list(valid)
-    dest = None if dest is None else list(dest)
-    ts = [c for cs in cols for c in cs if c is not None] + valid \
-        + [d for d in (dest or ()) if d is not None]
-    if _on_cpu(*ts):
+    cols, dest, valid, on_cpu = _xchg_inputs(cols, dest, valid)
+    if on_cpu:
         return exchange_plain(cols, dest, valid, ndn_dst)
-    rows, k, dtypes = _exchange_args(cols, dest, valid, ndn_dst)
-    lib = _lib()
-    nsrc = len(rows)
-    max_dn = lib.otbt_exchange_max_dn()
-    if nsrc > max_dn or ndn_dst > max_dn:
-        raise ValueError(f"exchange: {nsrc} sources, {ndn_dst} "
-                         f"destinations (1..{max_dn} each)")
-    for s in range(nsrc):
-        _check(valid[s], "valid", (torch.bool,), rows[s])
-        if dest is not None:
-            _check(dest[s], "dest", (torch.int32,), rows[s])
-        for c in cols[s]:
-            if c is not None and not c.is_contiguous():
-                raise ValueError("exchange: column not contiguous")
-    for dt in dtypes:
-        if torch.empty(0, dtype=dt).element_size() not in (1, 2, 4, 8):
-            raise TypeError(f"exchange: unsupported dtype {dt}")
-    dev = valid[0].device
-    arr = ctypes.c_longlong * nsrc
-    dptrs = arr(*([0] * nsrc if dest is None else map(_ptr, dest)))
-    vptrs = arr(*(_ptr(v) for v in valid))
-    nrows = arr(*rows)
-    tiles = lib.otbt_exchange_tiles(max(rows))
-    scratch = nsrc * tiles * ndn_dst
-    tile_counts = torch.empty(scratch, dtype=torch.int64, device=dev)
-    tile_base = torch.empty(scratch, dtype=torch.int64, device=dev)
-    counts = torch.empty(nsrc * ndn_dst, dtype=torch.int64, device=dev)
-    _ok(lib.otbt_exchange_count(dptrs, vptrs, nrows, nsrc, ndn_dst, tiles,
-                                _ptr(tile_counts), _ptr(tile_base),
-                                _ptr(counts), _stream()), "exchange")
-    cm = counts.view(nsrc, ndn_dst).cpu().numpy()
-    region = _region(cm)
-    pos = torch.empty(max(sum(rows), 1), dtype=torch.int64, device=dev)
-    out_valid = torch.zeros(ndn_dst * region, dtype=torch.bool, device=dev)
-    outs = tuple(torch.zeros(ndn_dst * region, dtype=dt, device=dev)
-                 for dt in dtypes)
-    kk = max(k, 1)
-    ins_p = (ctypes.c_longlong * (nsrc * kk))(
-        *[0 if c is None else _ptr(c) for cs in cols for c in cs],
-        *([0] * (nsrc * kk - nsrc * k)))
-    outs_p = (ctypes.c_longlong * kk)(*(_ptr(o) for o in outs))
-    widths = (ctypes.c_int * kk)(*(o.element_size() for o in outs))
-    _ok(lib.otbt_exchange_scatter(dptrs, vptrs, nrows, nsrc, ndn_dst,
-                                  tiles, _ptr(tile_base), region, _ptr(pos),
-                                  _ptr(out_valid), ins_p, outs_p, widths, k,
+    x = _XchgArgs("exchange", cols, dest, valid, ndn_dst)
+    counts = torch.empty(x.nsrc * ndn_dst, dtype=torch.int64, device=x.dev)
+    _ok(x.lib.otbt_exchange_count(x.dptrs, x.vptrs, x.nrows, x.nsrc,
+                                  ndn_dst, x.tiles, _ptr(x.tile_counts),
+                                  _ptr(x.tile_base), _ptr(counts),
                                   _stream()), "exchange")
+    cm = counts.view(x.nsrc, ndn_dst).cpu().numpy()
+    region = _region(cm)
+    out_valid = torch.zeros(ndn_dst * region, dtype=torch.bool,
+                            device=x.dev)
+    outs = tuple(torch.zeros(ndn_dst * region, dtype=dt, device=x.dev)
+                 for dt in x.dtypes)
+    ins_p, outs_p, widths = x.columns(outs)
+    _ok(x.lib.otbt_exchange_scatter(x.dptrs, x.vptrs, x.nrows, x.nsrc,
+                                    ndn_dst, x.tiles, _ptr(x.tile_base),
+                                    region, _ptr(x.pos), _ptr(out_valid),
+                                    ins_p, outs_p, widths, x.k, _stream()),
+        "exchange")
     _count("exchange", 1)
     return outs, out_valid, cm, region
+
+
+def exchange_fixed_plain(cols, dest, valid, ndn_dst: int, region: int):
+    rows, k, dtypes, counts, take, sd, rank = _exchange_slots_plain(
+        cols, dest, valid, ndn_dst)
+    fit = rank < region
+    outs, out_valid = _scatter_plain(cols, rows, k, dtypes,
+                                     sd[fit] * region + rank[fit],
+                                     take[fit], ndn_dst * int(region),
+                                     valid[0].device)
+    over = torch.clamp(counts.sum(dim=0) - int(region), min=0)
+    return outs, out_valid, counts, over
+
+
+def exchange_fixed(cols, dest, valid, ndn_dst: int, region: int):
+    """The exchange in its fixed-capacity form (the reference's static
+    all_to_all buckets, exec/mesh_exec.py:610): as `exchange`, but the
+    caller gives each destination's `region`, and nothing is read back
+    to the host.  Destination d receives its live rows in source order,
+    then in row order, in rows [d * region, d * region + min(R_d,
+    region)) of each output column; a row beyond its destination's
+    region is dropped.  The output valid mask is written in full; the
+    output columns only where it is set (the plain version zero-fills
+    them).
+
+    Returns (output columns, output valid, the [nsrc, ndn_dst] int64
+    count matrix, the [ndn_dst] int64 overflow: rows beyond each
+    region), all on the device.  On the card: csrc/exchange.cu
+    otbt_exchange_fixed, one call, capturable into a CUDA graph."""
+    region = int(region)
+    if region < 1:
+        raise ValueError("exchange_fixed: region must be >= 1")
+    cols, dest, valid, on_cpu = _xchg_inputs(cols, dest, valid)
+    if on_cpu:
+        return exchange_fixed_plain(cols, dest, valid, ndn_dst, region)
+    x = _XchgArgs("exchange_fixed", cols, dest, valid, ndn_dst)
+    dev = x.dev
+    counts = torch.empty((x.nsrc, ndn_dst), dtype=torch.int64, device=dev)
+    totals = torch.empty(ndn_dst, dtype=torch.int64, device=dev)
+    over = torch.empty(ndn_dst, dtype=torch.int64, device=dev)
+    out_valid = torch.empty(ndn_dst * region, dtype=torch.bool, device=dev)
+    outs = tuple(torch.empty(ndn_dst * region, dtype=dt, device=dev)
+                 for dt in x.dtypes)
+    ins_p, outs_p, widths = x.columns(outs)
+    _ok(x.lib.otbt_exchange_fixed(x.dptrs, x.vptrs, x.nrows, x.nsrc,
+                                  ndn_dst, x.tiles, _ptr(x.tile_counts),
+                                  _ptr(x.tile_base), _ptr(counts),
+                                  _ptr(totals), _ptr(over), region,
+                                  _ptr(x.pos), _ptr(out_valid), ins_p,
+                                  outs_p, widths, x.k, _stream()),
+        "exchange_fixed")
+    _count("exchange_fixed", 1)
+    return outs, out_valid, counts, over
 
 
 # ---------------------------------------------------------------------------

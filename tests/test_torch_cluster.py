@@ -91,29 +91,32 @@ def _count_calls(monkeypatch, names):
 
 
 def _watch_exchanges(monkeypatch):
-    """(kernel calls, exchange kinds of every plan the device tier ran,
-    init plans included)."""
+    """(kernel calls, exchange kinds of every run of the DataNode side of
+    every plan the device tier ran, init plans and size-class ladder
+    reruns included)."""
     from opentenbase_tpu_torch.exec import mesh_exec
-    calls = _count_calls(monkeypatch, ("route_dest", "exchange", "compact"))
+    calls = _count_calls(monkeypatch, ("route_dest", "exchange",
+                                       "exchange_fixed", "compact"))
     kinds: list = []
-    run = mesh_exec.MeshRunner.run
+    body = mesh_exec.MeshRunner._run_fragments
 
-    def rec(self, dp, *a, **kw):
+    def rec(self, run, dp, *a, **kw):
         kinds.extend(ex.kind for ex in dp.exchanges)
-        return run(self, dp, *a, **kw)
-    monkeypatch.setattr(mesh_exec.MeshRunner, "run", rec)
+        return body(self, run, dp, *a, **kw)
+    monkeypatch.setattr(mesh_exec.MeshRunner, "_run_fragments", rec)
     return calls, kinds
 
 
 def _assert_exchanges_on_kernels(calls, kinds, ndn):
     """Every redistribute went through K11 (one launch a source
-    DataNode) and K12, every broadcast through K12, every gather
-    through K3 (once a DataNode; once for gather_one): nothing moved
-    rows another way."""
+    DataNode) and K12 (either form), every broadcast through K12, every
+    gather through K3 (once a DataNode; once for gather_one): nothing
+    moved rows another way."""
     red = kinds.count("redistribute")
     assert kinds, "no plan ran on the device tier"
     assert calls["route_dest"] == ndn * red
-    assert calls["exchange"] == red + kinds.count("broadcast")
+    assert calls["exchange"] + calls["exchange_fixed"] \
+        == red + kinds.count("broadcast")
     assert calls["compact"] == ndn * kinds.count("gather") \
         + kinds.count("gather_one")
 

@@ -229,3 +229,23 @@ def test_window_kernels_on_cuda_never_take_the_plain_path(monkeypatch,
     with pytest.raises(RuntimeError, match="no kernel library"):
         _window_call(K, name)()
     assert calls == [1]
+
+
+def test_exchange_fixed_on_cuda_never_takes_the_plain_path(monkeypatch):
+    """The fixed-capacity K12 wrapper given CUDA tensors launches its
+    kernel or raises."""
+    from opentenbase_tpu_torch.ops import kernels as K
+    calls = []
+
+    def no_library():
+        calls.append(1)
+        raise RuntimeError("no kernel library")
+    monkeypatch.setattr(K, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(K, "_lib", no_library)
+    monkeypatch.setattr(K, "exchange_fixed_plain", None)
+    x = torch.zeros(8, dtype=torch.int64)
+    v = torch.ones(8, dtype=torch.bool)
+    d = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        K.exchange_fixed([(x,)], [d], [v], 2, 8)
+    assert calls == [1]

@@ -262,6 +262,7 @@ def test_gathered_window_feeding_a_join_runs_once(sessions, cluster,
     _, t = sessions
     seen, binds = {}, []
     screen, bind = ME.MeshRunner._screen, ME.MeshRunner._bind
+    body = ME.MeshRunner._run_fragments
 
     def watch_screen(self, dp):
         seen["dp"], seen["once"] = dp, screen(self, dp)
@@ -271,8 +272,16 @@ def test_gathered_window_feeding_a_join_runs_once(sessions, cluster,
         binds.append(id(node))
         return bind(node, ex_batches)
 
+    def watch_body(self, run, dp, plans, once, make_ctx):
+        # the plans one run of the DataNode side binds (a program's are
+        # the fragments with their numeric literals masked)
+        seen["plans"] = plans
+        binds.clear()
+        return body(self, run, dp, plans, once, make_ctx)
+
     monkeypatch.setattr(ME.MeshRunner, "_screen", watch_screen)
     monkeypatch.setattr(ME.MeshRunner, "_bind", staticmethod(watch_bind))
+    monkeypatch.setattr(ME.MeshRunner, "_run_fragments", watch_body)
     sql = ("select a.k, a.rk, r.x from (select k, rank() over (order by "
            "v desc, k) as rk from r) a join r on a.k = r.x "
            "where a.rk <= 40 order by a.rk, a.k")
@@ -283,7 +292,8 @@ def test_gathered_window_feeding_a_join_runs_once(sessions, cluster,
     assert len(once) == 1
     (i,) = once
     frag = dp.fragments[i]
-    assert frag.location == "dn" and binds.count(id(frag.plan)) == 1
+    assert frag.location == "dn" \
+        and binds.count(id(seen["plans"][i])) == 1
     out = {ex.index: ex.kind for ex in dp.exchanges
            if ex.source_fragment == i}
     assert out and set(out.values()) <= {"redistribute", "broadcast"}
