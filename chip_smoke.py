@@ -61,7 +61,10 @@ MeshRunner._capture = False), as before the fused tier and the cluster
 program existed.
 Around that it builds the CUDA kernels from opentenbase_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version on small inputs
-(every branch) and on the inputs the main paths gave it, shows from the
+(every branch; K10's radix sort on every case of its CPU model from 0
+rows to 2^22 + 3, K6 on both of its branches, and one sort and one
+join build captured into a CUDA graph and replayed with new inputs) and
+on the inputs the main paths gave it, shows from the
 launch counters (set to 0 before each path, read after it) that each
 path went through each of its kernels, and times the kernels, their
 plain versions, a PyTorch library call where one computes the same
@@ -267,6 +270,207 @@ def small_kernel_check(torch, K):
               f"sort_rows differs ({rows} rows)")
     torch.cuda.synchronize()
     say("kernels vs plain (small inputs and edge branches): ok")
+
+
+# sizes of the sort checks: empty, tiny, the one-block path's edge
+# (4096 rows) on both sides, powers of two +- 1, and the large sizes
+SORT_SIZES = (0, 1, 2, 3, 4095, 4096, 4097, (1 << 16) - 1, (1 << 16) + 1,
+              1 << 20, (1 << 22) + 3)
+
+
+def sort_cases(torch, K, np, rng, n, dev):
+    """(label, [w, n] int64 words) for every case of K10's radix sort:
+    one key spread over +-1e12, all rows equal, heavy duplicates over
+    three words, INT64_MIN and INT64_MAX in one word (span 2^64 - 1),
+    float keys with NaN, +-0.0 and +-inf (ASC and DESC), K5's traced
+    words with zero words (fast branch) and without (exact), the ~valid
+    word all valid and all invalid, the Lloyd update's narrow word, and
+    keys with a constant low or middle digit (skipped passes)."""
+    i64 = np.iinfo(np.int64)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    valid = t(rng.random(n) < 0.85)
+    allv = torch.ones(n, dtype=torch.bool, device=dev)
+    nonev = torch.zeros(n, dtype=torch.bool, device=dev)
+    wide = t(rng.integers(-10**12, 10**12, n))
+    ext = t(rng.choice(np.array([i64.min, i64.max, 0, -1, 1, i64.min + 1,
+                                 i64.max - 1], np.int64), n))
+    fl = t(rng.choice([-1.5, -0.0, 0.0, 2.0, np.nan, -np.nan, np.inf,
+                       -np.inf], n))
+    narrow = tuple(t(rng.integers(0, m, n)) for m in (40, 30, 2))
+    hashed = tuple(t(rng.integers(i64.min, i64.max, n, dtype=np.int64))
+                   for _ in range(2))
+    ow = K.order_words
+    traced = [] if n == 0 else [
+        ("traced K5 words, fast (zero words)",
+         K._group_words_traced_plain(torch.stack(narrow), valid)),
+        ("traced K5 words, exact", K._group_words_traced_plain(
+            torch.stack(hashed), valid))]
+    return traced + [
+        ("one key +-1e12", ow((wide,), valid, (False,))),
+        ("all rows equal", ow((t(np.full(n, 7)),), allv, (False,))),
+        ("heavy duplicates", ow(tuple(t(rng.integers(0, 3, n))
+                                      for _ in range(3)), valid,
+                                (False, True, False))),
+        ("int64 extremes", ow((ext,), valid, (True,))),
+        ("floats NaN +-0 +-inf", ow((fl, fl), valid, (False, True))),
+        ("~valid all valid", ow((wide,), allv, (False,))),
+        ("~valid all invalid", ow((wide,), nonev, (False,))),
+        ("Lloyd keys", torch.where(valid, t(rng.integers(0, 1000, n)),
+                                   1000).unsqueeze(0).contiguous()),
+        # a constant low digit, and a constant middle digit (its pass is
+        # skipped between two that run: the buffer parity must hold)
+        ("constant low digit", ow((t(rng.integers(0, 1 << 16, n) * 256),),
+                                  allv, (False,))),
+        ("constant middle digit", t(np.concatenate([[0], rng.integers(
+            0, 256, max(n - 1, 0)) + (rng.integers(0, 256, max(n - 1, 0))
+                                      << 16)])[:n]).unsqueeze(0)
+         .contiguous()),
+    ]
+
+
+def sort_graph_inputs(torch, K, np, rng, n, dev):
+    """Two input sets for one captured sort and join build whose plans
+    differ: the active passes (hence the buffer parity) and the join's
+    branch (fast, then exact)."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    i64 = np.iinfo(np.int64)
+    allv = torch.ones(n, dtype=torch.bool, device=dev)
+    valid = t(rng.random(n) < 0.8)
+    a = K.order_words((t(rng.integers(-10**12, 10**12, n)),), allv, (False,))
+    b = K.order_words((t(rng.integers(0, 300, n)),), valid, (True,))
+    ja = (t(rng.integers(0, n // 3 + 1, n)), valid)
+    jb = (t(rng.integers(i64.min, i64.max, n, dtype=np.int64)),
+          t(rng.random(n) < 0.6))
+    return [(a, ja), (b, jb)]
+
+
+def sort_kernel_check(torch, K):
+    """K10's radix sort against sort_perm_plain on every case at every
+    size of SORT_SIZES (and its sorted first word against a gather), K6
+    against join_build_plain on both branches and the reference probe,
+    then one sort_perm and one join_build captured into a CUDA graph and
+    replayed twice with new inputs copied in (a plan or parity word that
+    is not reset shows there)."""
+    import numpy as np
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(9)
+    checked = 0
+    for n in SORT_SIZES:
+        for label, words in sort_cases(torch, K, np, rng, n, dev):
+            got = K.sort_perm(words)
+            want = K.sort_perm_plain(words)
+            torch.cuda.synchronize()
+            check(got.shape == (n,) and torch.equal(got, want),
+                  f"sort_perm differs from plain ({label}, {n} rows)")
+            if words.shape[0] > 0:
+                perm, first = K._sort_launch(words, "sort_rows", first=True)
+                check(torch.equal(perm, want)
+                      and torch.equal(first, words[0].index_select(0, want)),
+                      f"sorted first word differs ({label}, {n} rows)")
+            checked += 1
+    imax = np.iinfo(np.int64).max
+    probe = (np.array([7, imax, imax - 3, imax - 1], np.int64),
+             np.array([False, True, True, True]))
+    for n in (4, 3000, 5000, 1 << 18):
+        cases = [probe] if n == 4 else [
+            (rng.integers(-100, n // 3, n).astype(np.int64),
+             rng.random(n) < 0.85),
+            (rng.integers(np.iinfo(np.int64).min, imax, n, dtype=np.int64),
+             rng.random(n) < 0.85),
+            (np.full(n, imax, np.int64), rng.random(n) < 0.5)]
+        for bk, bv in cases:
+            tk, tv = torch.from_numpy(bk).to(dev), torch.from_numpy(bv).to(dev)
+            got = K.join_build(tk, tv)
+            want = K.join_build_plain(tk, tv)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  f"join_build differs from plain ({n} rows)")
+    check(K.join_build_plain(*(torch.from_numpy(x).to(dev) for x in probe)
+                             )[1].tolist() == [2, 3, 1, 0],
+          "join_build_plain's perm on the reference probe")
+    # captured: one sort and one build, replayed with new inputs
+    for n in (3000, 1 << 20):
+        sets = sort_graph_inputs(torch, K, np, rng, n, dev)
+        words = sets[0][0].clone()
+        jk, jv = sets[0][1][0].clone(), sets[0][1][1].clone()
+        K.sort_perm(words)
+        K.join_build(jk, jv)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with K.capture_launches() as tally:
+            with torch.cuda.graph(g):
+                perm = K.sort_perm(words)
+                sk, jp = K.join_build(jk, jv)
+        for rep, (w2, (k2, v2)) in enumerate(reversed(sets)):
+            words.copy_(w2)
+            jk.copy_(k2)
+            jv.copy_(v2)
+            g.replay()
+            torch.cuda.synchronize()
+            check(torch.equal(perm, K.sort_perm_plain(w2)),
+                  f"captured sort_perm differs on replay {rep} ({n} rows)")
+            wk, wp = K.join_build_plain(k2, v2)
+            check(torch.equal(sk, wk) and torch.equal(jp, wp),
+                  f"captured join_build differs on replay {rep} ({n} rows)")
+        check(tally.get("sort_rows") == 1 and tally.get("join_build") == 1,
+              f"capture tally {tally}")
+        del g
+    torch.cuda.synchronize()
+    say(f"sort_perm = plain on {checked} cases x sizes {SORT_SIZES}; "
+        "join_build = plain (both branches, the reference probe); "
+        "captured sort + build replayed with new inputs: ok")
+
+
+def sort_measure(torch, K, card, build_sizes=()):
+    """K10 at 2^20 one-key (+-1e12) words against torch.sort(stable=True)
+    and the bytes bound; the one-block path at 4096 rows against the
+    multi-block path at 4097; K6 at the given build sizes on a dense key
+    (fast branch) and a hashed full-range key (exact branch) against
+    torch.sort(stable=True) of the masked keys."""
+    import numpy as np
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(21)
+    m = 1 << 20
+    key = torch.from_numpy(rng.integers(-10**12, 10**12, m)).to(dev)
+    allv = torch.ones(m, dtype=torch.bool, device=dev)
+    words = K.order_words((key,), allv, (False,))
+    k_ms = time_fn(torch, lambda: K.sort_perm(words), reps=20)
+    t_ms = time_fn(torch, lambda: torch.sort(key, stable=True), reps=20)
+    check(torch.equal(K.sort_perm(words), torch.sort(key, stable=True)[1]),
+          "sort_perm differs from torch.sort at 2^20 rows")
+    say(f"sort 2^20 rows, one int64 key: kernel {k_ms:.4f} ms, torch.sort "
+        f"{t_ms:.4f} ms, bound {3 * m * 8 / HBM_BYTES_PER_S * 1e3:.4f}"
+        f" ms [{card}]")
+    for n in (1024, 4096, 4097, 16384):
+        w = K.order_words((torch.from_numpy(rng.integers(-10**12, 10**12, n))
+                           .to(dev),), torch.from_numpy(rng.random(n) < 0.9)
+                          .to(dev), (False,))
+        ms = time_fn(torch, lambda: K.sort_perm(w), reps=50)
+        say(f"sort {n} rows, 2 words ({'one block' if n <= 4096 else 'multi-block'}"
+            f"): {ms:.4f} ms [{card}]")
+    for n in build_sizes:
+        valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        for label, hi in (("dense", n), ("hashed", None)):
+            keys = torch.from_numpy(
+                rng.integers(0, hi, n) if hi else rng.integers(
+                    np.iinfo(np.int64).min, np.iinfo(np.int64).max, n,
+                    dtype=np.int64)).to(dev)
+            masked = torch.where(valid, keys, K.INT64_MAX)
+            b_ms = time_fn(torch, lambda: K.join_build(keys, valid), reps=20)
+            l_ms = time_fn(torch, lambda: torch.sort(masked, stable=True),
+                           reps=20)
+            got = K.join_build(keys, valid)
+            want = K.join_build_plain(keys, valid)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  f"join_build differs ({label}, {n} rows)")
+            say(f"join_build {n} rows, {label} key: kernel {b_ms:.4f} ms, "
+                f"torch.sort(stable=True) {l_ms:.4f} ms, bound "
+                f"{(9 * n + 16 * n) / HBM_BYTES_PER_S * 1e3:.4f} ms [{card}]")
 
 
 def join_cases(np, rng, n):
@@ -941,14 +1145,11 @@ def call_bytes_ops(name, a, kw, out):
             + (len(ins) + 1) * g * 8
         return by, n * (len(ins) + 1)
     if name == "sort_rows":
+        # the order words read once, the permutation written once; n log2 n
+        # comparisons, whatever the algorithm
         keys, valid = a[0], a[1]
         n = valid.shape[0]
-        m = 1
-        while m < n:
-            m <<= 1
-        words = (1 + len(keys)) * n * 8
-        lg = max(m.bit_length() - 1, 1)
-        return words + n * 8, (m // 2) * lg * (lg + 1) // 2 * (2 + len(keys))
+        return (1 + len(keys)) * n * 8 + n * 8, n * _lg(n)
     if name == "grouped_agg_sort":
         keys, valid, ins, g = a[0], a[1], a[2], int(a[3])
         n = valid.shape[0]
@@ -1182,6 +1383,7 @@ def main():
     t_start = time.perf_counter()
     card = setup(torch)
     small_kernel_check(torch, K)
+    sort_kernel_check(torch, K)
     join_kernel_check(torch, K)
     cluster_kernel_check(torch, K)
     ann_kernel_check(torch, ANN)
@@ -1372,17 +1574,10 @@ def main():
                               profile=args.profile)
     del vp
     window_measure(torch, K, tp, card)
-    # sort at 2^20 rows, one int64 key: the kernel against torch.sort
-    key = torch.from_numpy(rng.integers(-10**12, 10**12, m)).to(dev)
-    allv = torch.ones(m, dtype=torch.bool, device=dev)
-    words = K.order_words((key,), allv, (False,))
-    k_ms = time_fn(torch, lambda: K.sort_perm(words), reps=5)
-    t_ms = time_fn(torch, lambda: torch.sort(key, stable=True), reps=5)
-    check(torch.equal(K.sort_perm(words), torch.sort(key, stable=True)[1]),
-          "sort_perm differs from torch.sort at 2^20 rows")
-    say(f"sort 2^20 rows, one int64 key: kernel {k_ms:.3f} ms, torch.sort "
-        f"{t_ms:.3f} ms, bound {3 * m * 8 / HBM_BYTES_PER_S * 1e3:.4f}"
-        f" ms [{card}]")
+    # K10 at 2^20 and at the one-block path's edge, K6 at Q5's build
+    # sizes on both branches, against torch.sort(stable=True)
+    sort_measure(torch, K, card, sorted({a[0].shape[0] for a, _kw in
+                                         calls2[5]["join_build"]}))
     say("FUSED tier after the run: " + json.dumps(_fused_tier_stats()))
     if args.profile:
         X.Executor._fuse = True

@@ -11,7 +11,7 @@
 //   3. group_words: one packed word per row (the fast branch:
 //      acc = acc * range + (k - min), invalid rows = top), or the words
 //      [invalid, packed (wrapping int64), keys...] (the exact branch);
-//   4. K10's bitonic sort (sort.cu) orders them, row index last;
+//   4. K10's radix sort (sort.cu) orders them, row index last;
 //   5. group_ids: boundary flags over the sorted rows, their exclusive
 //      scan (scan.cuh), the group id of every row scattered back to row
 //      order and each group's first row (`take`, for the key values);
@@ -24,8 +24,10 @@
 // applies the same pack test on the device and writes (fast, top), and
 // group_words_dev, which reads them and always writes the exact branch's
 // 1 + [k > 1] + k words: under the fast branch word 0 is the packed word
-// and the others are 0, which sorts exactly as the one packed word does.  Bound: the sort's passes
-// over the words; the other kernels move a few bytes a row.
+// and the others are 0, which sorts exactly as the one packed word does
+// (the radix sort skips the zero words' passes on the device).  Bound:
+// the sort's active passes over the words; the other kernels move a few
+// bytes a row.
 #include "common.cuh"
 #include "scan.cuh"
 

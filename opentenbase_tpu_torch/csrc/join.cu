@@ -7,12 +7,17 @@
 // join" is a sort-merge join on one int64 key: sort the build side once,
 // find each probe row's run of equal keys, expand the pairs.
 //
-// - Build (K6): invalid rows become key INT64_MAX, then K10's bitonic
-//   sort (sort.cu, called through its C entry) orders the one-word keys
-//   with the row index as the tie-break, which is the stable order of
-//   both reference branches; a gather writes the sorted keys.  Bound:
-//   the sort's passes over the keys (171 passes at 2^18 rows); a radix
-//   sort is later work.
+// - Build (K6): the reference's two branches, chosen on the device with
+//   no host read: one kernel takes the min and max of the valid keys,
+//   the next applies the reference's 62-bit gate in float32 (as
+//   groupsort.cu group_gate does for K5) and writes one word a row: the
+//   fast branch's acc = clip(key - min, 0, rng - 1), rng for an invalid
+//   row; else the key, INT64_MAX for an invalid row.  K10's radix sort
+//   (sort.cu, called through its C entry) orders that word with the row
+//   index as the tie-break and writes the sorted word itself; one
+//   elementwise epilogue turns the fast branch's acc_s back into keys
+//   (INT64_MAX where acc_s >= rng).  Bound: bytes; the sort's active
+//   passes (three for TPC-H's dense keys) dominate.
 // - Probe (K7): a one-thread kernel reads the sorted keys' ends and
 //   decides, on the device, between the reference's two strategies: a
 //   direct-address table of T + 1 slots (T = max(2 nb, np)), filled
@@ -31,8 +36,10 @@
 #include "common.cuh"
 #include "scan.cuh"
 
-extern "C" int otbt_sort_perm(const void* words, int n_words, long long n,
-                              void* perm, long long m, void* stream);
+extern "C" int otbt_sort_perm(const void* words, int w, long long n,
+                              void* scratch, long long scratch_bytes,
+                              void* perm, void* first, void* stream);
+extern "C" long long otbt_sort_scratch_bytes(int w, long long n);
 
 namespace {
 
@@ -44,13 +51,89 @@ __device__ __forceinline__ long long clampll(long long v, long long lo,
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void mask_keys(const long long* __restrict__ keys,
-                          const bool* __restrict__ valid, long long n,
-                          long long* __restrict__ out) {
+// stats: [0] min and [1] max of the valid keys, [2] 1 when a row is valid.
+__global__ void build_stats_init(long long* __restrict__ stats) {
+  stats[0] = kI64Max;
+  stats[1] = (long long)(1ULL << 63);
+  stats[2] = 0;
+}
+
+__global__ void build_stats(const long long* __restrict__ keys,
+                            const bool* __restrict__ valid, long long n,
+                            long long* __restrict__ stats) {
+  long long mn = kI64Max, mx = (long long)(1ULL << 63);
+  int any = 0;
   long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += stride)
-    out[i] = valid[i] ? keys[i] : kI64Max;
+       i < n; i += stride) {
+    if (!valid[i]) continue;
+    long long k = keys[i];
+    mn = k < mn ? k : mn;
+    mx = k > mx ? k : mx;
+    any = 1;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    long long a = __shfl_down_sync(0xffffffffu, mn, off);
+    long long b = __shfl_down_sync(0xffffffffu, mx, off);
+    mn = a < mn ? a : mn;
+    mx = b > mx ? b : mx;
+  }
+  any = __any_sync(0xffffffffu, any);
+  if ((threadIdx.x & 31) == 0 && any) {
+    atomicMin(stats, mn);
+    atomicMax(stats + 1, mx);
+    stats[2] = 1;
+  }
+}
+
+// The reference's gate (ops/kernels.py:317-327), in float32 as there:
+// log2(span + 2) + log2(n + 2) < 62 with a valid row, span as uint64.
+struct BuildGate {
+  bool fast;
+  long long mn, rng;
+};
+
+__device__ __forceinline__ BuildGate build_gate(const long long* stats,
+                                                long long n) {
+  long long mn = stats[0], mx = stats[1];
+  u64 span = mx >= mn ? (u64)mx - (u64)mn : 0ULL;
+  float bits = __fadd_rn(log2f(__fadd_rn(__ull2float_rn(span), 2.0f)),
+                         log2f(__ll2float_rn(n + 2)));
+  BuildGate g;
+  g.fast = bits < 62.0f && stats[2] != 0;
+  g.mn = mn;
+  g.rng = (long long)span + 1;   // used under the gate: span < 2^62
+  return g;
+}
+
+__global__ void build_word(const long long* __restrict__ keys,
+                           const bool* __restrict__ valid, long long n,
+                           const long long* __restrict__ stats,
+                           long long* __restrict__ word) {
+  const BuildGate g = build_gate(stats, n);
+  long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    bool v = valid[i];
+    long long k = keys[i];
+    word[i] = g.fast ? (v ? clampll((long long)((u64)k - (u64)g.mn), 0,
+                                    g.rng - 1)
+                          : g.rng)
+                     : (v ? k : kI64Max);
+  }
+}
+
+// The fast branch's sorted acc back to keys, in place.
+__global__ void build_epilogue(long long n, const long long* __restrict__ stats,
+                               long long* __restrict__ sorted_keys) {
+  const BuildGate g = build_gate(stats, n);
+  if (!g.fast) return;
+  long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    long long a = sorted_keys[i];
+    sorted_keys[i] = a >= g.rng ? kI64Max : a + g.mn;
+  }
 }
 
 // out[i] = src[idx[i]], the index clamped into [0, n_src) (a JAX
@@ -219,22 +302,40 @@ __global__ void join_mask_kernel(const long long* __restrict__ counts,
 
 }  // namespace
 
-// keys, valid: n; masked: n scratch; perm: m = the next power of two
-// >= n; sorted_keys: n.
+// Scratch bytes of otbt_join_build over n build rows: the word, the
+// stats and the sort's scratch.
+extern "C" long long otbt_join_scratch_bytes(long long n) {
+  long long sort = otbt_sort_scratch_bytes(1, n);
+  return sort < 0 ? -1 : ((8 * n + 255) & ~255LL) + 256 + sort;
+}
+
+// keys, valid: n; scratch: otbt_join_scratch_bytes(n) bytes; perm,
+// sorted_keys: n.
 extern "C" int otbt_join_build(const void* keys, const void* valid,
-                               long long n, void* masked, void* perm,
-                               long long m, void* sorted_keys,
-                               void* stream) {
+                               long long n, void* scratch,
+                               long long scratch_bytes, void* perm,
+                               void* sorted_keys, void* stream) {
+  long long need = otbt_join_scratch_bytes(n);
+  if (n < 0 || need < 0 || scratch_bytes < need)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0)
-    mask_keys<<<otbt::grid_for(n), otbt::kThreads, 0, s>>>(
-        (const long long*)keys, (const bool*)valid, n, (long long*)masked);
-  int rc = otbt_sort_perm(masked, 1, n, perm, m, stream);
+  unsigned char* sb = (unsigned char*)scratch;
+  long long* word = (long long*)sb;
+  sb += (8 * n + 255) & ~255LL;
+  long long* stats = (long long*)sb;
+  sb += 256;
+  const long long* k = (const long long*)keys;
+  const bool* v = (const bool*)valid;
+  long long* sk = (long long*)sorted_keys;
+  const int g = otbt::grid_for(n);
+  build_stats_init<<<1, 1, 0, s>>>(stats);
+  build_stats<<<g, otbt::kThreads, 0, s>>>(k, v, n, stats);
+  build_word<<<g, otbt::kThreads, 0, s>>>(k, v, n, stats, word);
+  int rc = otbt_sort_perm(word, 1, n, sb, otbt_sort_scratch_bytes(1, n),
+                          perm, sk, stream);
   if (rc != 0) return rc;
-  if (n > 0)
-    gather_i64<<<otbt::grid_for(n), otbt::kThreads, 0, s>>>(
-        (const long long*)masked, n, (const long long*)perm, n,
-        (long long*)sorted_keys);
+  build_epilogue<<<g, otbt::kThreads, 0, s>>>(n, stats, sk);
   return (int)cudaGetLastError();
 }
 

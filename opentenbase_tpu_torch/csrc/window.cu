@@ -3,7 +3,7 @@
 // table.
 //
 // Replaces opentenbase_tpu/exec/executor.py:1523 _exec_window (everything
-// after its lax.sort, which the port does with K10 sort_perm over the
+// after its lax.sort, which the port does with K10's radix sort over the
 // order words), :1733 _frame_bounds and :1765 _range_minmax.  The
 // reference computes bounds with jnp.roll compares, lax.cummax/cummin
 // and jnp.cumsum scans, a segment_max for the partition's last valid row

@@ -36,13 +36,15 @@ SIGNATURES = {
     "otbt_decode_column": [_P, _I, _P, _I, _I, _LL, _P, _LL, _P],
     "otbt_cmp_on_codes": [_P, _I, _P, _I, _I, _LL, _I, _LL, _P, _LL, _P],
     "otbt_grouped_agg_dense": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
-    "otbt_sort_perm": [_P, _I, _LL, _P, _LL, _P],
+    "otbt_sort_scratch_bytes": [_I, _LL],
+    "otbt_sort_perm": [_P, _I, _LL, _P, _LL, _P, _P, _P],
     "otbt_group_key_stats": [_P, _I, _LL, _P, _P, _P, _P],
     "otbt_group_words": [_P, _I, _LL, _P, _P, _P, _I, _LL, _P, _P],
     "otbt_group_words_dev": [_P, _I, _LL, _P, _P, _P, _P, _P, _P],
     "otbt_group_ids": [_P, _I, _LL, _P, _P, _LL, _P, _P, _P, _P, _P, _P,
                        _P],
-    "otbt_join_build": [_P, _P, _LL, _P, _P, _LL, _P, _P],
+    "otbt_join_scratch_bytes": [_LL],
+    "otbt_join_build": [_P, _P, _LL, _P, _LL, _P, _P, _P],
     "otbt_join_probe_counts": [_P, _LL, _P, _P, _LL, _LL, _P, _P, _P, _P,
                                _P, _P],
     "otbt_join_expand": [_P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P,
@@ -75,6 +77,7 @@ SIGNATURES = {
     "otbt_range_minmax": [_P, _I, _P, _LL, _I, _I, _P, _P],
 }
 RESTYPES = {"otbt_scan_tiles": _LL, "otbt_exchange_tiles": _LL,
+            "otbt_sort_scratch_bytes": _LL, "otbt_join_scratch_bytes": _LL,
             "otbt_exchange_max_dn": _LL, "otbt_ann_topk_scratch": _LL}
 
 _lock = threading.Lock()

@@ -133,13 +133,6 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def _pow2_at_least(n: int) -> int:
-    m = 1
-    while m < n:
-        m <<= 1
-    return m
-
-
 def _scan_tiles(n: int) -> int:
     """Entries of a scan's tile-sum scratch over n rows (csrc/scan.cuh
     sets the tile size; the library reports it)."""
@@ -479,23 +472,40 @@ def sort_perm_plain(words: torch.Tensor) -> torch.Tensor:
     return perm
 
 
-def sort_perm(words: torch.Tensor) -> torch.Tensor:
-    """Sorted row order of `order_words` output: the bitonic kernel on
-    the card, sort_perm_plain on the CPU."""
-    if _on_cpu(words):
-        return sort_perm_plain(words)
+def _sort_launch(words: torch.Tensor, name: str, first: bool = False):
+    """K10's radix sort of [w, n] int64 words on the card: (perm, word 0
+    in sorted order or None).  The scratch comes from torch, so under
+    capture it lands in the graph's pool."""
     if words.dtype != torch.int64 or words.dim() != 2 \
             or not words.is_contiguous():
         raise ValueError("words: want a contiguous [w, n] int64 tensor")
     w, n = words.shape
-    m = 1
-    while m < n:
-        m <<= 1
-    perm = torch.empty(m, dtype=torch.int64, device=words.device)
-    rc = _lib().otbt_sort_perm(_ptr(words), w, n, _ptr(perm), m, _stream())
-    _ok(rc, "sort_rows")
+    dev = words.device
+    lib = _lib()
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
+    out0 = torch.empty(n, dtype=torch.int64, device=dev) if first else None
+    nbytes = lib.otbt_sort_scratch_bytes(w, n)
+    if nbytes < 0:
+        raise RuntimeError(f"CUDA kernel {name}: the card's occupancy "
+                           "query failed")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) \
+        if nbytes else None
+    _ok(lib.otbt_sort_perm(_ptr(words), w, n,
+                           None if scratch is None else _ptr(scratch),
+                           nbytes, _ptr(perm),
+                           None if out0 is None else _ptr(out0),
+                           _stream()), name)
+    return perm, out0
+
+
+def sort_perm(words: torch.Tensor) -> torch.Tensor:
+    """Sorted row order of `order_words` output: K10's stable LSD radix
+    sort on the card (csrc/sort.cu), sort_perm_plain on the CPU."""
+    if _on_cpu(words):
+        return sort_perm_plain(words)
+    perm, _ = _sort_launch(words, "sort_rows")
     _count("sort_rows", 1)
-    return perm[:n]
+    return perm
 
 
 def _sort_rows(key_cols, valid, payload_cols, descs, limit, perm_fn):
@@ -738,10 +748,7 @@ def grouped_agg_sort(key_cols: tuple, valid, agg_inputs: tuple,
         _ok(lib.otbt_group_words(_ptr(ints), k, n, _ptr(valid), _ptr(mins),
                                  _ptr(maxs), int(fast), top, _ptr(words),
                                  _stream()), "grouped_agg_sort")
-    m = _pow2_at_least(n)
-    perm = torch.empty(m, dtype=torch.int64, device=dev)
-    _ok(lib.otbt_sort_perm(_ptr(words), w, n, _ptr(perm), m, _stream()),
-        "grouped_agg_sort")
+    perm, _ = _sort_launch(words, "grouped_agg_sort")
     flags = torch.empty(n, dtype=torch.uint8, device=dev)
     excl = torch.empty(n, dtype=torch.int64, device=dev)
     tiles = torch.empty(_scan_tiles(n), dtype=torch.int64, device=dev)
@@ -764,36 +771,62 @@ def grouped_agg_sort(key_cols: tuple, valid, agg_inputs: tuple,
 # expand pairs, compose indices (reference: ops/kernels.py:306-468)
 # ---------------------------------------------------------------------------
 
+def _build_gate_plain(build_keys, build_valid):
+    """The reference's join_build gate (ops/kernels.py:317-327): (fast,
+    min, rng) from the valid keys' span, in float32 as there."""
+    n = build_keys.shape[0]
+    if n == 0 or not bool(build_valid.any()):
+        return False, 0, 0
+    i64 = torch.iinfo(torch.int64)
+    mn = int(torch.where(build_valid, build_keys, i64.max).min())
+    mx = int(torch.where(build_valid, build_keys, i64.min).max())
+    fast, rng = _pack_gate([mn], [mx], n)
+    return fast, mn, rng
+
+
 def join_build_plain(build_keys, build_valid):
-    keys = torch.where(build_valid, build_keys,
-                       torch.full((), INT64_MAX, dtype=torch.int64,
-                                  device=build_keys.device))
+    fast, mn, rng = _build_gate_plain(build_keys, build_valid)
+    if fast:
+        # one word: the key's offset, an invalid row above every valid one
+        acc = torch.where(build_valid, torch.clamp(build_keys - mn, 0,
+                                                   rng - 1), rng)
+        perm = sort_perm_plain(acc.unsqueeze(0))
+        acc_s = acc[perm]
+        return torch.where(acc_s >= rng, INT64_MAX, acc_s + mn), perm
+    keys = torch.where(build_valid, build_keys, INT64_MAX)
     perm = sort_perm_plain(keys.unsqueeze(0))
     return keys[perm], perm
 
 
 def join_build(build_keys, build_valid):
     """Sort the build side: (sorted keys, perm), invalid rows as key
-    INT64_MAX, stable (ties keep row order).  That is the result of
-    both reference branches (the single-word pack and argsort).  On the
-    card: a masking kernel, K10's sort kernel on the one-word order,
-    and a gather kernel (join.cu)."""
+    INT64_MAX, stable (ties keep row order), by the reference's two
+    branches: when the valid keys' span times n fits 62 bits (its
+    float32 gate) the one word acc = key - min (rng = span + 1 for an
+    invalid row, after every valid row), else the masked key.  On the
+    card: the key stats, the gate and the word are kernels of join.cu,
+    the order is K10's radix sort, whose sorted word becomes the sorted
+    keys in one elementwise epilogue; no host read."""
     if _on_cpu(build_keys, build_valid):
         return join_build_plain(build_keys, build_valid)
     n = build_keys.shape[0]
     _check(build_keys, "build_keys", (torch.int64,), n)
     _check(build_valid, "build_valid", (torch.bool,), n)
     dev = build_keys.device
-    m = _pow2_at_least(n)
-    masked = torch.empty(n, dtype=torch.int64, device=dev)
-    perm = torch.empty(m, dtype=torch.int64, device=dev)
+    lib = _lib()
+    nbytes = lib.otbt_join_scratch_bytes(n)
+    if nbytes < 0:
+        raise RuntimeError("CUDA kernel join_build: the card's occupancy "
+                           "query failed")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
     sorted_keys = torch.empty(n, dtype=torch.int64, device=dev)
-    rc = _lib().otbt_join_build(_ptr(build_keys), _ptr(build_valid), n,
-                                _ptr(masked), _ptr(perm), m,
-                                _ptr(sorted_keys), _stream())
+    rc = lib.otbt_join_build(_ptr(build_keys), _ptr(build_valid), n,
+                             _ptr(scratch), nbytes, _ptr(perm),
+                             _ptr(sorted_keys), _stream())
     _ok(rc, "join_build")
     _count("join_build", 1)
-    return sorted_keys, perm[:n]
+    return sorted_keys, perm
 
 
 def join_probe_counts_plain(sorted_keys, probe_keys, probe_valid):
