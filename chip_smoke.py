@@ -62,15 +62,25 @@ program existed.
 Around that it builds the CUDA kernels from opentenbase_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version on small inputs
 (every branch; K10's radix sort on every case of its CPU model from 0
-rows to 2^22 + 3, K6 on both of its branches, and one sort and one
-join build captured into a CUDA graph and replayed with new inputs) and
+rows to 2^22 + 3, K6 on both of its branches, one sort and one join
+build captured into a CUDA graph and replayed with new inputs; K13 at
+K13b's scan tile edges, 3 tiles + 5 rows in partitions across every
+tile boundary, all rows invalid, every argument NULL and 2^22 + 3 rows,
+K13b captured and replayed with new inputs across a group of scan
+tiles, its kernel launches and memsets a call from torch.profiler; K9's
+masks at 1, 15, 16, 17 and
+2^20 + 3 rows and on views offset by one element) and
 on the inputs the main paths gave it, shows from the
 launch counters (set to 0 before each path, read after it) that each
 path went through each of its kernels, and times the kernels, their
 plain versions, a PyTorch library call where one computes the same
-function, and the queries.
+function, and the queries; for K13b and K9's masks also the device-only
+time (the recorded calls captured into a CUDA graph and replayed) and the
+host time of a wrapper call.
 
 Run from the repository root:  python3 chip_smoke.py  [--sf 1.0]
+(--checks: only build the kernels and run the kernel checks, about half
+a minute)
 It needs one CUDA card and fails (exit code != 0, no result line)
 without one.  The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -218,6 +228,13 @@ def small_kernel_check(torch, K):
     import numpy as np
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(0)
+    # every wrapper launches on the stream K._stream() names
+    side = torch.cuda.Stream()
+    for st in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(st):
+            check(K._stream() == st.cuda_stream,
+                  f"K._stream() {K._stream():#x}, current stream "
+                  f"{st.cuda_stream:#x}")
     n = 1000
     cols = [torch.from_numpy(rng.integers(0, 5, n).astype(np.int64)).to(dev)
             for _ in range(4)]
@@ -633,6 +650,7 @@ def join_kernel_check(torch, K):
                           GROUP_KINDS, f"traced, case {i}, {n} rows")
             compare_group(torch, traced, K.grouped_agg_sort_plain(*args),
                           GROUP_KINDS, f"traced vs eager, case {i}, {n} rows")
+    mask_check(torch, K, np, rng, t)
     # visibility with the snapshot and txid in device memory
     cols = [t(rng.integers(0, 5, 5000).astype(np.int64)) for _ in range(4)]
     snap = torch.tensor(3, dtype=torch.int64, device=dev)
@@ -643,6 +661,28 @@ def join_kernel_check(torch, K):
     torch.cuda.synchronize()
     say("join / group-by / hash kernels vs plain (both branches, small and "
         "large inputs): ok")
+
+
+MASK_SIZES = (1, 15, 16, 17, (1 << 20) + 3)
+
+
+def mask_check(torch, K, np, rng, t):
+    """K9's semi / anti masks at lengths around the kernel's 16-row group
+    and past 2^20, on contiguous tensors and on views offset by one
+    element (counts 8 bytes off a 16-byte boundary, probe_valid 1 byte),
+    against their plain versions."""
+    for n in MASK_SIZES:
+        cnt = t(rng.integers(0, 3, n + 1))
+        pv = t(rng.random(n + 1) < 0.7)
+        for label, c, v in (("aligned", cnt[:n], pv[:n]),
+                            ("counts offset", cnt[1:], pv[:n]),
+                            ("probe_valid offset", cnt[:n], pv[1:]),
+                            ("both offset", cnt[1:], pv[1:])):
+            check(torch.equal(K.semi_mask(c), K.semi_mask_plain(c)),
+                  f"semi_mask differs ({n} rows, {label})")
+            check(torch.equal(K.anti_mask(c, v), K.anti_mask_plain(c, v)),
+                  f"anti_mask differs ({n} rows, {label})")
+    torch.cuda.synchronize()
 
 
 def compare_exchange(torch, got, want, what):
@@ -802,15 +842,19 @@ def compare_window(torch, got, want, what, rtol=0.0):
     return err
 
 
-def window_case(torch, K, rng, n, n_part, n_order, float_order, dev):
+def window_case(torch, K, rng, n, n_part, n_order, float_order, dev,
+                p_valid=0.8, part_width=None):
     """Sorted order words as the executor makes them (K10 over keys with
     ties, NaN and +-0.0, invalid rows anywhere in the input), and their
-    sort permutation and sorted validity."""
+    sort permutation and sorted validity.  part_width: the first
+    partition key is row // part_width (partitions of that many rows)."""
     import numpy as np
-    valid = rng.random(n) < 0.8
+    valid = rng.random(n) < p_valid
     keys, descs = [], []
-    for _ in range(n_part):
-        keys.append(torch.from_numpy(rng.integers(0, 3, n)).to(dev))
+    for j in range(n_part):
+        keys.append(torch.from_numpy(
+            np.arange(n) // part_width if part_width and j == 0
+            else rng.integers(0, 3, n)).to(dev))
         descs.append(False)
     for j in range(n_order):
         if float_order and j == 0:
@@ -833,23 +877,45 @@ WIN_FRAMES = (None, ("rows", ("preceding", 2), ("following", 1)),
               ("rows", ("following", 1), ("following", 4)),
               ("range", ("unbounded_preceding", None), ("current", None)),
               ("range", ("current", None), ("unbounded_following", None)))
+WIN_SCAN_FUNCS = ("count", "sum", "avg", "min", "max")   # K13b: scan + frame
+
+
+def window_cases(K):
+    """(n, n_part, n_order, float order, p_valid, part_width, p_null) of
+    window_kernel_check: small sizes, the K13b scan tile's edges (tile
+    - 1, tile, tile + 1), 3 tiles + 5 rows in partitions of 5000 rows
+    (every tile boundary inside a partition), all rows invalid, every
+    argument NULL, 2^20 + 3 and 2^22 + 3 rows."""
+    t = K._WFR_TILE
+    return ((1, 0, 1, False, 0.8, None, 0.2), (1, 1, 0, False, 0.8, None, 0.2),
+            (2, 0, 0, False, 0.8, None, 0.2), (37, 1, 1, True, 0.8, None, 0.2),
+            (1000, 2, 1, True, 0.8, None, 0.2),
+            (1025, 0, 2, False, 0.8, None, 0.2),
+            (t - 1, 1, 1, False, 0.8, None, 0.2),
+            (t, 1, 1, True, 0.8, None, 0.2),
+            (t + 1, 0, 1, False, 0.8, None, 0.2),
+            (3 * t + 5, 1, 1, False, 1.0, 5000, 0.2),
+            (3 * t + 5, 1, 1, False, 0.0, None, 0.2),
+            (3 * t + 5, 1, 1, False, 0.8, None, 1.0),
+            ((1 << 20) + 3, 1, 1, True, 0.8, None, 0.2),
+            ((1 << 22) + 3, 1, 1, False, 0.8, None, 0.2))
 
 
 def window_kernel_check(torch, K):
     """K13a-K13c against their plain versions on inputs that take every
-    branch: n = 1 to 2^20 + 3, partition / order word counts, NaN and
-    +-0.0 order keys, invalid rows sorted to the end, every function
-    over every frame kind, int64 and f64 arguments with NULLs, lag/lead
-    with and without a default."""
+    branch: every size of window_cases, partition / order word counts,
+    NaN and +-0.0 order keys, invalid rows sorted to the end, every
+    function over every frame kind, int64 and f64 arguments with NULLs,
+    lag/lead with and without a default; then K13b captured into a CUDA
+    graph and replayed twice with new inputs, and the kernel launches
+    and memsets of one K13b call of each function (torch.profiler)."""
     import numpy as np
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(5)
-    for n, n_part, n_order, flt in ((1, 0, 1, False), (1, 1, 0, False),
-                                    (2, 0, 0, False), (37, 1, 1, True),
-                                    (1000, 2, 1, True), (1025, 0, 2, False),
-                                    ((1 << 20) + 3, 1, 1, True)):
-        words, fw, s_valid, perm = window_case(torch, K, rng, n, n_part,
-                                               n_order, flt, dev)
+    cases = window_cases(K)
+    for n, n_part, n_order, flt, p_valid, width, p_null in cases:
+        words, fw, s_valid, perm = window_case(
+            torch, K, rng, n, n_part, n_order, flt, dev, p_valid, width)
         bounds = K.window_bounds(words, n_part, fw, s_valid)
         compare_window(torch, bounds, K.window_bounds_plain(
             words, n_part, fw, s_valid), f"window_bounds n={n}")
@@ -857,7 +923,7 @@ def window_kernel_check(torch, K):
             a = torch.from_numpy(rng.integers(-50, 50, n)).to(dev)
             if is_f:
                 a = a.to(torch.float64) * 0.25
-            anm = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+            anm = torch.from_numpy(rng.random(n) < p_null).to(dev)
             dflt = torch.from_numpy(rng.integers(-9, 9, n)).to(dev).to(
                 a.dtype)
             dnull = torch.from_numpy(rng.random(n) < 0.3).to(dev)
@@ -885,15 +951,92 @@ def window_kernel_check(torch, K):
                             torch, K.window_frame_reduce(*args, **kw),
                             K.window_frame_reduce_plain(*args, **kw),
                             f"window_frame_reduce {func} n={n} {fr} "
-                            f"{'f64' if is_f else 'int64'}", rtol=WIN_RTOL)
+                            f"{'f64' if is_f else 'int64'} valid {p_valid} "
+                            f"null {p_null}", rtol=WIN_RTOL)
         cnt = K.window_frame_reduce("count", bounds, K.window_frame(None, 1),
                                     perm, s_valid)
         compare_window(torch, cnt, K.window_frame_reduce_plain(
             "count", bounds, K.window_frame(None, 1), perm, s_valid),
             f"count(*) n={n}")
     torch.cuda.synchronize()
-    say("window kernels (K13a-c) vs plain (every function and frame kind, "
-        "n = 1 to 2^20 + 3): ok")
+    window_graph_check(torch, K, rng, dev)
+    launches = window_call_launches(torch, K, rng, dev)
+    say(f"window kernels (K13a-c) vs plain (every function and frame kind, "
+        f"n = {', '.join(str(c[0]) for c in cases)}; all invalid, all NULL): "
+        "ok; K13b captured at 33 tiles + 5 rows and replayed twice with new "
+        "inputs: ok; K13b "
+        "kernel launches (+ memsets) a call: " + ", ".join(
+            f"{f} {_g(k)}" + (f" + {_g(m)}" if m else "")
+            for f, (k, m) in launches.items()))
+
+
+def window_graph_check(torch, K, rng, dev):
+    """sum (f64), avg and count over a ROWS frame at 33 tiles + 5 rows
+    (past the scan's group of 32 tiles, so each replay reads a group
+    prefix another tile published), captured into one CUDA graph,
+    replayed twice with other inputs copied in: each replay equals the
+    plain versions on its inputs (a tile counter, status word or group
+    flag that is not reset shows here)."""
+    n = 33 * K._WFR_TILE + 5
+    frame = K.window_frame(WIN_FRAMES[1], True)
+    sets = []
+    for _ in range(3):
+        words, fw, s_valid, perm = window_case(torch, K, rng, n, 1, 1, False,
+                                               dev)
+        bounds = K.window_bounds(words, 1, fw, s_valid)
+        a = torch.from_numpy(rng.integers(-50, 50, n)).to(dev)
+        anm = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+        sets.append([*bounds, perm, s_valid, a, a.to(torch.float64) * 0.25,
+                     anm])
+
+    def run(fn, x):
+        bounds, (perm, s_valid, a, af, anm) = tuple(x[:5]), x[5:]
+        return (fn("sum", bounds, frame, perm, s_valid, af, anm),
+                fn("avg", bounds, frame, perm, s_valid, a, anm, scale=2),
+                fn("count", bounds, frame, perm, s_valid, a, anm))
+    static = [x.clone() for x in sets[0]]
+    run(K.window_frame_reduce, static)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with K.capture_launches() as tally:
+        with torch.cuda.graph(g):
+            outs = run(K.window_frame_reduce, static)
+    for rep, x in enumerate(sets[1:]):
+        for dst, src in zip(static, x):
+            dst.copy_(src)
+        g.replay()
+        torch.cuda.synchronize()
+        for got, want, f in zip(outs, run(K.window_frame_reduce_plain, x),
+                                ("sum", "avg", "count")):
+            compare_window(torch, got, want, f"captured window_frame_reduce "
+                           f"{f}, replay {rep}", rtol=WIN_RTOL)
+    check(tally.get("window_frame_reduce") == 3, f"capture tally {tally}")
+    del g
+
+
+def window_call_launches(torch, K, rng, dev):
+    """func -> (kernel launches, memsets) of one K13b call at 3 tiles + 5
+    rows, from torch.profiler; fails past 2 launches and 1 memset for a
+    frame function that reads the prefixes, 1 launch for the others."""
+    n = 3 * K._WFR_TILE + 5
+    words, fw, s_valid, perm = window_case(torch, K, rng, n, 1, 1, False, dev)
+    bounds = K.window_bounds(words, 1, fw, s_valid)
+    a = torch.from_numpy(rng.integers(-50, 50, n)).to(dev)
+    anm = torch.from_numpy(rng.random(n) < 0.2).to(dev)
+    out = {}
+    for func in K.WIN_FUNCS:
+        table = K.range_minmax(a, s_valid & ~anm, func == "min") \
+            if func in ("min", "max") else None
+        frame = K.window_frame(WIN_FRAMES[1], True)
+        k, m = kernel_launches(
+            torch, lambda: K.window_frame_reduce(
+                func, bounds, frame, perm, s_valid, a, anm, table=table))
+        scan = func in WIN_SCAN_FUNCS
+        check(k <= (2 if scan else 1)
+              and m <= (1 if scan else 0),
+              f"window_frame_reduce {func}: {k} launches, {m} memsets")
+        out[func] = (k, m)
+    return out
 
 
 def compare_agg(got, want, kinds, what):
@@ -1098,6 +1241,74 @@ def time_fn(torch, fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
+def _g(x) -> str:
+    """A count a call, or "-" where it was not measured."""
+    return "-" if x is None else f"{x:g}"
+
+
+def graph_device_ms(torch, fn, reps=20):
+    """Device ms a call of `fn`: `reps` calls captured into one CUDA
+    graph and replayed between CUDA events, so no host dispatch is in
+    the time (the graph's own gaps between kernels are)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    ms = time_fn(torch, g.replay, reps=5) / reps
+    del g
+    return ms
+
+
+def _profiled(torch, fn, reps):
+    """The device-side event names of `reps` calls of `fn` under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA]
+
+
+def kernel_launches(torch, fn, reps=4):
+    """(kernel launches, memsets) a call of `fn`, from the device-side
+    events of `reps` calls under torch.profiler; fails when a window's
+    counts are not whole numbers a call (the profiler lost events) twice
+    running."""
+    fn()
+    for _window in range(2):
+        names = [x.lower() for x in _profiled(torch, fn, reps)]
+        memsets = sum("memset" in x for x in names)
+        kernels = sum("memset" not in x and "memcpy" not in x
+                      for x in names)
+        if kernels > 0 and kernels % reps == 0 and memsets % reps == 0:
+            return kernels // reps, memsets // reps
+    raise SmokeFailure(f"torch.profiler lost device events: {kernels} "
+                       f"kernels, {memsets} memsets over {reps} calls")
+
+
+def device_host_ms(torch, fn, reps=20):
+    """(device ms, host ms), each per call of `fn`: graph_device_ms (no
+    host dispatch in it; the graph's gaps between kernels are), and the
+    host clock around `reps` calls that are not waited for (what the
+    wrapper costs the host, enqueue included)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return graph_device_ms(torch, fn, reps), host
 
 
 def plain_versions(K):
@@ -1353,6 +1564,10 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also split warm Q1/Q6/Q3/Q5 into session phases "
                     "and profile one of each (torch.profiler)")
+    ap.add_argument("--checks", action="store_true",
+                    help="only build the kernels and hold each against its "
+                    "plain version on the small and large inputs above "
+                    "(no data load)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "opentenbase_tpu_torch")):
         print("chip_smoke: opentenbase_tpu_torch/ not found beside this "
@@ -1388,6 +1603,9 @@ def main():
     cluster_kernel_check(torch, K)
     ann_kernel_check(torch, ANN)
     window_kernel_check(torch, K)
+    if args.checks:
+        say(f"kernel checks: ok ({time.perf_counter() - t_start:.1f} s)")
+        return 0
 
     # ---- data: all eight tables ----
     t0 = time.perf_counter()
@@ -1556,6 +1774,8 @@ def main():
                    "tpcds_check": tp["launches_k"][n],
                    "tpcds_cluster2": tp["launches_c"][n]}
         launches = sum(by_path.values())
+        split = device_split(torch, K, n, qcalls[tq][n], card) \
+            if n in DEVICE_SPLIT else {}
         records.append({
             "name": n, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches,
@@ -1563,7 +1783,7 @@ def main():
             "max_abs_err": max_err[n], "ms": ms, "plain_ms": pms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "timed_on": _qname(tq)})
+            "library_ms": lib_ms, "timed_on": _qname(tq), **split})
         say(f"kernel {n}: {len(qcalls[tq][n])} call(s) per {_qname(tq)}, "
             f"{ms:.4f} ms, plain {pms:.4f} ms, bound {max(t_bytes, t_ops):.4f}"
             f" ms ({bytes_ / 1e6:.1f} MB), library "
@@ -3185,6 +3405,36 @@ def _wall(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def _library_fn(torch, K, name, a):
+    """One PyTorch call computing the same function as kernel `name` on
+    the recorded arguments `a`, or None (see _library_ms)."""
+    if name == "decode_column":
+        if a[2] != "pack":
+            return None
+        return lambda: a[0].to(a[1].dtype)
+    if name == "join_build":
+        masked = torch.where(a[1], a[0], K.INT64_MAX)
+        return lambda: torch.sort(masked, stable=True)
+    if name == "join_probe_counts":
+        pk = torch.where(a[2], a[1], K.INT64_MAX - 1)
+        return lambda: (torch.searchsorted(a[0], pk),
+                        torch.searchsorted(a[0], pk, right=True))
+    if name == "compose_index":
+        return lambda: a[0].index_select(0, a[1])
+    if name == "semi_mask":
+        return lambda: a[0] > 0
+    if name == "compact":
+        # boolean-mask indexing of the first column
+        return lambda: a[1][0][a[0]]
+    if name == "window_frame_reduce":
+        # the prefix sum of the argument (of the validity for ranks):
+        # only K13b's scan part
+        x = a[5] if len(a) > 5 and a[5] is not None else a[4].to(
+            torch.int64)
+        return lambda: torch.cumsum(x, 0)
+    return None
+
+
 def _library_ms(torch, K, name, calls):
     """Time of one PyTorch call computing the same function on the same
     inputs, where one exists, summed over the timed calls: the int
@@ -3192,43 +3442,62 @@ def _library_ms(torch, K, name, calls):
     masked build keys (join_build); two torch.searchsorted (the probe's
     match ranges, without the table); index_select (compose_index);
     `counts > 0` (semi_mask); `x[mask]` on the first column (compact);
-    torch.cumsum of the argument (window_frame_reduce's prefix sums).
-    None for the others: no single call computes a visibility mask, a
-    code-space compare, Q1's eleven mixed aggregates, a multi-key sort,
-    a grouped aggregate, a pair expansion, an anti mask, a splitmix64
-    hash or routing, or a partition of rows by destination."""
+    torch.cumsum of the argument (window_frame_reduce's prefix sums, only
+    its scan part).  None for the others: no single call computes a
+    visibility mask, a code-space compare, Q1's eleven mixed aggregates,
+    a multi-key sort, a grouped aggregate, a pair expansion, an anti mask,
+    a splitmix64 hash or routing, or a partition of rows by
+    destination."""
     if not calls:
         return None
     total = 0.0
     for a, _kw in calls:
-        if name == "decode_column":
-            if a[2] != "pack":
-                return None
-            fn = (lambda a=a: a[0].to(a[1].dtype))
-        elif name == "join_build":
-            masked = torch.where(a[1], a[0], K.INT64_MAX)
-            fn = (lambda m=masked: torch.sort(m, stable=True))
-        elif name == "join_probe_counts":
-            pk = torch.where(a[2], a[1], K.INT64_MAX - 1)
-            fn = (lambda sk=a[0], pk=pk: (torch.searchsorted(sk, pk),
-                                          torch.searchsorted(sk, pk,
-                                                             right=True)))
-        elif name == "compose_index":
-            fn = (lambda a=a: a[0].index_select(0, a[1]))
-        elif name == "semi_mask":
-            fn = (lambda a=a: a[0] > 0)
-        elif name == "compact":
-            # boolean-mask indexing of the first column
-            fn = (lambda a=a: a[1][0][a[0]])
-        elif name == "window_frame_reduce":
-            # the prefix sum of the argument (of the validity for ranks)
-            x = a[5] if len(a) > 5 and a[5] is not None else a[4].to(
-                torch.int64)
-            fn = (lambda x=x: torch.cumsum(x, 0))
-        else:
+        fn = _library_fn(torch, K, name, a)
+        if fn is None:
             return None
         total += time_fn(torch, fn)
     return total
+
+
+# kernels whose time is also split into device-only and host time
+DEVICE_SPLIT = ("semi_mask", "anti_mask", "window_frame_reduce")
+
+
+def device_split(torch, K, name, calls, card):
+    """Kernel `name` over its timed calls: device-only ms (device_host_ms:
+    a CUDA graph of the calls) and host ms a wrapper call, and the same
+    two times of its library call (semi_mask's `counts > 0`; for
+    anti_mask the two calls `probe_valid & (counts == 0)`)."""
+    dev = host = ldev = lhost = 0.0
+    lib_ok = True
+    for a, kw in calls:
+        d, h = device_host_ms(torch, lambda: getattr(K, name)(*a, **kw))
+        dev += d
+        host += h
+        fn = _library_fn(torch, K, name, a)
+        if name == "anti_mask":
+            fn = (lambda a=a: a[1] & (a[0] == 0))
+        if fn is None:
+            lib_ok = False
+            continue
+        d, h = device_host_ms(torch, fn)
+        ldev += d
+        lhost += h
+    rec = {"device_ms": dev, "host_ms": host,
+           "torch_device_ms": ldev if lib_ok else None,
+           "torch_host_ms": lhost if lib_ok else None}
+    label = "probe_valid & (counts == 0)" if name == "anti_mask" else \
+        "library"
+    lib = f"{ldev:.4f} ms, host {lhost:.4f} ms" if lib_ok else "-"
+    say(f"kernel {name} split: device-only (CUDA graph) {dev:.4f} ms, host "
+        f"{host:.4f} ms over the calls ({', '.join(_call_names(name, calls))}"
+        f"); {label} device-only {lib} [{card}]")
+    return rec
+
+
+def _call_names(name, calls):
+    """Each recorded call's function (K13b) or the kernel's name."""
+    return [a[0] if isinstance(a[0], str) else name for a, _kw in calls]
 
 
 # ---------------------------------------------------------------------------
@@ -3473,7 +3742,8 @@ def tpcds_path(torch, K, card, sf):
 
 def window_measure(torch, K, tp, card):
     """Each K13 kernel's device ms and bound summed over each window
-    statement's calls, with its launches on that statement."""
+    statement's calls, with its launches on that statement; K13b's
+    device-only ms (device_host_ms: a CUDA graph of the calls)."""
     for q, qcalls in tp["calls"].items():
         if not any(qcalls[n] for n in WINDOW_KERNELS):
             continue
@@ -3487,7 +3757,13 @@ def window_measure(torch, K, tp, card):
             parts.append(f"{n} {ms:.4f} ms (bound "
                          f"{by / HBM_BYTES_PER_S * 1e3:.4f}, "
                          f"{tp['per_q'][q][n]} launches)")
-        say(f"K13 on {_qname(q)}: " + "; ".join(parts) + f" [{card}]")
+        calls = qcalls["window_frame_reduce"]
+        dev = sum(device_host_ms(torch, lambda: K.window_frame_reduce(
+            *a, **kw), reps=5)[0] for a, kw in calls)
+        say(f"K13 on {_qname(q)}: " + "; ".join(parts) +
+            f"; window_frame_reduce device-only (CUDA graph) {dev:.4f} ms ("
+            f"{', '.join(_call_names('window_frame_reduce', calls))}) "
+            f"[{card}]")
 
 
 _WFR_PARAMS = ("func", "bounds", "frame", "s_iota", "s_valid", "a_s",

@@ -32,7 +32,8 @@
 //   stay (0, 0).  Bound: bytes.  A probe row with many matches is
 //   written by one thread: skew serialises, which TPC-H's key joins
 //   (at most a few dozen matches a row) do not show.
-// - Compose (K9) is an int64 gather; the masks are elementwise.
+// - Compose (K9) is an int64 gather; the masks are one elementwise
+//   pass, 16 rows a thread with 16-byte loads and stores.
 #include "common.cuh"
 #include "scan.cuh"
 
@@ -290,14 +291,80 @@ __global__ void expand_pairs(PairCount eff, const long long* __restrict__ lo,
   }
 }
 
-__global__ void join_mask_kernel(const long long* __restrict__ counts,
-                                 const bool* __restrict__ probe_valid,
-                                 long long n, int anti,
-                                 bool* __restrict__ out) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += stride)
-    out[i] = anti ? (probe_valid[i] && counts[i] == 0) : counts[i] > 0;
+// Semi / anti mask, 16 rows a thread in chunks of 512 rows a warp.  The
+// counts come in as eight 16-byte loads a thread (two 8-byte loads each
+// when the view is not 16-byte aligned), lane l taking rows 64 k + 2 l
+// and + 1 of load k, so every load instruction of the warp reads 512
+// contiguous bytes; the 16 mask bytes of a thread go through shared
+// memory back to rows 16 l .. 16 l + 15, where one 16-byte load of
+// probe_valid (anti) and one 16-byte store of the mask are contiguous
+// too.  `out` is 16-byte aligned (the entry refuses another); the rows
+// after the last whole chunk take one thread each.  Bound: bytes (9 a
+// row, 10 for anti).
+constexpr int kMaskThreads = 128;
+constexpr int kMaskChunk = 512;   // rows a warp
+
+__device__ __forceinline__ bool mask_of(long long c, unsigned char v,
+                                        int anti) {
+  return anti ? (v != 0 && c == 0) : c > 0;
+}
+
+__global__ void __launch_bounds__(kMaskThreads)
+join_mask_kernel(const long long* __restrict__ counts,
+                 const unsigned char* __restrict__ probe_valid, long long n,
+                 int anti, long long chunks,
+                 unsigned char* __restrict__ out) {
+  __shared__ __align__(16) unsigned char sh[kMaskThreads / 32][kMaskChunk];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long chunk = (long long)blockIdx.x * (kMaskThreads / 32) + warp;
+  if (chunk < chunks) {
+    const long long base = chunk * kMaskChunk;
+    const long long* c = counts + base + 2 * lane;
+    long long x[16];
+    if ((((unsigned long long)(counts + base)) & 15ULL) == 0) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const longlong2 v =
+            __ldg(reinterpret_cast<const longlong2*>(c + 64 * k));
+        x[2 * k] = v.x;
+        x[2 * k + 1] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        x[2 * k] = __ldg(c + 64 * k);
+        x[2 * k + 1] = __ldg(c + 64 * k + 1);
+      }
+    }
+    unsigned short* sw = reinterpret_cast<unsigned short*>(sh[warp]);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      sw[32 * k + lane] =
+          (unsigned short)((anti ? x[2 * k] == 0 : x[2 * k] > 0) |
+                           ((anti ? x[2 * k + 1] == 0 : x[2 * k + 1] > 0)
+                            << 8));
+    __syncwarp();
+    uint4 m = reinterpret_cast<const uint4*>(sh[warp])[lane];
+    if (anti) {
+      const unsigned char* pv = probe_valid + base + 16 * lane;
+      uint4 v;
+      if ((((unsigned long long)pv) & 15ULL) == 0) {
+        v = __ldg(reinterpret_cast<const uint4*>(pv));
+      } else {
+        unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int q = 0; q < 16; ++q)
+          w[q >> 2] |= (unsigned)(pv[q] != 0) << ((q & 3) * 8);
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      m.x &= v.x; m.y &= v.y; m.z &= v.z; m.w &= v.w;
+    }
+    *reinterpret_cast<uint4*>(out + base + 16 * lane) = m;
+  }
+  // the rows after the last whole chunk, one a thread
+  const long long r = chunks * kMaskChunk +
+                      (long long)blockIdx.x * kMaskThreads + threadIdx.x;
+  if (r < n) out[r] = mask_of(counts[r], anti ? probe_valid[r] : 0, anti);
 }
 
 }  // namespace
@@ -405,11 +472,19 @@ extern "C" int otbt_join_mask(const void* counts, const void* probe_valid,
                               long long n, int anti, void* out,
                               void* stream) {
   if (anti && !probe_valid) return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    join_mask_kernel<<<otbt::grid_for(n), otbt::kThreads, 0,
+  if (((unsigned long long)out) & 15ULL) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const long long chunks = n / kMaskChunk;
+    const long long rest = n - kMaskChunk * chunks;
+    const long long warps_per_block = kMaskThreads / 32;
+    long long blocks = (chunks + warps_per_block - 1) / warps_per_block;
+    const long long rest_blocks = (rest + kMaskThreads - 1) / kMaskThreads;
+    if (blocks < rest_blocks) blocks = rest_blocks;
+    join_mask_kernel<<<(unsigned)blocks, kMaskThreads, 0,
                        (cudaStream_t)stream>>>(
-        (const long long*)counts, (const bool*)probe_valid, n, anti,
-        (bool*)out);
+        (const long long*)counts, (const unsigned char*)probe_valid, n, anti,
+        chunks, (unsigned char*)out);
+  }
   return (int)cudaGetLastError();
 }
 

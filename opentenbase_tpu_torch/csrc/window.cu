@@ -1,5 +1,5 @@
 // Window functions (K13): partition and peer bounds of sorted rows, one
-// window function per launch over its frames, and the min/max sparse
+// window function per call over its frames, and the min/max sparse
 // table.
 //
 // Replaces opentenbase_tpu/exec/executor.py:1523 _exec_window (everything
@@ -16,21 +16,21 @@
 //                             so far (max), and backwards the next peer
 //                             and partition boundary (min); one pass
 //                             finishes p_end and peer_end_v.
-//   otbt_window_frame_reduce  (K13b) block scans of the contributions
-//                             (count, and the int64 or f64 values for
-//                             sum/avg), then one kernel: each row's frame
+//   otbt_window_frame_reduce  (K13b) one single-pass scan of the
+//                             contributions (count, and the int64 or f64
+//                             values for sum/avg: a decoupled look-back,
+//                             below), then one kernel: each row's frame
 //                             [fs, fe], its function and the scatter of
 //                             the result and its null to input order.
 //   otbt_range_minmax         (K13c) the sparse table, one launch per
 //                             level; K13b queries it by two spans.
 //
-// Scans are three-phase (tile reduce, one block scans the tile totals,
-// each tile scans again from its carry), Hillis-Steele in shared memory,
-// generic over the operator: simple and right at any n; a decoupled
-// look-back is later work.  Bound: bytes.  Integer sums wrap like the
-// reference's int64 cumsum (unsigned adds); f64 sums add in another
-// order than the CPU's sequential cumsum, exact for integer-valued
-// data below 2^53.
+// K13a's scans are three-phase (tile reduce, one block scans the tile
+// totals, each tile scans again from its carry), Hillis-Steele in shared
+// memory, generic over the operator.  Bound: bytes.  Integer sums wrap
+// like the reference's int64 cumsum (unsigned adds); f64 sums add in
+// another order than the CPU's sequential cumsum (a fixed one: the same
+// bits every run), exact for integer-valued data below 2^53.
 #include <limits>
 #include <type_traits>
 
@@ -54,9 +54,6 @@ struct OpSum {
   __device__ __forceinline__ long long operator()(long long a,
                                                   long long b) const {
     return (long long)((unsigned long long)a + (unsigned long long)b);
-  }
-  __device__ __forceinline__ double operator()(double a, double b) const {
-    return a + b;
   }
 };
 struct OpMax {
@@ -189,25 +186,6 @@ __device__ __forceinline__ bool contributes(const unsigned char* valid,
                                             long long i) {
   return valid[i] && !(anm != nullptr && anm[i]);
 }
-struct ContribOne {
-  const unsigned char* valid;
-  const unsigned char* anm;
-  __device__ __forceinline__ long long operator()(long long i) const {
-    return contributes(valid, anm, i) ? 1LL : 0LL;
-  }
-};
-// the argument at i as T where it contributes, else 0
-template <class T>
-struct ContribVal {
-  const unsigned char* valid;
-  const unsigned char* anm;
-  const void* a;
-  int a_float;
-  __device__ __forceinline__ T operator()(long long i) const {
-    if (!contributes(valid, anm, i)) return T(0);
-    return a_float ? (T)((const double*)a)[i] : (T)((const long long*)a)[i];
-  }
-};
 template <class T>
 struct StoreT {
   T* o;
@@ -263,9 +241,376 @@ __global__ void bound_finish(long long n, const long long* __restrict__ gv,
 }
 
 // ---- K13b ------------------------------------------------------------
+//
+// Two launches for a frame function (plus one memset): wfr_scan writes
+// the exclusive prefix of the contribution count (int32) and, for
+// sum / avg, of the contributing values, in one pass, and clears the
+// null mask; wfr_frame reads each row's frame bounds, gathers the two
+// prefixes at its ends, computes the function and scatters to input
+// order (of the null mask only the NULL rows' bytes).  The ranks, lag /
+// lead and first / last value are wfr_frame alone.  Bound: bytes; the
+// scatter, a random 8-byte write a row, sets wfr_frame's time.
+//
+// wfr_scan is a decoupled look-back scan: a block takes its tile from an
+// atomic counter (so every lower tile is already running and none waits
+// on a tile that is not resident), loads 16 rows a thread (16-byte
+// loads), scans them in registers, across the warp with shuffles and
+// across the 8 warps through shared memory, and publishes its aggregate.
+// Tiles form groups of 32.  A tile's exclusive prefix is S(g - 1) +
+// P(g, j): S(h) is the left fold, group by group, of each group's sum
+// G(h) (a butterfly over the group's 32 aggregates), published by the
+// group's last tile; P(g, j) is a warp scan of the aggregates of the
+// tiles below it in its own group.  Warp 0 takes the nearest published
+// S(h) and adds the groups above it itself (8 groups a round trip), so
+// no tile waits on another tile's look-back, only on aggregates, which
+// every tile publishes as soon as it has loaded its rows.  Each value
+// has one definition, whichever path computed it: f64 sums are the same
+// bits every run.  Status words are written with release and read
+// relaxed, then a fence; the values beside them are read from L2.
+
+constexpr int kLbThreads = 256;
+constexpr int kLbItems = 16;
+constexpr int kLbTile = kLbThreads * kLbItems;   // 4096 rows a tile
+constexpr int kLbWarps = kLbThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((unsigned long long)p & 15ULL) == 0;
+}
+__device__ __forceinline__ int byte_bit(const unsigned (&w)[4], int q) {
+  return (int)((w[q >> 2] >> ((q & 3) * 8)) & 1u);
+}
+
+struct ScanArgs {
+  long long n;
+  const unsigned char* valid;
+  const unsigned char* anm;   // the argument's NULLs, or null
+  const void* a;              // the argument (sum / avg only)
+  int tiles;
+  int* ctrl;   // [0] the next tile, [1 + t] tile t's aggregate published,
+               // [1 + tiles + g] group g's S(g) published
+  int* agg_c;  // per tile: its count (and sum: agg_s)
+  void* agg_s;
+  int* grp_c;  // per group: S(g), the count (and sum: grp_s)
+  void* grp_s;
+  int* ex_c;   // n + 1 exclusive counts
+  void* ex_s;  // n + 1 exclusive sums (sum / avg only)
+  unsigned char* out_null;   // cleared here (input order), or null
+};
+
+// Every lane gets the same bits: a + b == b + a.
+template <bool kSum, class S>
+__device__ __forceinline__ void warp_sum(int& c, S& s) {
+#pragma unroll
+  for (int d = 16; d >= 1; d >>= 1) {
+    c += __shfl_xor_sync(kFull, c, d);
+    if constexpr (kSum) s = s + __shfl_xor_sync(kFull, s, d);
+  }
+}
+
+// The aggregates of tiles q[u] (those with use[u]): spin until each is
+// published, one fence, then the values (all loads of a step in flight).
+template <int kN, bool kSum, class S>
+__device__ __forceinline__ void load_aggs(const ScanArgs& p, const int* q,
+                                          const bool* use, int* c, S* s) {
+  const int* flags = p.ctrl + 1;
+  int f[kN];
+#pragma unroll
+  for (int u = 0; u < kN; ++u) f[u] = use[u] ? ld_relaxed(flags + q[u]) : 1;
+#pragma unroll
+  for (int u = 0; u < kN; ++u)
+    while (f[u] == 0) f[u] = ld_relaxed(flags + q[u]);
+  __threadfence();
+#pragma unroll
+  for (int u = 0; u < kN; ++u) {
+    c[u] = use[u] ? __ldcg(p.agg_c + q[u]) : 0;
+    s[u] = S(0);
+    if constexpr (kSum)
+      if (use[u]) s[u] = __ldcg((const S*)p.agg_s + q[u]);
+  }
+}
+
+// Warp 0: the exclusive prefix (xc, xs) of tile `tile` whose own
+// aggregate is (bc, bs); the last tile of a group also publishes S(g).
+template <bool kSum, class S>
+__device__ __forceinline__ void look_back(const ScanArgs& p, int tile,
+                                          int lane, int bc, S bs, int& xc,
+                                          S& xs) {
+  const int g = tile >> 5, j = tile & 31;
+  // the tiles of this group: lane l < j loads tile 32 g + l, lane j is
+  // this tile
+  int vc[1];
+  S vs[1];
+  {
+    const int q[1] = {(g << 5) + lane};
+    const bool use[1] = {lane < j};
+    load_aggs<1, kSum, S>(p, q, use, vc, vs);
+    if (lane == j) {
+      vc[0] = bc;
+      vs[0] = bs;
+    }
+  }
+  // P(g, j): Kogge-Stone over (lane < j ? aggregate : 0), at lane j - 1
+  int ic = lane < j ? vc[0] : 0;
+  S is = lane < j ? vs[0] : S(0);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int yc = __shfl_up_sync(kFull, ic, d);
+    S ys = S(0);
+    if constexpr (kSum) ys = __shfl_up_sync(kFull, is, d);
+    if (lane >= d) {
+      ic += yc;
+      if constexpr (kSum) is = ys + is;
+    }
+  }
+  int pc = __shfl_sync(kFull, ic, j > 0 ? j - 1 : 0);
+  S ps = S(0);
+  if constexpr (kSum) ps = __shfl_sync(kFull, is, j > 0 ? j - 1 : 0);
+  if (j == 0) {
+    pc = 0;
+    ps = S(0);
+  }
+  // S(g - 1): the nearest published S(h), then G(h + 1) .. G(g - 1)
+  const int* gflags = p.ctrl + 1 + p.tiles;
+  int h = -1;
+  for (int top = g - 1; top >= 0 && h < 0; top -= 32) {
+    const int q = top - lane;
+    const unsigned m = __ballot_sync(kFull, q >= 0 && ld_relaxed(gflags + q));
+    if (m) h = top - (__ffs(m) - 1);
+  }
+  __threadfence();
+  int sc = 0;
+  S ss = S(0);
+  if (h >= 0) {
+    sc = __ldcg(p.grp_c + h);
+    if constexpr (kSum) ss = __ldcg((const S*)p.grp_s + h);
+  }
+  for (int h0 = h + 1; h0 < g; h0 += 8) {
+    int q[8], gc[8];
+    bool use[8];
+    S gs[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      use[u] = h0 + u < g;
+      q[u] = ((h0 + u) << 5) + lane;
+    }
+    load_aggs<8, kSum, S>(p, q, use, gc, gs);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (h0 + u < g) {
+        warp_sum<kSum, S>(gc[u], gs[u]);
+        sc += gc[u];
+        if constexpr (kSum) ss = ss + gs[u];
+      }
+    }
+  }
+  xc = sc + pc;
+  xs = S(0);
+  if constexpr (kSum) xs = ss + ps;
+  if (j == 31) {   // S(g) = S(g - 1) + G(g)
+    int gc = vc[0];
+    S gs = vs[0];
+    warp_sum<kSum, S>(gc, gs);
+    if (lane == 0) {
+      p.grp_c[g] = sc + gc;
+      if constexpr (kSum) ((S*)p.grp_s)[g] = ss + gs;
+      st_release((int*)gflags + g, 1);
+    }
+  }
+}
+
+// S: the sum's type (unsigned long long wraps as int64 does; double);
+// A: the argument's type.
+template <bool kSum, class S, class A>
+__global__ void __launch_bounds__(kLbThreads) wfr_scan(ScanArgs p) {
+  __shared__ int sh_tile, sh_xc;
+  __shared__ S sh_xs;
+  __shared__ int sh_wc[kLbWarps];
+  __shared__ S sh_ws[kLbWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) sh_tile = atomicAdd(p.ctrl, 1);
+  __syncthreads();
+  const int tile = sh_tile;
+  const long long n = p.n;
+  const long long r0 = (long long)tile * kLbTile + (long long)t * kLbItems;
+  const bool full = r0 + kLbItems <= n;
+
+  // contribution bytes (valid and not NULL, 0 or 1) of the 16 rows
+  unsigned cw[4] = {0u, 0u, 0u, 0u};
+  if (full && aligned16(p.valid) &&
+      (p.anm == nullptr || aligned16(p.anm))) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p.valid + r0));
+    cw[0] = v.x; cw[1] = v.y; cw[2] = v.z; cw[3] = v.w;
+    if (p.anm != nullptr) {
+      const uint4 m = __ldg(reinterpret_cast<const uint4*>(p.anm + r0));
+      cw[0] &= ~m.x; cw[1] &= ~m.y; cw[2] &= ~m.z; cw[3] &= ~m.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kLbItems; ++q)
+      if (r0 + q < n && contributes(p.valid, p.anm, r0 + q))
+        cw[q >> 2] |= 1u << ((q & 3) * 8);
+  }
+  S v[kLbItems];
+  int tc = 0;
+  S ts = S(0);
+#pragma unroll
+  for (int q = 0; q < kLbItems; ++q) v[q] = S(0);
+  if constexpr (kSum) {
+    const A* a = (const A*)p.a;
+    if (full && aligned16(a)) {
+#pragma unroll
+      for (int k = 0; k < kLbItems / 2; ++k) {
+        A x0, x1;
+        if constexpr (std::is_same<A, double>::value) {
+          const double2 d =
+              __ldg(reinterpret_cast<const double2*>(a + r0) + k);
+          x0 = d.x; x1 = d.y;
+        } else {
+          const longlong2 d =
+              __ldg(reinterpret_cast<const longlong2*>(a + r0) + k);
+          x0 = d.x; x1 = d.y;
+        }
+        v[2 * k] = byte_bit(cw, 2 * k) ? (S)x0 : S(0);
+        v[2 * k + 1] = byte_bit(cw, 2 * k + 1) ? (S)x1 : S(0);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kLbItems; ++q)
+        if (byte_bit(cw, q)) v[q] = (S)a[r0 + q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kLbItems; ++q) {
+    tc += byte_bit(cw, q);
+    if constexpr (kSum) ts = ts + v[q];
+  }
+
+  // warp scan of the thread totals, then the warps' totals
+  int ic = tc;
+  S is = ts;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int yc = __shfl_up_sync(kFull, ic, d);
+    S ys = S(0);
+    if constexpr (kSum) ys = __shfl_up_sync(kFull, is, d);
+    if (lane >= d) {
+      ic += yc;
+      if constexpr (kSum) is = ys + is;
+    }
+  }
+  int ec = __shfl_up_sync(kFull, ic, 1);
+  S es = S(0);
+  if constexpr (kSum) es = __shfl_up_sync(kFull, is, 1);
+  if (lane == 0) {
+    ec = 0;
+    es = S(0);
+  }
+  if (lane == 31) {
+    sh_wc[warp] = ic;
+    sh_ws[warp] = is;
+  }
+  __syncthreads();
+  int wc = 0, bc = 0;
+  S wsum = S(0), bs = S(0);
+#pragma unroll
+  for (int k = 0; k < kLbWarps; ++k) {
+    if (k == warp) {
+      wc = bc;
+      wsum = bs;
+    }
+    bc += sh_wc[k];
+    if constexpr (kSum) bs = bs + sh_ws[k];
+  }
+
+  // publish this tile's aggregate, then look back
+  if (t == 0) {
+    p.agg_c[tile] = bc;
+    if constexpr (kSum) ((S*)p.agg_s)[tile] = bs;
+    st_release(p.ctrl + 1 + tile, 1);
+  }
+  if (warp == 0) {
+    int xc;
+    S xs;
+    look_back<kSum, S>(p, tile, lane, bc, bs, xc, xs);
+    if (lane == 0) {
+      sh_xc = xc;
+      sh_xs = xs;
+    }
+  }
+  __syncthreads();
+
+  // each row's exclusive prefix; row n - 1's owner also writes [n].
+  // The prefixes and the cleared null mask are stored evict-first, so
+  // the frame pass's scattered results keep their lines in L2 until
+  // they fill (with the default policy the frame pass was slower).
+  int rc = sh_xc + wc + ec;
+  S rs = S(0);
+  if constexpr (kSum) rs = (sh_xs + wsum) + es;
+  S* ex_s = (S*)p.ex_s;
+  if (full) {
+#pragma unroll
+    for (int k = 0; k < kLbItems / 4; ++k) {
+      int4 o;
+      o.x = rc; rc += byte_bit(cw, 4 * k);
+      o.y = rc; rc += byte_bit(cw, 4 * k + 1);
+      o.z = rc; rc += byte_bit(cw, 4 * k + 2);
+      o.w = rc; rc += byte_bit(cw, 4 * k + 3);
+      __stcs(reinterpret_cast<int4*>(p.ex_c + r0) + k, o);
+    }
+    if constexpr (kSum) {
+#pragma unroll
+      for (int k = 0; k < kLbItems / 2; ++k) {
+        const S s0 = rs;
+        rs = rs + v[2 * k];
+        const S s1 = rs;
+        rs = rs + v[2 * k + 1];
+        if constexpr (std::is_same<S, double>::value)
+          __stcs(reinterpret_cast<double2*>(ex_s + r0) + k,
+                 make_double2(s0, s1));
+        else
+          __stcs(reinterpret_cast<longlong2*>(ex_s + r0) + k,
+                 make_longlong2((long long)s0, (long long)s1));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kLbItems; ++q) {
+      if (r0 + q < n) {
+        p.ex_c[r0 + q] = rc;
+        if constexpr (kSum) ex_s[r0 + q] = rs;
+      }
+      rc += byte_bit(cw, q);
+      if constexpr (kSum) rs = rs + v[q];
+    }
+  }
+  // clear the null mask: the frame pass then writes only the NULL rows,
+  // a scattered byte a row saved where results are rarely NULL
+  if (p.out_null != nullptr) {
+    if (full && aligned16(p.out_null))
+      __stcs(reinterpret_cast<uint4*>(p.out_null + r0),
+             make_uint4(0u, 0u, 0u, 0u));
+    else
+      for (int q = 0; q < kLbItems; ++q)
+        if (r0 + q < n) p.out_null[r0 + q] = 0;
+  }
+  if (r0 < n && r0 + kLbItems >= n) {
+    p.ex_c[n] = rc;
+    if constexpr (kSum) ex_s[n] = rs;
+  }
+}
 
 struct WinArgs {
-  int func;
   long long n;
   const long long *p_start, *peer_start, *peer_end_v, *p_end, *ob_cum;
   const long long* s_iota;
@@ -282,8 +627,8 @@ struct WinArgs {
   int levels;
   int mode, sbk, ebk, has_order;
   long long sk, ek;
-  const long long* ccum;
-  const void* scum;
+  const int* ex_c;    // wfr_scan's outputs
+  const void* ex_s;
   int sum_float;
   long long* out;   // 8-byte results (int64 or f64 bits)
   unsigned char* out_null;
@@ -311,109 +656,144 @@ __device__ __forceinline__ long long minmax_i(long long x, long long y,
   return is_min ? (x < y ? x : y) : (x > y ? x : y);
 }
 
-__global__ void frame_reduce(WinArgs w) {
-  long long stride = (long long)gridDim.x * blockDim.x;
+// One row a thread, the function a template argument.  The row's own
+// entries stream (evict-first loads), so the scattered results stay in
+// L2 until their lines fill.
+template <int F>
+__global__ void __launch_bounds__(256) wfr_frame(WinArgs w) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n = w.n;
+  if (i >= n) return;
   const long long* ai = (const long long*)w.a;
   const double* af = (const double*)w.a;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const long long ps = w.p_start[i];
-    long long bits = 0;
-    bool nul = false;
-    if (w.func == ROW_NUMBER) {
-      bits = i - ps + 1;
-    } else if (w.func == RANK) {
-      bits = w.peer_start[i] - ps + 1;
-    } else if (w.func == DENSE_RANK) {
-      bits = w.ob_cum[i] - w.ob_cum[ps] + 1;
-    } else if (w.func == LAG || w.func == LEAD) {
-      long long src = w.func == LAG ? i - w.offset : i + w.offset;
-      long long srcc = src < 0 ? 0 : (src > n - 1 ? n - 1 : src);
-      bool inside = src >= 0 && src < n && w.p_start[srcc] == ps &&
-                    w.s_valid[srcc];
-      bits = ai[srcc];
-      bool src_null = w.anm != nullptr && w.anm[srcc];
-      if (w.has_default) {
-        if (!inside) bits = ((const long long*)w.dflt)[i];
-        nul = (inside && src_null) ||
-              (!inside && w.dnull != nullptr && w.dnull[i]);
-      } else {
-        nul = !inside || src_null;
-      }
+  const long long ps = __ldcs(w.p_start + i);
+  long long bits = 0;
+  bool nul = false;
+  if constexpr (F == ROW_NUMBER) {
+    bits = i - ps + 1;
+  } else if constexpr (F == RANK) {
+    bits = __ldcs(w.peer_start + i) - ps + 1;
+  } else if constexpr (F == DENSE_RANK) {
+    bits = __ldcs(w.ob_cum + i) - w.ob_cum[ps] + 1;
+  } else if constexpr (F == LAG || F == LEAD) {
+    long long src = F == LAG ? i - w.offset : i + w.offset;
+    long long srcc = src < 0 ? 0 : (src > n - 1 ? n - 1 : src);
+    bool inside = src >= 0 && src < n && w.p_start[srcc] == ps &&
+                  w.s_valid[srcc];
+    bits = ai[srcc];
+    bool src_null = w.anm != nullptr && w.anm[srcc];
+    if (w.has_default) {
+      if (!inside) bits = __ldcs((const long long*)w.dflt + i);
+      nul = (inside && src_null) ||
+            (!inside && w.dnull != nullptr && __ldcs(w.dnull + i));
     } else {
-      const long long pe = w.p_end[i];
-      long long fs, fe;
-      if (w.mode == 0) {
-        fs = ps;
-        fe = w.has_order ? w.peer_end_v[i] : pe;
-      } else if (w.mode == 1) {
-        fs = rows_bound(w.sbk, w.sk, i, ps, pe);
-        fe = rows_bound(w.ebk, w.ek, i, ps, pe);
-        fs = fs > ps ? fs : ps;
-        fe = fe < pe ? fe : pe;
-      } else {
-        fs = w.sbk == UNBOUNDED_PRECEDING ? ps : w.peer_start[i];
-        fe = w.ebk == UNBOUNDED_FOLLOWING ? pe : w.peer_end_v[i];
-      }
-      long long fsc = fs < 0 ? 0 : (fs > n - 1 ? n - 1 : fs);
-      long long fec = fe < 0 ? 0 : (fe > n - 1 ? n - 1 : fe);
-      bool empty = fe < fs || !w.s_valid[i];
-      bool c_fs = contributes(w.s_valid, w.anm, fsc);
-      long long rcount = 0;
-      if (w.ccum != nullptr && !empty)
-        rcount = w.ccum[fec] - (w.ccum[fsc] - (c_fs ? 1 : 0));
-      if (w.func == COUNT) {
-        bits = rcount;
-      } else if (w.func == FIRST_VALUE || w.func == LAST_VALUE) {
-        long long pos = w.func == FIRST_VALUE ? fsc : fec;
-        bits = ai[pos];
-        nul = empty || (w.anm != nullptr && w.anm[pos]);
-      } else if (w.func == MIN || w.func == MAX) {
-        long long len = fec - fsc + 1;
-        if (len < 1) len = 1;
-        int j = 63 - __clzll(len);
-        if (j > w.levels - 1) j = w.levels - 1;
-        if (j < 0) j = 0;
-        long long span = 1LL << j;
-        long long hi_at = fec - span + 1;
-        if (hi_at < 0) hi_at = 0;
-        bool is_min = w.func == MIN;
-        if (w.a_float) {
-          const double* t = (const double*)w.table + (long long)j * n;
-          bits = __double_as_longlong(minmax_f(t[fsc], t[hi_at], is_min));
-        } else {
-          const long long* t = (const long long*)w.table + (long long)j * n;
-          bits = minmax_i(t[fsc], t[hi_at], is_min);
-        }
-        nul = rcount == 0;
-      } else {   // SUM, AVG
-        if (w.sum_float) {
-          const double* sc = (const double*)w.scum;
-          double av = 0.0;
-          if (c_fs) av = w.a_float ? af[fsc] : (double)ai[fsc];
-          double sex = sc[fsc] - av;
-          double rsum = empty ? 0.0 : sc[fec] - sex;
-          if (w.func == AVG) {
-            double den = (double)(rcount > 1 ? rcount : 1);
-            double r = rcount > 0 ? rsum / den / w.pow10 : 0.0;
-            bits = __double_as_longlong(r);
-          } else {
-            bits = __double_as_longlong(rsum);
-          }
-        } else {
-          const unsigned long long* sc = (const unsigned long long*)w.scum;
-          unsigned long long av = c_fs ? (unsigned long long)ai[fsc] : 0ULL;
-          unsigned long long sex = sc[fsc] - av;
-          bits = empty ? 0LL : (long long)(sc[fec] - sex);
-        }
-        nul = rcount == 0;
-      }
+      nul = !inside || src_null;
     }
-    const long long dst = w.s_iota[i];
-    w.out[dst] = bits;
+  } else {
+    const long long pe = __ldcs(w.p_end + i);
+    long long fs, fe;
+    if (w.mode == 0) {
+      fs = ps;
+      fe = w.has_order ? __ldcs(w.peer_end_v + i) : pe;
+    } else if (w.mode == 1) {
+      fs = rows_bound(w.sbk, w.sk, i, ps, pe);
+      fe = rows_bound(w.ebk, w.ek, i, ps, pe);
+      fs = fs > ps ? fs : ps;
+      fe = fe < pe ? fe : pe;
+    } else {
+      fs = w.sbk == UNBOUNDED_PRECEDING ? ps : __ldcs(w.peer_start + i);
+      fe = w.ebk == UNBOUNDED_FOLLOWING ? pe : __ldcs(w.peer_end_v + i);
+    }
+    const long long fsc = fs < 0 ? 0 : (fs > n - 1 ? n - 1 : fs);
+    const long long fec = fe < 0 ? 0 : (fe > n - 1 ? n - 1 : fe);
+    const bool empty = fe < fs || !__ldcs(w.s_valid + i);
+    long long rcount = 0;
+    if constexpr (F != FIRST_VALUE && F != LAST_VALUE)
+      if (!empty) rcount = (long long)(w.ex_c[fec + 1] - w.ex_c[fsc]);
+    if constexpr (F == COUNT) {
+      bits = rcount;
+    } else if constexpr (F == FIRST_VALUE || F == LAST_VALUE) {
+      const long long pos = F == FIRST_VALUE ? fsc : fec;
+      bits = ai[pos];
+      nul = empty || (w.anm != nullptr && w.anm[pos]);
+    } else if constexpr (F == MIN || F == MAX) {
+      long long len = fec - fsc + 1;
+      if (len < 1) len = 1;
+      int j = 63 - __clzll(len);
+      if (j > w.levels - 1) j = w.levels - 1;
+      if (j < 0) j = 0;
+      const long long span = 1LL << j;
+      long long hi_at = fec - span + 1;
+      if (hi_at < 0) hi_at = 0;
+      const bool is_min = F == MIN;
+      if (w.a_float) {
+        const double* t = (const double*)w.table + (long long)j * n;
+        bits = __double_as_longlong(minmax_f(t[fsc], t[hi_at], is_min));
+      } else {
+        const long long* t = (const long long*)w.table + (long long)j * n;
+        bits = minmax_i(t[fsc], t[hi_at], is_min);
+      }
+      nul = rcount == 0;
+    } else {   // SUM, AVG
+      if (w.sum_float) {
+        // the reference's inclusive form, scum[fe] - (scum[fs] - a[fs]):
+        // the inclusive prefix at row j is ex_s[j + 1]
+        const double* sc = (const double*)w.ex_s;
+        double av = 0.0;
+        if (contributes(w.s_valid, w.anm, fsc))
+          av = w.a_float ? af[fsc] : (double)ai[fsc];
+        const double sex = sc[fsc + 1] - av;
+        const double rsum = empty ? 0.0 : sc[fec + 1] - sex;
+        if constexpr (F == AVG) {
+          const double den = (double)(rcount > 1 ? rcount : 1);
+          const double r = rcount > 0 ? rsum / den / w.pow10 : 0.0;
+          bits = __double_as_longlong(r);
+        } else {
+          bits = __double_as_longlong(rsum);
+        }
+      } else {
+        // wrapping int64 sums: the order of the adds does not matter
+        const unsigned long long* sc = (const unsigned long long*)w.ex_s;
+        bits = empty ? 0LL : (long long)(sc[fec + 1] - sc[fsc]);
+      }
+      nul = rcount == 0;
+    }
+  }
+  const long long dst = __ldcs(w.s_iota + i);
+  w.out[dst] = bits;
+  if constexpr (F == SUM || F == AVG || F == MIN || F == MAX) {
+    if (nul && w.out_null != nullptr) w.out_null[dst] = 1;   // cleared
+  } else {
     if (w.out_null != nullptr) w.out_null[dst] = nul ? 1 : 0;
   }
+}
+
+template <int F>
+void launch_frame(const WinArgs& w, cudaStream_t s) {
+  wfr_frame<F><<<(unsigned)((w.n + 255) / 256), 256, 0, s>>>(w);
+}
+
+// Byte offsets of the K13b scratch regions (each 256-aligned).
+struct ScanLayout {
+  long long tiles, groups, ctrl, agg_c, agg_s, grp_c, grp_s, ex_c, ex_s,
+      total;
+};
+
+ScanLayout scan_layout(long long n, bool sums) {
+  auto up = [](long long b) { return (b + 255) & ~255LL; };
+  ScanLayout L;
+  L.tiles = (n + kLbTile - 1) / kLbTile;
+  L.groups = (L.tiles + 31) / 32;
+  long long off = 0;
+  L.ctrl = off;  off += up(4 * (1 + L.tiles + L.groups));
+  L.agg_c = off; off += up(4 * L.tiles);
+  L.agg_s = off; off += sums ? up(8 * L.tiles) : 0;
+  L.grp_c = off; off += up(4 * L.groups);
+  L.grp_s = off; off += sums ? up(8 * L.groups) : 0;
+  L.ex_c = off;  off += up(4 * (n + 1));
+  L.ex_s = off;  off += sums ? up(8 * (n + 1)) : 0;
+  L.total = off;
+  return L;
 }
 
 // ---- K13c ------------------------------------------------------------
@@ -496,17 +876,30 @@ extern "C" int otbt_window_bounds(const void* words, int n_words, int n_part,
   return (int)cudaGetLastError();
 }
 
-// K13b.  ccum, scum: n int64 (or f64) scratch; tiles: ceil(n / 1024)
-// int64; out: n 8-byte results; out_null: n bytes or null.
+// K13b scratch bytes over n rows (sums: the function is sum or avg);
+// 0 when the function reads no prefix.
+extern "C" long long otbt_window_scratch_bytes(long long n, int func) {
+  if (n < 1 || func < ROW_NUMBER || func > MAX) return -1;
+  bool counts = func == COUNT || func == SUM || func == AVG ||
+                func == MIN || func == MAX;
+  if (!counts) return 0;
+  return scan_layout(n, func == SUM || func == AVG).total;
+}
+
+// K13b.  scratch: otbt_window_scratch_bytes(n, func) bytes, 16-byte
+// aligned; out: n 8-byte results; out_null: n bytes or null.
 extern "C" int otbt_window_frame_reduce(
     int func, long long n, const void* p_start, const void* peer_start,
     const void* peer_end_v, const void* p_end, const void* ob_cum,
     const void* s_iota, const void* s_valid, const void* a, int a_float,
     const void* anm, long long offset, const void* dflt, const void* dnull,
     int has_default, double pow10, const void* table, int levels, int mode,
-    int sbk, long long sk, int ebk, long long ek, int has_order, void* ccum,
-    void* scum, void* tiles, void* out, void* out_null, void* stream) {
-  if (n < 1 || func < ROW_NUMBER || func > MAX) return (int)cudaErrorInvalidValue;
+    int sbk, long long sk, int ebk, long long ek, int has_order,
+    void* scratch, long long scratch_bytes, void* out, void* out_null,
+    void* stream) {
+  // the count prefix is int32: n < 2^31 (bounds alone take 40 n bytes)
+  if (n < 1 || n >= (1LL << 31) - 1 || func < ROW_NUMBER || func > MAX)
+    return (int)cudaErrorInvalidValue;
   bool needs_a = !(func <= DENSE_RANK || func == COUNT);
   if (needs_a && a == nullptr) return (int)cudaErrorInvalidValue;
   if ((func == MIN || func == MAX) && (table == nullptr || levels < 1))
@@ -515,25 +908,46 @@ extern "C" int otbt_window_frame_reduce(
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned char* valid = (const unsigned char*)s_valid;
   const unsigned char* nm = (const unsigned char*)anm;
-  bool counts = func == COUNT || func == SUM || func == AVG ||
-                func == MIN || func == MAX;
-  bool sums = func == SUM || func == AVG;
-  int sum_float = (a_float || func == AVG) ? 1 : 0;
-  if (counts)
-    scan<long long>(ContribOne{valid, nm}, StoreT<long long>{(long long*)ccum},
-                    n, false, 0LL, OpSum(), (long long*)tiles, s);
-  if (sums) {
-    if (sum_float)
-      scan<double>(ContribVal<double>{valid, nm, a, a_float},
-                   StoreT<double>{(double*)scum}, n, false, 0.0, OpSum(),
-                   (double*)tiles, s);
+  const bool counts = func == COUNT || func == SUM || func == AVG ||
+                      func == MIN || func == MAX;
+  const bool sums = func == SUM || func == AVG;
+  const int sum_float = (a_float || func == AVG) ? 1 : 0;
+  char* base = (char*)scratch;
+  ScanLayout L = scan_layout(n, sums);
+  if (counts) {
+    if (scratch == nullptr || scratch_bytes < L.total ||
+        ((unsigned long long)scratch & 15ULL) != 0)
+      return (int)cudaErrorInvalidValue;
+    ScanArgs p;
+    p.n = n;
+    p.valid = valid;
+    p.anm = nm;
+    p.a = a;
+    p.tiles = (int)L.tiles;
+    p.ctrl = (int*)(base + L.ctrl);
+    p.agg_c = (int*)(base + L.agg_c);
+    p.agg_s = base + L.agg_s;
+    p.grp_c = (int*)(base + L.grp_c);
+    p.grp_s = base + L.grp_s;
+    p.ex_c = (int*)(base + L.ex_c);
+    p.ex_s = base + L.ex_s;
+    p.out_null = func == COUNT ? nullptr : (unsigned char*)out_null;
+    cudaError_t e = cudaMemsetAsync(p.ctrl, 0,
+                                    4 * (1 + L.tiles + L.groups), s);
+    if (e != cudaSuccess) return (int)e;
+    const unsigned grid = (unsigned)L.tiles;
+    if (!sums)
+      wfr_scan<false, unsigned long long, long long>
+          <<<grid, kLbThreads, 0, s>>>(p);
+    else if (!sum_float)
+      wfr_scan<true, unsigned long long, long long>
+          <<<grid, kLbThreads, 0, s>>>(p);
+    else if (a_float)
+      wfr_scan<true, double, double><<<grid, kLbThreads, 0, s>>>(p);
     else
-      scan<long long>(ContribVal<long long>{valid, nm, a, a_float},
-                      StoreT<long long>{(long long*)scum}, n, false, 0LL,
-                      OpSum(), (long long*)tiles, s);
+      wfr_scan<true, double, long long><<<grid, kLbThreads, 0, s>>>(p);
   }
   WinArgs w;
-  w.func = func;
   w.n = n;
   w.p_start = (const long long*)p_start;
   w.peer_start = (const long long*)peer_start;
@@ -558,12 +972,25 @@ extern "C" int otbt_window_frame_reduce(
   w.has_order = has_order;
   w.sk = sk;
   w.ek = ek;
-  w.ccum = counts ? (const long long*)ccum : nullptr;
-  w.scum = scum;
+  w.ex_c = counts ? (const int*)(base + L.ex_c) : nullptr;
+  w.ex_s = sums ? (const void*)(base + L.ex_s) : nullptr;
   w.sum_float = sum_float;
   w.out = (long long*)out;
   w.out_null = (unsigned char*)out_null;
-  frame_reduce<<<otbt::grid_for(n), otbt::kThreads, 0, s>>>(w);
+  switch (func) {
+    case ROW_NUMBER: launch_frame<ROW_NUMBER>(w, s); break;
+    case RANK: launch_frame<RANK>(w, s); break;
+    case DENSE_RANK: launch_frame<DENSE_RANK>(w, s); break;
+    case LAG: launch_frame<LAG>(w, s); break;
+    case LEAD: launch_frame<LEAD>(w, s); break;
+    case COUNT: launch_frame<COUNT>(w, s); break;
+    case SUM: launch_frame<SUM>(w, s); break;
+    case AVG: launch_frame<AVG>(w, s); break;
+    case FIRST_VALUE: launch_frame<FIRST_VALUE>(w, s); break;
+    case LAST_VALUE: launch_frame<LAST_VALUE>(w, s); break;
+    case MIN: launch_frame<MIN>(w, s); break;
+    default: launch_frame<MAX>(w, s); break;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -73,12 +73,14 @@ SIGNATURES = {
     "otbt_window_bounds": [_P, _I, _I, _LL, _LL] + [_P] * 12,
     "otbt_window_frame_reduce": [_I, _LL] + [_P] * 8 + [_I, _P, _LL, _P, _P,
                                  _I, _D, _P] + [_I] * 3 + [_LL, _I, _LL, _I]
-                                + [_P] * 6,
+                                + [_P, _LL, _P, _P, _P],
+    "otbt_window_scratch_bytes": [_LL, _I],
     "otbt_range_minmax": [_P, _I, _P, _LL, _I, _I, _P, _P],
 }
 RESTYPES = {"otbt_scan_tiles": _LL, "otbt_exchange_tiles": _LL,
             "otbt_sort_scratch_bytes": _LL, "otbt_join_scratch_bytes": _LL,
-            "otbt_exchange_max_dn": _LL, "otbt_ann_topk_scratch": _LL}
+            "otbt_exchange_max_dn": _LL, "otbt_ann_topk_scratch": _LL,
+            "otbt_window_scratch_bytes": _LL}
 
 _lock = threading.Lock()
 _lib = None
@@ -151,6 +153,8 @@ def build() -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             dll = ctypes.CDLL(build())

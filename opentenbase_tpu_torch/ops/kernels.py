@@ -31,6 +31,7 @@ import threading
 import numpy as np
 import torch
 
+from . import build as _build
 from ..storage.batch import next_pow2
 from ..utils.dtypes import device_float
 from ..utils.hashing import (bucket_ids_plain, hash_columns_plain,
@@ -93,8 +94,7 @@ class capture_launches:
 
 
 def _lib():
-    from .build import lib
-    return lib()
+    return _build.lib()
 
 
 def _on_cpu(*ts) -> bool:
@@ -121,7 +121,14 @@ def _check(t: torch.Tensor, name: str, dtypes, n: int | None = None):
 
 
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current stream as a raw handle.  torch's
+    private _cuda_getCurrentRawStream gives it without building a Stream
+    object on every launch; a torch without it takes the public
+    torch.cuda.current_stream().cuda_stream."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream().cuda_stream
+    return raw(torch.cuda.current_device())
 
 
 def _ok(rc: int, name: str) -> None:
@@ -1777,7 +1784,8 @@ WIN_FUNCS = {name: i for i, name in enumerate((
 WIN_BOUNDS = {name: i for i, name in enumerate((
     "unbounded_preceding", "preceding", "current", "following",
     "unbounded_following"))}
-_WIN_TILE = 1024          # csrc/window.cu kTile: rows per scan tile
+_WIN_TILE = 1024          # csrc/window.cu kTile: rows per K13a scan tile
+_WFR_TILE = 4096          # csrc/window.cu kLbTile: rows per K13b scan tile
 _INF_WORD = 0x7FF0000000000000   # _float_word(+inf); a NaN's word is above
 
 
@@ -1991,10 +1999,12 @@ def window_frame_reduce(func: str, bounds, frame, s_iota, s_valid,
                         dflt_s=None, dnull_s=None,
                         has_default: bool = False, scale: int = 0,
                         table=None):
-    """K13b (csrc/window.cu): window_frame_reduce_plain's result; the
-    prefix sums of the contributions are block scans, then one kernel
+    """K13b (csrc/window.cu): window_frame_reduce_plain's result.  A
+    frame function is two launches: one single-pass scan writes the
+    prefix count (and sum) of the contributing rows, then one kernel
     computes each row's frame, its function and the scatter to input
-    order."""
+    order; the ranks, lag / lead and first / last value are the second
+    launch alone."""
     opt = [t for t in (a_s, anm_s, dflt_s, dnull_s, table)
            if t is not None]
     if _on_cpu(s_iota, s_valid, *bounds, *opt):
@@ -2037,19 +2047,23 @@ def window_frame_reduce(func: str, bounds, frame, s_iota, s_valid,
     out = torch.empty(n, dtype=out_dtype, device=dev)
     out_null = None if ranks or func == "count" else \
         torch.empty(n, dtype=torch.bool, device=dev)
-    scratch = torch.empty((2, n), dtype=torch.int64, device=dev)
-    tiles = torch.empty(max((n + _WIN_TILE - 1) // _WIN_TILE, 1),
-                        dtype=torch.int64, device=dev)
+    if n >= (1 << 31) - 1:
+        raise ValueError(f"window_frame_reduce: {n} rows (the count "
+                         "prefix is int32)")
+    lib = _lib()
+    sbytes = lib.otbt_window_scratch_bytes(n, code)
+    scratch = torch.empty(sbytes, dtype=torch.uint8, device=dev) \
+        if sbytes else None
 
     def p(t):
         return None if t is None else _ptr(t)
 
-    rc = _lib().otbt_window_frame_reduce(
+    rc = lib.otbt_window_frame_reduce(
         code, n, *(_ptr(t) for t in bounds), _ptr(s_iota), _ptr(s_valid),
         p(a_s), a_float, p(anm_s), int(offset), p(dflt_s), p(dnull_s),
         int(bool(has_default)), float(10 ** scale), p(table), levels,
-        *(int(x) for x in fr), _ptr(scratch[0]), _ptr(scratch[1]),
-        _ptr(tiles), _ptr(out), p(out_null), _stream())
+        *(int(x) for x in fr), p(scratch), sbytes, _ptr(out),
+        p(out_null), _stream())
     _ok(rc, "window_frame_reduce")
     _count("window_frame_reduce")
     return out, out_null

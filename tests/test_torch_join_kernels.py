@@ -290,6 +290,25 @@ def test_compose_index_and_masks_match_reference():
         np.asarray(RK.anti_mask(jnp.asarray(counts), jnp.asarray(pvalid))))
 
 
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, 4099])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_masks_at_odd_lengths_and_offset_views_match_reference(n, offset):
+    """semi_mask / anti_mask around the card kernel's 16-row group and
+    on views that start one element in (the kernel's unaligned loads)."""
+    rng = np.random.default_rng(61 + n)
+    counts = rng.integers(0, 3, n + 1).astype(np.int64)
+    pvalid = rng.random(n + 1) < 0.7
+    tc = _t(counts)[offset:offset + n]
+    tv = _t(pvalid)[offset:offset + n]
+    assert tc.storage_offset() == offset and tc.is_contiguous()
+    c, v = counts[offset:offset + n], pvalid[offset:offset + n]
+    np.testing.assert_array_equal(
+        _np(TK.semi_mask(tc)), np.asarray(RK.semi_mask(jnp.asarray(c))))
+    np.testing.assert_array_equal(
+        _np(TK.anti_mask(tc, tv)),
+        np.asarray(RK.anti_mask(jnp.asarray(c), jnp.asarray(v))))
+
+
 # ---------------------------------------------------------------------------
 # K5 grouped_agg_sort
 # ---------------------------------------------------------------------------
@@ -419,3 +438,24 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
         with pytest.raises(RuntimeError, match="no kernel library"):
             fn()
     assert len(calls) == len(launches)
+
+
+@pytest.mark.parametrize("private", [True, False])
+def test_stream_handle_with_and_without_the_private_getter(monkeypatch,
+                                                          private):
+    """_stream() gives the current device's raw stream through torch's
+    private _cuda_getCurrentRawStream where torch has it, and through
+    torch.cuda.current_stream().cuda_stream where it does not (both
+    faked here: no card)."""
+    class FakeStream:
+        cuda_stream = 0xBEEF
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: FakeStream())
+    if private:
+        monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                            lambda dev: 0xA000 + dev, raising=False)
+        assert TK._stream() == 0xA003
+    else:
+        monkeypatch.delattr(torch._C, "_cuda_getCurrentRawStream",
+                            raising=False)
+        assert TK._stream() == 0xBEEF

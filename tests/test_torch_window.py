@@ -342,14 +342,19 @@ def _oracle_bounds(words, n_part, float_words, s_valid):
             for x in (p_start, peer_start, peer_end_v, p_end, ob_cum)]
 
 
-def _random_sorted_words(rng, n, n_part, n_order, float_order):
+def _random_sorted_words(rng, n, n_part, n_order, float_order,
+                         part_width=None, p_valid=0.8):
     """Sorted order words as order_words + sort_perm make them, with
     invalid rows anywhere in the input (so in the middle of the padded
-    range before the sort) and NaN / +-0.0 float keys."""
-    valid = rng.random(n) < 0.8
+    range before the sort) and NaN / +-0.0 float keys.  part_width: the
+    first partition key is row // part_width (partitions of that many
+    rows)."""
+    valid = rng.random(n) < p_valid
     keys, descs = [], []
-    for _ in range(n_part):
-        keys.append(torch.from_numpy(rng.integers(0, 3, n)))
+    for j in range(n_part):
+        keys.append(torch.from_numpy(
+            np.arange(n) // part_width if part_width and j == 0
+            else rng.integers(0, 3, n)))
         descs.append(False)
     for j in range(n_order):
         if float_order and j == 0:
@@ -473,14 +478,30 @@ _NO_FRAME = ("row_number", "rank", "dense_rank", "lag", "lead")
 REDUCE_CASES = [(f, 0) for f in _NO_FRAME] + [
     (f, fi) for f in TK.WIN_FUNCS if f not in _NO_FRAME
     for fi in range(len(FRAMES))]
+# K13b's scan tile edges on the card (tile - 1, tile, tile + 1 rows) and
+# 3 tiles + 5 rows, all valid, in partitions of 5000 rows (every tile
+# boundary inside a partition); bounded ROWS frames only, so the per-row
+# oracle stays linear in n
+_TILE = TK._WFR_TILE
+_EDGE_SIZES = ((_TILE - 1, None), (_TILE, None), (_TILE + 1, None),
+               (3 * _TILE + 5, 5000))
+REDUCE_PARAMS = [pytest.param(f, fi, 150, None, id=f"{f}-{fi}")
+                 for f, fi in REDUCE_CASES] + [
+    pytest.param(f, fi, n, width, id=f"{f}-{fi}-n{n}")
+    for n, width in _EDGE_SIZES
+    for f, fi in [(f, 0) for f in _NO_FRAME] + [
+        (f, fi) for f in TK.WIN_FUNCS if f not in _NO_FRAME
+        for fi in (1, 4)]]
 
 
-@pytest.mark.parametrize("func,fi", REDUCE_CASES)
-def test_window_frame_reduce_plain_matches_oracle(func, fi):
+@pytest.mark.parametrize("func,fi,n,width", REDUCE_PARAMS)
+def test_window_frame_reduce_plain_matches_oracle(func, fi, n, width):
     frame = FRAMES[fi]
-    rng = np.random.default_rng(100 + fi * 13 + TK.WIN_FUNCS[func])
-    n = 150
-    words, fw, s_valid, perm = _random_sorted_words(rng, n, 1, 1, False)
+    rng = np.random.default_rng(100 + fi * 13 + TK.WIN_FUNCS[func]
+                                + (n if n != 150 else 0))
+    words, fw, s_valid, perm = _random_sorted_words(
+        rng, n, 1, 1, False, part_width=width,
+        p_valid=1.0 if width else 0.8)
     bounds = TK.window_bounds(words, 1, fw, s_valid)
     a = torch.from_numpy(rng.integers(-50, 50, n).astype(np.int64))
     anm = torch.from_numpy(rng.random(n) < 0.2)
