@@ -32,8 +32,12 @@
 //   stay (0, 0).  Bound: bytes.  A probe row with many matches is
 //   written by one thread: skew serialises, which TPC-H's key joins
 //   (at most a few dozen matches a row) do not show.
-// - Compose (K9) is an int64 gather; the masks are one elementwise
-//   pass, 16 rows a thread with 16-byte loads and stores.
+// - Compose (K9): one launch gathers every prior index vector of a join
+//   side and its output-space null masks at `take` (two rows a thread,
+//   take read once); the prior reads are random, so they bound it, and
+//   the launch, not the bytes, is most of a small call.  The masks are
+//   one elementwise pass, 16 rows a thread with 16-byte loads and
+//   stores.
 #include "common.cuh"
 #include "scan.cuh"
 
@@ -137,15 +141,64 @@ __global__ void build_epilogue(long long n, const long long* __restrict__ stats,
   }
 }
 
-// out[i] = src[idx[i]], the index clamped into [0, n_src) (a JAX
-// gather clamps an out-of-range index the same way).
-__global__ void gather_i64(const long long* __restrict__ src,
-                           long long n_src, const long long* __restrict__ idx,
-                           long long n, long long* __restrict__ out) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += stride)
-    out[i] = src[clampll(idx[i], 0, n_src - 1)];
+// K9 compose: every prior index vector and every output-space null mask
+// of one join side gathered at `take` in one launch.  A JAX gather's
+// index: a negative one counts from the end (+ n), then it is clamped
+// into [0, n).
+constexpr int kMaxCompose = 48;   // priors (and masks) a launch
+struct Compose {
+  int k, m;   // priors, masks
+  const long long* prior[kMaxCompose];
+  long long n_prior[kMaxCompose];
+  long long* out[kMaxCompose];
+  const unsigned char* mask[kMaxCompose];
+  long long n_mask[kMaxCompose];
+  unsigned char* mask_out[kMaxCompose];
+};
+
+__device__ __forceinline__ long long jax_index(long long t, long long n) {
+  return clampll(t < 0 ? t + n : t, 0, n - 1);
+}
+
+// Two rows a thread: take read once with one 16-byte load, each prior's
+// two entries written with one 16-byte store, each mask's two bytes with
+// one 2-byte store (the outputs are fresh allocations; an unaligned
+// take or a lone last row takes the scalar path).  The prior reads are
+// the random part and set the time.
+__global__ void __launch_bounds__(256) compose_kernel(
+    Compose c, const long long* __restrict__ take, long long n) {
+  const long long i = 2 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  if (i + 1 < n) {
+    long long t0, t1;
+    if ((((unsigned long long)(take + i)) & 15ULL) == 0) {
+      const longlong2 t = __ldcs(reinterpret_cast<const longlong2*>(take + i));
+      t0 = t.x;
+      t1 = t.y;
+    } else {
+      t0 = take[i];
+      t1 = take[i + 1];
+    }
+    for (int j = 0; j < c.k; ++j) {
+      const long long np = c.n_prior[j];
+      const longlong2 o = make_longlong2(c.prior[j][jax_index(t0, np)],
+                                         c.prior[j][jax_index(t1, np)]);
+      __stcs(reinterpret_cast<longlong2*>(c.out[j] + i), o);
+    }
+    for (int j = 0; j < c.m; ++j) {
+      const long long nm = c.n_mask[j];
+      const unsigned short o =
+          (unsigned short)(c.mask[j][jax_index(t0, nm)] |
+                           (c.mask[j][jax_index(t1, nm)] << 8));
+      *reinterpret_cast<unsigned short*>(c.mask_out[j] + i) = o;
+    }
+  } else {
+    const long long t0 = take[i];
+    for (int j = 0; j < c.k; ++j)
+      c.out[j][i] = c.prior[j][jax_index(t0, c.n_prior[j])];
+    for (int j = 0; j < c.m; ++j)
+      c.mask_out[j][i] = c.mask[j][jax_index(t0, c.n_mask[j])];
+  }
 }
 
 // stats[0] = 1 when the direct table applies, stats[1] = the least key.
@@ -455,15 +508,39 @@ extern "C" int otbt_join_expand(const void* lo, const void* counts,
   return (int)cudaGetLastError();
 }
 
-extern "C" int otbt_compose_index(const void* prior, long long n_prior,
-                                  const void* take, long long n, void* out,
-                                  void* stream) {
-  if (n_prior < 1) return (int)cudaErrorInvalidValue;
+// K9.  priors / outs: HOST arrays of k int64 device pointers, n_priors
+// their lengths; masks / mask_outs: m bool device pointers, n_masks
+// their lengths; outputs 16-byte aligned (mask outputs 2-byte).  One
+// launch.
+extern "C" int otbt_compose_indices(const long long* priors,
+                                    const long long* n_priors,
+                                    const long long* outs, int k,
+                                    const long long* masks,
+                                    const long long* n_masks,
+                                    const long long* mask_outs, int m,
+                                    const void* take, long long n,
+                                    void* stream) {
+  if (k < 0 || k > kMaxCompose || m < 0 || m > kMaxCompose || n < 0)
+    return (int)cudaErrorInvalidValue;
+  Compose c;
+  c.k = k;
+  c.m = m;
+  for (int j = 0; j < k; ++j) {
+    if (n_priors[j] < 1 || (outs[j] & 15)) return (int)cudaErrorInvalidValue;
+    c.prior[j] = (const long long*)priors[j];
+    c.n_prior[j] = n_priors[j];
+    c.out[j] = (long long*)outs[j];
+  }
+  for (int j = 0; j < m; ++j) {
+    if (n_masks[j] < 1 || (mask_outs[j] & 1))
+      return (int)cudaErrorInvalidValue;
+    c.mask[j] = (const unsigned char*)masks[j];
+    c.n_mask[j] = n_masks[j];
+    c.mask_out[j] = (unsigned char*)mask_outs[j];
+  }
   if (n > 0)
-    gather_i64<<<otbt::grid_for(n), otbt::kThreads, 0,
-                 (cudaStream_t)stream>>>((const long long*)prior, n_prior,
-                                         (const long long*)take, n,
-                                         (long long*)out);
+    compose_kernel<<<(unsigned)((n + 511) / 512), 256, 0,
+                     (cudaStream_t)stream>>>(c, (const long long*)take, n);
   return (int)cudaGetLastError();
 }
 

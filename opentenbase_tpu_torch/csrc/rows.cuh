@@ -1,8 +1,8 @@
 // Row copies over a set of columns of mixed widths (1, 2, 4 or 8 bytes
-// an entry), shared by the stream compaction (compact.cu) and the
-// exchange (exchange.cu).  One launch moves up to kMaxSetCols columns:
-// each thread takes a row and copies it in every column, so neighbouring
-// threads read neighbouring entries of each column.
+// an entry), for the exchange (exchange.cu).  One launch moves up to
+// kMaxSetCols columns: each thread takes a row and copies it in every
+// column, so neighbouring threads read neighbouring entries of each
+// column.
 #pragma once
 #include "common.cuh"
 
@@ -71,17 +71,6 @@ __global__ void scatter_rows(ColSet c, const long long* __restrict__ pos,
         zero_entry(c, j, p);
     }
   }
-}
-
-// out[j] = in[0] for j in [min(*count, out_size), out_size): the
-// compaction's padding rows repeat row 0.
-__global__ void fill_tail_row0(ColSet c, const long long* __restrict__ count,
-                               long long out_size) {
-  long long lo = *count < out_size ? *count : out_size;
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = lo + (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < out_size; i += stride)
-    for (int j = 0; j < c.k; ++j) copy_entry(c, j, 0, i);
 }
 
 // Build the column sets from HOST arrays of k device pointers and widths

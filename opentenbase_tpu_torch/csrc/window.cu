@@ -28,13 +28,18 @@
 // K13a's scans are three-phase (tile reduce, one block scans the tile
 // totals, each tile scans again from its carry), Hillis-Steele in shared
 // memory, generic over the operator.  Bound: bytes.  Integer sums wrap
-// like the reference's int64 cumsum (unsigned adds); f64 sums add in
-// another order than the CPU's sequential cumsum (a fixed one: the same
-// bits every run), exact for integer-valued data below 2^53.
+// like the reference's int64 cumsum (unsigned adds); f64 sums add the
+// finite values of each partition on their own, in another order than
+// the CPU's (a fixed one: the same bits every run), exact for
+// integer-valued data below 2^53.  Unlike the reference's one
+// whole-array prefix, a NaN, an infinity or a huge value in one
+// partition does not reach another's frames; cancellation by a huge
+// value inside a partition remains (PostgreSQL sums each frame).
 #include <limits>
 #include <type_traits>
 
 #include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -251,39 +256,27 @@ __global__ void bound_finish(long long n, const long long* __restrict__ gv,
 // lead and first / last value are wfr_frame alone.  Bound: bytes; the
 // scatter, a random 8-byte write a row, sets wfr_frame's time.
 //
-// wfr_scan is a decoupled look-back scan: a block takes its tile from an
-// atomic counter (so every lower tile is already running and none waits
-// on a tile that is not resident), loads 16 rows a thread (16-byte
-// loads), scans them in registers, across the warp with shuffles and
-// across the 8 warps through shared memory, and publishes its aggregate.
-// Tiles form groups of 32.  A tile's exclusive prefix is S(g - 1) +
-// P(g, j): S(h) is the left fold, group by group, of each group's sum
-// G(h) (a butterfly over the group's 32 aggregates), published by the
-// group's last tile; P(g, j) is a warp scan of the aggregates of the
-// tiles below it in its own group.  Warp 0 takes the nearest published
-// S(h) and adds the groups above it itself (8 groups a round trip), so
-// no tile waits on another tile's look-back, only on aggregates, which
-// every tile publishes as soon as it has loaded its rows.  Each value
-// has one definition, whichever path computed it: f64 sums are the same
-// bits every run.  Status words are written with release and read
-// relaxed, then a fence; the values beside them are read from L2.
-
+// wfr_scan is a decoupled look-back scan (lookback.cuh, shared with K3's
+// compaction): a block loads 16 rows a thread (16-byte loads), scans them
+// in registers, across the warp with shuffles and across the 8 warps
+// through shared memory, publishes its aggregate and takes its exclusive
+// prefix from the look-back.  Only finite values enter an f64 sum, and
+// the f64 prefix restarts at each partition start (p_start[i] == i): a
+// segmented scan whose segment flag travels with every aggregate, so a
+// NaN, an infinity or a huge value in one partition leaves the others'
+// sums alone.  An f64 argument's NaN, +inf and -inf rows are counted
+// beside the count (Cnt4), so wfr_frame makes a frame with a NaN, or
+// with both infinities, NaN, and one with one infinity that infinity.
+// Integer sums stay one wrapping int64 prefix (exact in any order).
 constexpr int kLbThreads = 256;
 constexpr int kLbItems = 16;
 constexpr int kLbTile = kLbThreads * kLbItems;   // 4096 rows a tile
 constexpr int kLbWarps = kLbThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int ld_relaxed(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
+using otbt::lb::Cnt4;
+using otbt::lb::NoSum;
+using otbt::lb::SegF;
+
 __device__ __forceinline__ bool aligned16(const void* p) {
   return ((unsigned long long)p & 15ULL) == 0;
 }
@@ -296,151 +289,45 @@ struct ScanArgs {
   const unsigned char* valid;
   const unsigned char* anm;   // the argument's NULLs, or null
   const void* a;              // the argument (sum / avg only)
+  const long long* p_start;   // partition starts (f64 sums only)
   int tiles;
-  int* ctrl;   // [0] the next tile, [1 + t] tile t's aggregate published,
-               // [1 + tiles + g] group g's S(g) published
-  int* agg_c;  // per tile: its count (and sum: agg_s)
+  int* ctrl;     // the look-back's control words (lookback.cuh)
+  void* agg_c;   // per tile: its count (and sum: agg_s)
   void* agg_s;
-  int* grp_c;  // per group: S(g), the count (and sum: grp_s)
+  void* grp_c;   // per group: S(g), the count (and sum: grp_s)
   void* grp_s;
-  int* ex_c;   // n + 1 exclusive counts
-  void* ex_s;  // n + 1 exclusive sums (sum / avg only)
+  void* ex_c;    // n + 1 exclusive counts (C)
+  void* ex_s;    // n + 1 exclusive sums (int64, or f64 within the
+                 // partition)
   unsigned char* out_null;   // cleared here (input order), or null
 };
 
-// Every lane gets the same bits: a + b == b + a.
-template <bool kSum, class S>
-__device__ __forceinline__ void warp_sum(int& c, S& s) {
-#pragma unroll
-  for (int d = 16; d >= 1; d >>= 1) {
-    c += __shfl_xor_sync(kFull, c, d);
-    if constexpr (kSum) s = s + __shfl_xor_sync(kFull, s, d);
-  }
-}
+// the f64 / int64 value a sum of type V stores a row
+template <class V> struct SumOf { using T = int; };
+template <> struct SumOf<unsigned long long> {
+  using T = unsigned long long;
+};
+template <> struct SumOf<SegF> { using T = double; };
 
-// The aggregates of tiles q[u] (those with use[u]): spin until each is
-// published, one fence, then the values (all loads of a step in flight).
-template <int kN, bool kSum, class S>
-__device__ __forceinline__ void load_aggs(const ScanArgs& p, const int* q,
-                                          const bool* use, int* c, S* s) {
-  const int* flags = p.ctrl + 1;
-  int f[kN];
-#pragma unroll
-  for (int u = 0; u < kN; ++u) f[u] = use[u] ? ld_relaxed(flags + q[u]) : 1;
-#pragma unroll
-  for (int u = 0; u < kN; ++u)
-    while (f[u] == 0) f[u] = ld_relaxed(flags + q[u]);
-  __threadfence();
-#pragma unroll
-  for (int u = 0; u < kN; ++u) {
-    c[u] = use[u] ? __ldcg(p.agg_c + q[u]) : 0;
-    s[u] = S(0);
-    if constexpr (kSum)
-      if (use[u]) s[u] = __ldcg((const S*)p.agg_s + q[u]);
-  }
-}
-
-// Warp 0: the exclusive prefix (xc, xs) of tile `tile` whose own
-// aggregate is (bc, bs); the last tile of a group also publishes S(g).
-template <bool kSum, class S>
-__device__ __forceinline__ void look_back(const ScanArgs& p, int tile,
-                                          int lane, int bc, S bs, int& xc,
-                                          S& xs) {
-  const int g = tile >> 5, j = tile & 31;
-  // the tiles of this group: lane l < j loads tile 32 g + l, lane j is
-  // this tile
-  int vc[1];
-  S vs[1];
-  {
-    const int q[1] = {(g << 5) + lane};
-    const bool use[1] = {lane < j};
-    load_aggs<1, kSum, S>(p, q, use, vc, vs);
-    if (lane == j) {
-      vc[0] = bc;
-      vs[0] = bs;
-    }
-  }
-  // P(g, j): Kogge-Stone over (lane < j ? aggregate : 0), at lane j - 1
-  int ic = lane < j ? vc[0] : 0;
-  S is = lane < j ? vs[0] : S(0);
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int yc = __shfl_up_sync(kFull, ic, d);
-    S ys = S(0);
-    if constexpr (kSum) ys = __shfl_up_sync(kFull, is, d);
-    if (lane >= d) {
-      ic += yc;
-      if constexpr (kSum) is = ys + is;
-    }
-  }
-  int pc = __shfl_sync(kFull, ic, j > 0 ? j - 1 : 0);
-  S ps = S(0);
-  if constexpr (kSum) ps = __shfl_sync(kFull, is, j > 0 ? j - 1 : 0);
-  if (j == 0) {
-    pc = 0;
-    ps = S(0);
-  }
-  // S(g - 1): the nearest published S(h), then G(h + 1) .. G(g - 1)
-  const int* gflags = p.ctrl + 1 + p.tiles;
-  int h = -1;
-  for (int top = g - 1; top >= 0 && h < 0; top -= 32) {
-    const int q = top - lane;
-    const unsigned m = __ballot_sync(kFull, q >= 0 && ld_relaxed(gflags + q));
-    if (m) h = top - (__ffs(m) - 1);
-  }
-  __threadfence();
-  int sc = 0;
-  S ss = S(0);
-  if (h >= 0) {
-    sc = __ldcg(p.grp_c + h);
-    if constexpr (kSum) ss = __ldcg((const S*)p.grp_s + h);
-  }
-  for (int h0 = h + 1; h0 < g; h0 += 8) {
-    int q[8], gc[8];
-    bool use[8];
-    S gs[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      use[u] = h0 + u < g;
-      q[u] = ((h0 + u) << 5) + lane;
-    }
-    load_aggs<8, kSum, S>(p, q, use, gc, gs);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      if (h0 + u < g) {
-        warp_sum<kSum, S>(gc[u], gs[u]);
-        sc += gc[u];
-        if constexpr (kSum) ss = ss + gs[u];
-      }
-    }
-  }
-  xc = sc + pc;
-  xs = S(0);
-  if constexpr (kSum) xs = ss + ps;
-  if (j == 31) {   // S(g) = S(g - 1) + G(g)
-    int gc = vc[0];
-    S gs = vs[0];
-    warp_sum<kSum, S>(gc, gs);
-    if (lane == 0) {
-      p.grp_c[g] = sc + gc;
-      if constexpr (kSum) ((S*)p.grp_s)[g] = ss + gs;
-      st_release((int*)gflags + g, 1);
-    }
-  }
-}
-
-// S: the sum's type (unsigned long long wraps as int64 does; double);
-// A: the argument's type.
-template <bool kSum, class S, class A>
+// C: int or Cnt4 (the count, and an f64 argument's non-finite counts);
+// V: NoSum, unsigned long long (wraps as int64 does) or SegF (an f64
+// sum restarted at each partition start); A: the argument's type.
+template <class C, class V, class A>
 __global__ void __launch_bounds__(kLbThreads) wfr_scan(ScanArgs p) {
-  __shared__ int sh_tile, sh_xc;
-  __shared__ S sh_xs;
-  __shared__ int sh_wc[kLbWarps];
-  __shared__ S sh_ws[kLbWarps];
+  constexpr bool kSum = otbt::lb::kHasSum<V>;
+  constexpr bool kSeg = std::is_same<V, SegF>::value;
+  constexpr bool kNF = std::is_same<C, Cnt4>::value;
+  using S = typename SumOf<V>::T;
+  namespace lb = otbt::lb;
+  __shared__ int sh_tile;
+  __shared__ C sh_xc;
+  __shared__ V sh_xs;
+  __shared__ C sh_wc[kLbWarps];
+  __shared__ V sh_ws[kLbWarps];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  if (t == 0) sh_tile = atomicAdd(p.ctrl, 1);
-  __syncthreads();
-  const int tile = sh_tile;
+  const lb::Chain<C, V> ch{p.tiles, p.ctrl, (C*)p.agg_c, (V*)p.agg_s,
+                           (C*)p.grp_c, (V*)p.grp_s};
+  const int tile = lb::take_tile(p.ctrl, &sh_tile);
   const long long n = p.n;
   const long long r0 = (long long)tile * kLbTile + (long long)t * kLbItems;
   const bool full = r0 + kLbItems <= n;
@@ -461,88 +348,130 @@ __global__ void __launch_bounds__(kLbThreads) wfr_scan(ScanArgs p) {
       if (r0 + q < n && contributes(p.valid, p.anm, r0 + q))
         cw[q >> 2] |= 1u << ((q & 3) * 8);
   }
+  // the summed values (0 where a row adds nothing), the non-finite class
+  // of each row (2 bits: 1 NaN, 2 +inf, 3 -inf) and the partition starts
   S v[kLbItems];
-  int tc = 0;
-  S ts = S(0);
+  unsigned cls = 0u, seg = 0u;
 #pragma unroll
   for (int q = 0; q < kLbItems; ++q) v[q] = S(0);
   if constexpr (kSum) {
     const A* a = (const A*)p.a;
+    A x[kLbItems];
     if (full && aligned16(a)) {
 #pragma unroll
       for (int k = 0; k < kLbItems / 2; ++k) {
-        A x0, x1;
         if constexpr (std::is_same<A, double>::value) {
           const double2 d =
               __ldg(reinterpret_cast<const double2*>(a + r0) + k);
-          x0 = d.x; x1 = d.y;
+          x[2 * k] = d.x; x[2 * k + 1] = d.y;
         } else {
           const longlong2 d =
               __ldg(reinterpret_cast<const longlong2*>(a + r0) + k);
-          x0 = d.x; x1 = d.y;
+          x[2 * k] = d.x; x[2 * k + 1] = d.y;
         }
-        v[2 * k] = byte_bit(cw, 2 * k) ? (S)x0 : S(0);
-        v[2 * k + 1] = byte_bit(cw, 2 * k + 1) ? (S)x1 : S(0);
       }
     } else {
 #pragma unroll
       for (int q = 0; q < kLbItems; ++q)
-        if (byte_bit(cw, q)) v[q] = (S)a[r0 + q];
+        x[q] = r0 + q < n ? a[r0 + q] : A(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kLbItems; ++q) {
+      if (!byte_bit(cw, q)) continue;
+      if constexpr (kNF) {
+        const double d = (double)x[q];
+        if (d != d)
+          cls |= 1u << (2 * q);
+        else if (isinf(d))
+          cls |= (d > 0 ? 2u : 3u) << (2 * q);
+        else
+          v[q] = (S)d;
+      } else {
+        v[q] = (S)x[q];
+      }
+    }
+    if constexpr (kSeg) {
+      if (full && aligned16(p.p_start)) {
+#pragma unroll
+        for (int k = 0; k < kLbItems / 2; ++k) {
+          const longlong2 d =
+              __ldg(reinterpret_cast<const longlong2*>(p.p_start + r0) + k);
+          seg |= (d.x == r0 + 2 * k ? 1u : 0u) << (2 * k);
+          seg |= (d.y == r0 + 2 * k + 1 ? 1u : 0u) << (2 * k + 1);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kLbItems; ++q)
+          if (r0 + q < n && p.p_start[r0 + q] == r0 + q) seg |= 1u << q;
+      }
     }
   }
+  auto row_c = [&](int q) -> C {
+    if constexpr (kNF) {
+      const unsigned k = (cls >> (2 * q)) & 3u;
+      Cnt4 r;
+      r.c = byte_bit(cw, q);
+      r.nan = k == 1u;
+      r.pinf = k == 2u;
+      r.minf = k == 3u;
+      return r;
+    } else {
+      return byte_bit(cw, q);
+    }
+  };
+  auto row_s = [&](int q) -> V {
+    if constexpr (kSeg) {
+      SegF r;
+      r.s = v[q];
+      r.f = (int)((seg >> q) & 1u);
+      r.pad = 0;
+      return r;
+    } else if constexpr (kSum) {
+      return v[q];
+    } else {
+      return NoSum{};
+    }
+  };
+  C tc = lb::zero<C>();
+  V ts = lb::zero<V>();
 #pragma unroll
   for (int q = 0; q < kLbItems; ++q) {
-    tc += byte_bit(cw, q);
-    if constexpr (kSum) ts = ts + v[q];
+    tc = lb::combine(tc, row_c(q));
+    ts = lb::combine(ts, row_s(q));
   }
 
-  // warp scan of the thread totals, then the warps' totals
-  int ic = tc;
-  S is = ts;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int yc = __shfl_up_sync(kFull, ic, d);
-    S ys = S(0);
-    if constexpr (kSum) ys = __shfl_up_sync(kFull, is, d);
-    if (lane >= d) {
-      ic += yc;
-      if constexpr (kSum) is = ys + is;
-    }
-  }
-  int ec = __shfl_up_sync(kFull, ic, 1);
-  S es = S(0);
-  if constexpr (kSum) es = __shfl_up_sync(kFull, is, 1);
+  // warp scan of the thread totals, then the warps' totals in order
+  const C ic = lb::warp_incl(tc, lane);
+  const V is = lb::warp_incl(ts, lane);
+  C ec = lb::shfl<0>(ic, 1);
+  V es = lb::shfl<0>(is, 1);
   if (lane == 0) {
-    ec = 0;
-    es = S(0);
+    ec = lb::zero<C>();
+    es = lb::zero<V>();
   }
   if (lane == 31) {
     sh_wc[warp] = ic;
     sh_ws[warp] = is;
   }
   __syncthreads();
-  int wc = 0, bc = 0;
-  S wsum = S(0), bs = S(0);
+  C wc = lb::zero<C>(), bc = lb::zero<C>();
+  V wsum = lb::zero<V>(), bs = lb::zero<V>();
 #pragma unroll
   for (int k = 0; k < kLbWarps; ++k) {
     if (k == warp) {
       wc = bc;
       wsum = bs;
     }
-    bc += sh_wc[k];
-    if constexpr (kSum) bs = bs + sh_ws[k];
+    bc = lb::combine(bc, sh_wc[k]);
+    bs = lb::combine(bs, sh_ws[k]);
   }
 
   // publish this tile's aggregate, then look back
-  if (t == 0) {
-    p.agg_c[tile] = bc;
-    if constexpr (kSum) ((S*)p.agg_s)[tile] = bs;
-    st_release(p.ctrl + 1 + tile, 1);
-  }
+  if (t == 0) lb::publish(ch, tile, bc, bs);
   if (warp == 0) {
-    int xc;
-    S xs;
-    look_back<kSum, S>(p, tile, lane, bc, bs, xc, xs);
+    C xc;
+    V xs;
+    lb::look_back(ch, tile, lane, bc, bs, xc, xs);
     if (lane == 0) {
       sh_xc = xc;
       sh_xs = xs;
@@ -550,48 +479,68 @@ __global__ void __launch_bounds__(kLbThreads) wfr_scan(ScanArgs p) {
   }
   __syncthreads();
 
-  // each row's exclusive prefix; row n - 1's owner also writes [n].
-  // The prefixes and the cleared null mask are stored evict-first, so
-  // the frame pass's scattered results keep their lines in L2 until
-  // they fill (with the default policy the frame pass was slower).
-  int rc = sh_xc + wc + ec;
-  S rs = S(0);
-  if constexpr (kSum) rs = (sh_xs + wsum) + es;
+  // each row's exclusive prefix (an f64 sum's within its partition: 0 at
+  // its start); row n - 1's owner also writes [n].  The prefixes and the
+  // cleared null mask are stored evict-first, so the frame pass's
+  // scattered results keep their lines in L2 until they fill (with the
+  // default policy the frame pass was slower).
+  C rc = lb::combine(lb::combine(sh_xc, wc), ec);
+  V rs = lb::combine(lb::combine(sh_xs, wsum), es);
+  S ex[kLbItems];
+  auto sum_of = [&](const V& r) -> S {
+    if constexpr (kSeg) return r.s;
+    else if constexpr (kSum) return r;
+    else return S(0);
+  };
+  int* ex_c1 = (int*)p.ex_c;
+  Cnt4* ex_c4 = (Cnt4*)p.ex_c;
   S* ex_s = (S*)p.ex_s;
-  if (full) {
+  int cs[kLbItems];
 #pragma unroll
-    for (int k = 0; k < kLbItems / 4; ++k) {
-      int4 o;
-      o.x = rc; rc += byte_bit(cw, 4 * k);
-      o.y = rc; rc += byte_bit(cw, 4 * k + 1);
-      o.z = rc; rc += byte_bit(cw, 4 * k + 2);
-      o.w = rc; rc += byte_bit(cw, 4 * k + 3);
-      __stcs(reinterpret_cast<int4*>(p.ex_c + r0) + k, o);
+  for (int q = 0; q < kLbItems; ++q) {
+    if constexpr (kSeg)
+      ex[q] = ((seg >> q) & 1u) ? S(0) : sum_of(rs);
+    else
+      ex[q] = sum_of(rs);
+    if constexpr (kNF) {
+      if (r0 + q < n)
+        __stcs(reinterpret_cast<int4*>(ex_c4 + r0 + q),
+               make_int4(rc.c, rc.nan, rc.pinf, rc.minf));
+    } else {
+      cs[q] = rc;
     }
-    if constexpr (kSum) {
+    rc = lb::combine(rc, row_c(q));
+    rs = lb::combine(rs, row_s(q));
+  }
+  if constexpr (!kNF) {
+    if (full) {
+#pragma unroll
+      for (int k = 0; k < kLbItems / 4; ++k)
+        __stcs(reinterpret_cast<int4*>(ex_c1 + r0) + k,
+               make_int4(cs[4 * k], cs[4 * k + 1], cs[4 * k + 2],
+                         cs[4 * k + 3]));
+    } else {
+#pragma unroll
+      for (int q = 0; q < kLbItems; ++q)
+        if (r0 + q < n) ex_c1[r0 + q] = cs[q];
+    }
+  }
+  if constexpr (kSum) {
+    if (full) {
 #pragma unroll
       for (int k = 0; k < kLbItems / 2; ++k) {
-        const S s0 = rs;
-        rs = rs + v[2 * k];
-        const S s1 = rs;
-        rs = rs + v[2 * k + 1];
         if constexpr (std::is_same<S, double>::value)
           __stcs(reinterpret_cast<double2*>(ex_s + r0) + k,
-                 make_double2(s0, s1));
+                 make_double2(ex[2 * k], ex[2 * k + 1]));
         else
           __stcs(reinterpret_cast<longlong2*>(ex_s + r0) + k,
-                 make_longlong2((long long)s0, (long long)s1));
+                 make_longlong2((long long)ex[2 * k],
+                                (long long)ex[2 * k + 1]));
       }
-    }
-  } else {
+    } else {
 #pragma unroll
-    for (int q = 0; q < kLbItems; ++q) {
-      if (r0 + q < n) {
-        p.ex_c[r0 + q] = rc;
-        if constexpr (kSum) ex_s[r0 + q] = rs;
-      }
-      rc += byte_bit(cw, q);
-      if constexpr (kSum) rs = rs + v[q];
+      for (int q = 0; q < kLbItems; ++q)
+        if (r0 + q < n) ex_s[r0 + q] = ex[q];
     }
   }
   // clear the null mask: the frame pass then writes only the NULL rows,
@@ -605,8 +554,11 @@ __global__ void __launch_bounds__(kLbThreads) wfr_scan(ScanArgs p) {
         if (r0 + q < n) p.out_null[r0 + q] = 0;
   }
   if (r0 < n && r0 + kLbItems >= n) {
-    p.ex_c[n] = rc;
-    if constexpr (kSum) ex_s[n] = rs;
+    if constexpr (kNF)
+      ex_c4[n] = rc;
+    else
+      ex_c1[n] = rc;
+    if constexpr (kSum) ex_s[n] = sum_of(rs);
   }
 }
 
@@ -627,9 +579,10 @@ struct WinArgs {
   int levels;
   int mode, sbk, ebk, has_order;
   long long sk, ek;
-  const int* ex_c;    // wfr_scan's outputs
+  const void* ex_c;   // wfr_scan's outputs: counts (int, or Cnt4: nf)
   const void* ex_s;
   int sum_float;
+  int nf;             // ex_c holds an f64 argument's non-finite counts
   long long* out;   // 8-byte results (int64 or f64 bits)
   unsigned char* out_null;
 };
@@ -659,6 +612,12 @@ __device__ __forceinline__ long long minmax_i(long long x, long long y,
 // One row a thread, the function a template argument.  The row's own
 // entries stream (evict-first loads), so the scattered results stay in
 // L2 until their lines fill.
+// The count prefix at row i: (count, NaN, +inf, -inf).
+__device__ __forceinline__ int4 count_at(const WinArgs& w, long long i) {
+  if (w.nf) return __ldg(reinterpret_cast<const int4*>(w.ex_c) + i);
+  return make_int4(((const int*)w.ex_c)[i], 0, 0, 0);
+}
+
 template <int F>
 __global__ void __launch_bounds__(256) wfr_frame(WinArgs w) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -709,7 +668,8 @@ __global__ void __launch_bounds__(256) wfr_frame(WinArgs w) {
     const bool empty = fe < fs || !__ldcs(w.s_valid + i);
     long long rcount = 0;
     if constexpr (F != FIRST_VALUE && F != LAST_VALUE)
-      if (!empty) rcount = (long long)(w.ex_c[fec + 1] - w.ex_c[fsc]);
+      if (!empty)
+        rcount = (long long)(count_at(w, fec + 1).x - count_at(w, fsc).x);
     if constexpr (F == COUNT) {
       bits = rcount;
     } else if constexpr (F == FIRST_VALUE || F == LAST_VALUE) {
@@ -736,14 +696,27 @@ __global__ void __launch_bounds__(256) wfr_frame(WinArgs w) {
       nul = rcount == 0;
     } else {   // SUM, AVG
       if (w.sum_float) {
-        // the reference's inclusive form, scum[fe] - (scum[fs] - a[fs]):
-        // the inclusive prefix at row j is ex_s[j + 1]
+        // the partition's prefix through fe less its prefix before fs
+        // (ex_s is exclusive within the partition; fs and fe lie in one
+        // partition), over the finite values; then the non-finite counts
         const double* sc = (const double*)w.ex_s;
-        double av = 0.0;
-        if (contributes(w.s_valid, w.anm, fsc))
-          av = w.a_float ? af[fsc] : (double)ai[fsc];
-        const double sex = sc[fsc + 1] - av;
-        const double rsum = empty ? 0.0 : sc[fec + 1] - sex;
+        double ve = 0.0;
+        if (contributes(w.s_valid, w.anm, fec)) {
+          const double x = w.a_float ? af[fec] : (double)ai[fec];
+          if (isfinite(x)) ve = x;
+        }
+        double rsum = empty ? 0.0 : (sc[fec] + ve) - sc[fsc];
+        if (w.nf && !empty) {
+          const int4 hi = count_at(w, fec + 1), lo = count_at(w, fsc);
+          const bool nan = hi.y > lo.y, pinf = hi.z > lo.z,
+                     minf = hi.w > lo.w;
+          if (nan || (pinf && minf))
+            rsum = __longlong_as_double(0x7FF8000000000000LL);
+          else if (pinf)
+            rsum = __longlong_as_double(0x7FF0000000000000LL);
+          else if (minf)
+            rsum = -__longlong_as_double(0x7FF0000000000000LL);
+        }
         if constexpr (F == AVG) {
           const double den = (double)(rcount > 1 ? rcount : 1);
           const double r = rcount > 0 ? rsum / den / w.pow10 : 0.0;
@@ -773,24 +746,27 @@ void launch_frame(const WinArgs& w, cudaStream_t s) {
   wfr_frame<F><<<(unsigned)((w.n + 255) / 256), 256, 0, s>>>(w);
 }
 
-// Byte offsets of the K13b scratch regions (each 256-aligned).
+// Byte offsets of the K13b scratch regions (each 256-aligned).  sums:
+// the function is sum or avg; seg: its sum is f64 (SegF, 16 bytes an
+// aggregate); nf: the argument is f64 (Cnt4 counts, 16 bytes a row).
 struct ScanLayout {
   long long tiles, groups, ctrl, agg_c, agg_s, grp_c, grp_s, ex_c, ex_s,
       total;
 };
 
-ScanLayout scan_layout(long long n, bool sums) {
+ScanLayout scan_layout(long long n, bool sums, bool seg, bool nf) {
   auto up = [](long long b) { return (b + 255) & ~255LL; };
+  const long long cb = nf ? 16 : 4, vb = !sums ? 0 : (seg ? 16 : 8);
   ScanLayout L;
   L.tiles = (n + kLbTile - 1) / kLbTile;
   L.groups = (L.tiles + 31) / 32;
   long long off = 0;
-  L.ctrl = off;  off += up(4 * (1 + L.tiles + L.groups));
-  L.agg_c = off; off += up(4 * L.tiles);
-  L.agg_s = off; off += sums ? up(8 * L.tiles) : 0;
-  L.grp_c = off; off += up(4 * L.groups);
-  L.grp_s = off; off += sums ? up(8 * L.groups) : 0;
-  L.ex_c = off;  off += up(4 * (n + 1));
+  L.ctrl = off;  off += up(4 * otbt::lb::ctrl_words(L.tiles));
+  L.agg_c = off; off += up(cb * L.tiles);
+  L.agg_s = off; off += up(vb * L.tiles);
+  L.grp_c = off; off += up(cb * L.groups);
+  L.grp_s = off; off += up(vb * L.groups);
+  L.ex_c = off;  off += up(cb * (n + 1));
   L.ex_s = off;  off += sums ? up(8 * (n + 1)) : 0;
   L.total = off;
   return L;
@@ -876,18 +852,21 @@ extern "C" int otbt_window_bounds(const void* words, int n_words, int n_part,
   return (int)cudaGetLastError();
 }
 
-// K13b scratch bytes over n rows (sums: the function is sum or avg);
-// 0 when the function reads no prefix.
-extern "C" long long otbt_window_scratch_bytes(long long n, int func) {
+// K13b scratch bytes over n rows for function `func` over an argument
+// that is f64 (a_float) or not; 0 when the function reads no prefix.
+extern "C" long long otbt_window_scratch_bytes(long long n, int func,
+                                               int a_float) {
   if (n < 1 || func < ROW_NUMBER || func > MAX) return -1;
   bool counts = func == COUNT || func == SUM || func == AVG ||
                 func == MIN || func == MAX;
   if (!counts) return 0;
-  return scan_layout(n, func == SUM || func == AVG).total;
+  const bool sums = func == SUM || func == AVG;
+  const bool seg = sums && (a_float || func == AVG);
+  return scan_layout(n, sums, seg, sums && a_float).total;
 }
 
-// K13b.  scratch: otbt_window_scratch_bytes(n, func) bytes, 16-byte
-// aligned; out: n 8-byte results; out_null: n bytes or null.
+// K13b.  scratch: otbt_window_scratch_bytes(n, func, a_float) bytes,
+// 16-byte aligned; out: n 8-byte results; out_null: n bytes or null.
 extern "C" int otbt_window_frame_reduce(
     int func, long long n, const void* p_start, const void* peer_start,
     const void* peer_end_v, const void* p_end, const void* ob_cum,
@@ -912,8 +891,9 @@ extern "C" int otbt_window_frame_reduce(
                       func == MIN || func == MAX;
   const bool sums = func == SUM || func == AVG;
   const int sum_float = (a_float || func == AVG) ? 1 : 0;
+  const bool nf = sums && a_float;
   char* base = (char*)scratch;
-  ScanLayout L = scan_layout(n, sums);
+  ScanLayout L = scan_layout(n, sums, sums && sum_float, nf);
   if (counts) {
     if (scratch == nullptr || scratch_bytes < L.total ||
         ((unsigned long long)scratch & 15ULL) != 0)
@@ -923,29 +903,29 @@ extern "C" int otbt_window_frame_reduce(
     p.valid = valid;
     p.anm = nm;
     p.a = a;
+    p.p_start = (const long long*)p_start;
     p.tiles = (int)L.tiles;
     p.ctrl = (int*)(base + L.ctrl);
-    p.agg_c = (int*)(base + L.agg_c);
+    p.agg_c = base + L.agg_c;
     p.agg_s = base + L.agg_s;
-    p.grp_c = (int*)(base + L.grp_c);
+    p.grp_c = base + L.grp_c;
     p.grp_s = base + L.grp_s;
-    p.ex_c = (int*)(base + L.ex_c);
+    p.ex_c = base + L.ex_c;
     p.ex_s = base + L.ex_s;
     p.out_null = func == COUNT ? nullptr : (unsigned char*)out_null;
-    cudaError_t e = cudaMemsetAsync(p.ctrl, 0,
-                                    4 * (1 + L.tiles + L.groups), s);
+    cudaError_t e = cudaMemsetAsync(
+        p.ctrl, 0, 4 * otbt::lb::ctrl_words(L.tiles), s);
     if (e != cudaSuccess) return (int)e;
     const unsigned grid = (unsigned)L.tiles;
     if (!sums)
-      wfr_scan<false, unsigned long long, long long>
-          <<<grid, kLbThreads, 0, s>>>(p);
+      wfr_scan<int, NoSum, long long><<<grid, kLbThreads, 0, s>>>(p);
     else if (!sum_float)
-      wfr_scan<true, unsigned long long, long long>
+      wfr_scan<int, unsigned long long, long long>
           <<<grid, kLbThreads, 0, s>>>(p);
     else if (a_float)
-      wfr_scan<true, double, double><<<grid, kLbThreads, 0, s>>>(p);
+      wfr_scan<Cnt4, SegF, double><<<grid, kLbThreads, 0, s>>>(p);
     else
-      wfr_scan<true, double, long long><<<grid, kLbThreads, 0, s>>>(p);
+      wfr_scan<int, SegF, long long><<<grid, kLbThreads, 0, s>>>(p);
   }
   WinArgs w;
   w.n = n;
@@ -972,9 +952,10 @@ extern "C" int otbt_window_frame_reduce(
   w.has_order = has_order;
   w.sk = sk;
   w.ek = ek;
-  w.ex_c = counts ? (const int*)(base + L.ex_c) : nullptr;
+  w.ex_c = counts ? (const void*)(base + L.ex_c) : nullptr;
   w.ex_s = sums ? (const void*)(base + L.ex_s) : nullptr;
   w.sum_float = sum_float;
+  w.nf = nf ? 1 : 0;
   w.out = (long long*)out;
   w.out_null = (unsigned char*)out_null;
   switch (func) {

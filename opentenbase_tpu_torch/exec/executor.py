@@ -78,7 +78,7 @@ from ..storage import codec
 from ..storage.batch import next_pow2
 from ..storage.store import ABORTED_TS, TableStore
 from ..utils import locks
-from ..utils.dtypes import dev_dtype, device_float
+from ..utils.dtypes import dev_dtype, device_float, float_word, word_float
 from .expr_compile import device_const
 
 
@@ -601,22 +601,24 @@ class Executor:
         return DBatch(cols, b.valid, types, dicts, nulls)
 
     # ---- join ----
-    def _join_key(self, keys: list[E.Expr], b: DBatch):
+    def _join_key(self, keys: list[E.Expr], b: DBatch, floats: list):
         """Combine join key exprs into one int64 key column.  A NULL key
         never matches: null positions take the kernels' reserved
         unmatchable sentinel INT64_MAX.  TEXT keys translate to stable
         string hashes so both sides share a key space (dictionary codes
         are column-local); text pairs are left out of the hash recheck,
-        since the hash IS the equality.  More than one key hashes to one
-        column (K11); the join then rechecks the keys by value.  Returns
-        (key, hashed, recheckable) where recheckable[i] says key i can be
-        re-verified by value."""
+        since the hash IS the equality.  Key i with floats[i] set (either
+        side of its pair is FLOAT64) is keyed by its canonical order word
+        (float_word: NaN = NaN, -0.0 = +0.0, as float8eq) on both sides.
+        More than one key hashes to one column (K11); the join then
+        rechecks the keys by value.  Returns (key, hashed, recheckable)
+        where recheckable[i] says key i can be re-verified by value."""
         from .expr_compile import _text_hash_fn
         for k in keys:
             self._ensure_expr(k, b)
         arrs, nulls, recheckable = [], None, []
         env = self._env(b)
-        for k in keys:
+        for k, flt in zip(keys, floats):
             if k.type.kind == TypeKind.TEXT:
                 a = _text_hash_fn(self._prep(k), self._dictviews(b),
                                   self.device)(env)
@@ -624,6 +626,8 @@ class Executor:
                 recheckable.append(False)
             else:
                 a, nm = self._eval_pair(k, b)
+                if flt:
+                    a = _key_word(a, k.type)
                 recheckable.append(True)
             arrs.append(a)
             if nm is not None:
@@ -644,28 +648,35 @@ class Executor:
     def _defer_side(batch: DBatch, take, out: DBatch, extra_null=None):
         """Carry one join input's columns into the output batch as
         LazyCols behind `take` (output -> input row indices) instead of
-        gathering payloads.  Existing indirections compose: ONE index
-        gather (K9 compose_index) per distinct source index vector,
+        gathering payloads.  Existing indirections compose: one K9
+        compose_indices call for the side gathers each distinct source
+        index vector and each distinct output-space null mask once,
         shared by every column riding it.  `extra_null` is an
         output-space mask (outer-join null extension) OR'd onto every
         carried column's null."""
-        composed: dict = {}
         for n_, a in batch.cols.items():
             out.lazy[n_] = LazyCol(a, take, batch.nulls.get(n_),
                                    extra_null)
             out.types[n_] = batch.types[n_]
             if n_ in batch.dicts:
                 out.dicts[n_] = batch.dicts[n_]
+        if not batch.lazy:
+            return
+        priors, masks = {}, {}
+        for lc in batch.lazy.values():
+            priors.setdefault(id(lc.idx), lc.idx)
+            if lc.null_out is not None:
+                masks.setdefault(id(lc.null_out), lc.null_out)
+        outs, mouts = K.compose_indices(
+            tuple(priors.values()), take,
+            tuple(m.contiguous() for m in masks.values()))
+        nidx = dict(zip(priors, outs))
+        nmask = dict(zip(masks, mouts))
         for n_, lc in batch.lazy.items():
-            key = id(lc.idx)
-            nidx = composed.get(key)
-            if nidx is None:
-                nidx = K.compose_index(lc.idx, take)
-                composed[key] = nidx
-            no = lc.null_out[take] if lc.null_out is not None else None
+            no = nmask[id(lc.null_out)] if lc.null_out is not None else None
             if extra_null is not None:
                 no = extra_null if no is None else (no | extra_null)
-            out.lazy[n_] = LazyCol(lc.src, nidx, lc.null_src, no)
+            out.lazy[n_] = LazyCol(lc.src, nidx[id(lc.idx)], lc.null_src, no)
             out.types[n_] = batch.types[n_]
             if n_ in batch.dicts:
                 out.dicts[n_] = batch.dicts[n_]
@@ -707,16 +718,20 @@ class Executor:
                                        right_keys=node.left_keys)
             left, right = right, left
 
-        lkey, lhashed, lcheck = self._join_key(node.left_keys, left)
-        rkey, rhashed, rcheck = self._join_key(node.right_keys, right)
+        floats = [TypeKind.FLOAT64 in (lk.type.kind, rk.type.kind)
+                  for lk, rk in zip(node.left_keys, node.right_keys)]
+        lkey, lhashed, lcheck = self._join_key(node.left_keys, left, floats)
+        rkey, rhashed, rcheck = self._join_key(node.right_keys, right,
+                                               floats)
         skeys, perm = K.join_build(rkey, right.valid)
         lo, counts = K.join_probe_counts(skeys, lkey, left.valid)
 
         hash_recheck = []
         if lhashed or rhashed:
             hash_recheck = [
-                (lk, rk) for (lk, rk), lok, rok in
-                zip(zip(node.left_keys, node.right_keys), lcheck, rcheck)
+                (lk, rk, flt) for (lk, rk), lok, rok, flt in
+                zip(zip(node.left_keys, node.right_keys), lcheck, rcheck,
+                    floats)
                 if lok and rok]
 
         if node.kind in ("semi", "anti") and not node.residual \
@@ -765,9 +780,11 @@ class Executor:
 
         # residual quals (incl. hash recheck for multi-key joins)
         res_valid = out.valid
-        for lk, rk in hash_recheck:
-            res_valid = res_valid & (self._eval(lk, out) ==
-                                     self._eval(rk, out))
+        for lk, rk, flt in hash_recheck:
+            lv, rv = self._eval(lk, out), self._eval(rk, out)
+            if flt:   # float8eq: compare the words (NaN = NaN)
+                lv, rv = _key_word(lv, lk.type), _key_word(rv, rk.type)
+            res_valid = res_valid & (lv == rv)
         for q in node.residual:
             res_valid = res_valid & self._eval_pred(q, out)
 
@@ -853,11 +870,14 @@ class Executor:
     def _eval_group_keys(self, node: P.Agg, b: DBatch):
         """Group key tensors + per-key null masks.  NULL keys group
         together: the value is canonicalized to 0 and the null bit
-        becomes an extra grouping column."""
+        becomes an extra grouping column.  A FLOAT64 key groups by its
+        canonical order word (float_word; _assemble_agg_output decodes
+        it)."""
         key_arrs, key_types, key_dicts, key_nulls = [], [], [], []
         for name, ke in node.group_keys:
             arr, nm = self._eval_pair(ke, b)
-            arr = arr.to(torch.int64)
+            arr = _key_word(arr, ke.type) \
+                if ke.type.kind == TypeKind.FLOAT64 else arr.to(torch.int64)
             if nm is not None:
                 arr = torch.where(nm, torch.zeros((), dtype=torch.int64,
                                                   device=arr.device), arr)
@@ -893,7 +913,8 @@ class Executor:
         cols, types, dicts, nulls = {}, {}, {}, {}
         for i, ((kname, _), karr, kt, kd) in enumerate(
                 zip(node.group_keys, gkey_out, key_types, key_dicts)):
-            cols[kname] = karr.to(dev_dtype(kt))
+            cols[kname] = word_float(karr) \
+                if kt.kind == TypeKind.FLOAT64 else karr.to(dev_dtype(kt))
             types[kname] = kt
             if kd is not None:
                 dicts[kname] = kd
@@ -1642,6 +1663,16 @@ def materialize(b: DBatch, names: Optional[list[str]] = None):
         out_cols.append(vals)
     rows = list(zip(*out_cols)) if out_cols else []
     return names, rows
+
+
+def _key_word(arr, t: SqlType):
+    """The canonical f64 order word (float_word) of a key of type t: a
+    DECIMAL by its value (the scaled int over 10**scale), other numeric
+    kinds widened to f64 first.  A constant key broadcasts as itself."""
+    x = arr.to(torch.float64)
+    if t.kind == TypeKind.DECIMAL and t.scale:
+        x = x / float(10 ** t.scale)
+    return float_word(x)
 
 
 def _dense_bound(key_types: list[SqlType], key_dicts: list) -> Optional[int]:

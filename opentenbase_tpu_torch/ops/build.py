@@ -49,12 +49,13 @@ SIGNATURES = {
                                _P, _P],
     "otbt_join_expand": [_P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P,
                          _LL, _P],
-    "otbt_compose_index": [_P, _LL, _P, _LL, _P, _P],
+    "otbt_compose_indices": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _LL, _P],
     "otbt_join_mask": [_P, _P, _LL, _I, _P, _P],
     "otbt_hash_columns": [_P, _I, _LL, _P, _P],
     "otbt_scan_tiles": [_LL],
     "otbt_route_dest": [_P, _P, _P, _P, _I, _LL, _P, _P, _LL, _I, _P, _P],
-    "otbt_compact": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "otbt_compact_scratch_bytes": [_LL, _LL, _LL],
+    "otbt_compact": [_P, _LL, _LL, _LL, _P, _LL, _P, _P, _P, _P, _I, _P],
     "otbt_exchange_tiles": [_LL],
     "otbt_exchange_max_dn": [],
     "otbt_exchange_count": [_P, _P, _P, _I, _I, _LL, _P, _P, _P, _P],
@@ -74,13 +75,14 @@ SIGNATURES = {
     "otbt_window_frame_reduce": [_I, _LL] + [_P] * 8 + [_I, _P, _LL, _P, _P,
                                  _I, _D, _P] + [_I] * 3 + [_LL, _I, _LL, _I]
                                 + [_P, _LL, _P, _P, _P],
-    "otbt_window_scratch_bytes": [_LL, _I],
+    "otbt_window_scratch_bytes": [_LL, _I, _I],
     "otbt_range_minmax": [_P, _I, _P, _LL, _I, _I, _P, _P],
 }
 RESTYPES = {"otbt_scan_tiles": _LL, "otbt_exchange_tiles": _LL,
             "otbt_sort_scratch_bytes": _LL, "otbt_join_scratch_bytes": _LL,
             "otbt_exchange_max_dn": _LL, "otbt_ann_topk_scratch": _LL,
-            "otbt_window_scratch_bytes": _LL}
+            "otbt_window_scratch_bytes": _LL,
+            "otbt_compact_scratch_bytes": _LL}
 
 _lock = threading.Lock()
 _lib = None

@@ -33,7 +33,7 @@ import torch
 
 from . import build as _build
 from ..storage.batch import next_pow2
-from ..utils.dtypes import device_float
+from ..utils.dtypes import device_float, float_word
 from ..utils.hashing import (bucket_ids_plain, hash_columns_plain,
                              route_dest_plain)
 
@@ -440,19 +440,12 @@ def _agg_dense_launch(group_id, valid, agg_inputs: tuple, num_groups: int,
 # ---------------------------------------------------------------------------
 
 def _float_word(x: torch.Tensor, desc: bool) -> torch.Tensor:
-    """Order-preserving int64 image of a float key: DESC negates, -0.0
-    becomes 0.0 and every NaN becomes +NaN, so NaNs sort last either
-    way (the reference's lax.sort canonicalisation)."""
+    """Order-preserving int64 image of a float key: DESC negates, then
+    utils.dtypes.float_word (-0.0 becomes 0.0 and every NaN +NaN, so
+    NaNs sort last either way: the reference's lax.sort
+    canonicalisation)."""
     x = x.to(torch.float64)
-    if desc:
-        x = -x
-    x = torch.where(x == 0, torch.zeros((), dtype=x.dtype, device=x.device),
-                    x)
-    x = torch.where(torch.isnan(x), torch.full((), float("nan"),
-                                               dtype=x.dtype,
-                                               device=x.device), x)
-    b = x.view(torch.int64)
-    return torch.where(b >= 0, b, b ^ INT64_MAX)
+    return float_word(-x if desc else x)
 
 
 def order_words(key_cols: tuple, valid, descs: tuple) -> torch.Tensor:
@@ -974,26 +967,72 @@ def join_expand(lo, counts, perm, out_size: int, left_outer: bool = False,
     return probe_idx, build_idx, total[0]
 
 
+def _jax_take(x, take):
+    """x gathered at take as a JAX gather reads it: a negative index
+    counts from the end, then every index is clamped into range."""
+    n = x.shape[0]
+    t = torch.where(take < 0, take + n, take)
+    return x[torch.clamp(t, 0, n - 1)]
+
+
+def compose_indices_plain(priors: tuple, take, masks: tuple = ()):
+    return (tuple(_jax_take(p, take) for p in priors),
+            tuple(_jax_take(m, take) for m in masks))
+
+
+_MAX_COMPOSE = 48   # csrc/join.cu kMaxCompose: priors (and masks) a launch
+
+
+def compose_indices(priors: tuple, take, masks: tuple = ()):
+    """Late-materialization index composition for one join side: every
+    prior index vector gathered at `take` (prior[take]: one int64 gather
+    of len(take) whatever the number of columns riding each
+    indirection), and the side's output-space null masks with them:
+    (outs, mask_outs).  On the card one launch for up to 48 priors and
+    48 masks (csrc/join.cu compose_kernel), one launch a set of 48 for
+    more."""
+    priors, masks = tuple(priors), tuple(masks)
+    if _on_cpu(take, *priors, *masks):
+        return compose_indices_plain(priors, take, masks)
+    n = take.shape[0]
+    _check(take, "take", (torch.int64,))
+    for p in priors:
+        _check(p, "prior", (torch.int64,))
+        if p.shape[0] < 1:
+            raise ValueError("prior: empty")
+    for m in masks:
+        _check(m, "mask", (torch.bool,))
+        if m.shape[0] < 1:
+            raise ValueError("mask: empty")
+    dev = take.device
+    outs = tuple(torch.empty(n, dtype=torch.int64, device=dev)
+                 for _ in priors)
+    mouts = tuple(torch.empty(n, dtype=torch.bool, device=dev)
+                  for _ in masks)
+    if n == 0 or not (priors or masks):
+        return outs, mouts
+    lib, arr = _lib(), ctypes.c_longlong * _MAX_COMPOSE
+    for lo in range(0, max(len(priors), len(masks)), _MAX_COMPOSE):
+        ps, pos = priors[lo:lo + _MAX_COMPOSE], outs[lo:lo + _MAX_COMPOSE]
+        ms, mos = masks[lo:lo + _MAX_COMPOSE], mouts[lo:lo + _MAX_COMPOSE]
+        _ok(lib.otbt_compose_indices(
+            arr(*(p.data_ptr() for p in ps)), arr(*(p.shape[0] for p in ps)),
+            arr(*(o.data_ptr() for o in pos)), len(ps),
+            arr(*(x.data_ptr() for x in ms)), arr(*(x.shape[0] for x in ms)),
+            arr(*(o.data_ptr() for o in mos)), len(ms),
+            take.data_ptr(), n, _stream()), "compose_index")
+        _count("compose_index")
+    return outs, mouts
+
+
 def compose_index_plain(prior, take):
-    return prior[take]
+    return compose_indices_plain((prior,), take)[0][0]
 
 
 def compose_index(prior, take):
-    """Late-materialization index composition: prior[take], one int64
-    gather of len(take) whatever the number of columns riding the
-    indirection."""
-    if _on_cpu(prior, take):
-        return compose_index_plain(prior, take)
-    _check(prior, "prior", (torch.int64,))
-    _check(take, "take", (torch.int64,))
-    if prior.shape[0] < 1:
-        raise ValueError("prior: empty")
-    out = torch.empty(take.shape[0], dtype=torch.int64, device=take.device)
-    rc = _lib().otbt_compose_index(_ptr(prior), prior.shape[0], _ptr(take),
-                                   take.shape[0], _ptr(out), _stream())
-    _ok(rc, "compose_index")
-    _count("compose_index", 1)
-    return out
+    """The reference's signature: prior[take], compose_indices of one
+    prior."""
+    return compose_indices((prior,), take)[0][0]
 
 
 def semi_mask_plain(counts):
@@ -1446,12 +1485,22 @@ def compact_plain(mask, cols: tuple, out_size: int):
     return mask.sum(), tuple(_take_rows(c, take) for c in cols)
 
 
+#: rows and output slots up to which compact() takes the one-block form
+#: (csrc/compact.cu compact_one; above it, look-back tiles and a memset)
+COMPACT_ONE_ROWS = 16384
+_CMP_TILE = 4096     # csrc/compact.cu kTileRows: a look-back tile's rows
+_CMP_PASS = 16384    # csrc/compact.cu kPassRows: a one-block pass's rows
+_CMP_MAX_COLS = 128  # csrc/compact.cu kMaxCols: columns a launch
+
+
 def compact(mask, cols: tuple, out_size: int):
     """(count, gathered columns): the live rows of `mask` first, in row
     order, in [out_size] columns; padding rows repeat row 0 and are
     masked by count downstream.  The count (an int64 0-d tensor) stays
-    on the device.  On the card: csrc/compact.cu (a scan of the mask,
-    the scatter of the live rows, the row-0 fill of the padding)."""
+    on the device.  On the card: csrc/compact.cu, one launch for up to
+    128 columns (one a set of 128 for more), with a memset of the
+    look-back's control words before it above COMPACT_ONE_ROWS rows or
+    slots."""
     out_size = int(out_size)
     cols = tuple(cols)
     if out_size < 1:
@@ -1468,18 +1517,21 @@ def compact(mask, cols: tuple, out_size: int):
             raise TypeError(f"compact: unsupported dtype {c.dtype}")
     if n < 1:
         raise ValueError("compact: no rows (padding repeats row 0)")
-    dev = mask.device
-    excl = torch.empty(n, dtype=torch.int64, device=dev)
-    tiles = torch.empty(_scan_tiles(n), dtype=torch.int64, device=dev)
+    dev, lib, one = mask.device, _lib(), int(COMPACT_ONE_ROWS)
     count = torch.empty(1, dtype=torch.int64, device=dev)
-    pos = torch.empty(n, dtype=torch.int64, device=dev)
+    sbytes = lib.otbt_compact_scratch_bytes(n, out_size, one)
+    scratch = torch.empty(sbytes, dtype=torch.uint8, device=dev) \
+        if sbytes else None
     outs = tuple(torch.empty(out_size, dtype=c.dtype, device=dev)
                  for c in cols)
-    ins_p, outs_p, widths, k = _col_ptrs(cols, outs)
-    _ok(_lib().otbt_compact(_ptr(mask), n, out_size, _ptr(excl),
-                            _ptr(tiles), _ptr(count), _ptr(pos), ins_p,
-                            outs_p, widths, k, _stream()), "compact")
-    _count("compact", 1)
+    for lo in range(0, max(len(cols), 1), _CMP_MAX_COLS):
+        ins_p, outs_p, widths, k = _col_ptrs(cols[lo:lo + _CMP_MAX_COLS],
+                                             outs[lo:lo + _CMP_MAX_COLS])
+        _ok(lib.otbt_compact(_ptr(mask), n, out_size, one,
+                             None if scratch is None else _ptr(scratch),
+                             sbytes, _ptr(count), ins_p, outs_p, widths, k,
+                             _stream()), "compact")
+        _count("compact", 1)
     return count[0], outs
 
 
@@ -1960,14 +2012,17 @@ def window_frame_reduce_plain(func: str, bounds, frame, s_iota, s_valid,
             hi = table[j, torch.clamp(fec - span + 1, min=0)]
             res = _minmax_plain(lo, hi, func == "min")
             nul = rcount == 0
-        elif func in ("sum", "avg"):
-            av = a_s.to(torch.float64) if func == "avg" else a_s
-            av = torch.where(contrib, av, torch.zeros((), dtype=av.dtype,
-                                                      device=dev))
+        elif func == "sum" and not a_s.dtype.is_floating_point:
+            # integer sums: one wrapping int64 prefix, exact in any order
+            av = torch.where(contrib, a_s, torch.zeros((), dtype=a_s.dtype,
+                                                       device=dev))
             scum = torch.cumsum(av, 0)
-            rsum = torch.where(empty, torch.zeros((), dtype=av.dtype,
-                                                  device=dev),
-                               scum[fec] - (scum - av)[fsc])
+            res = torch.where(empty, torch.zeros((), dtype=av.dtype,
+                                                 device=dev),
+                              scum[fec] - (scum - av)[fsc])
+            nul = rcount == 0
+        elif func in ("sum", "avg"):
+            rsum = _f64_frame_sum(a_s, contrib, p_start, fsc, fec, empty)
             if func == "avg":
                 res = torch.where(
                     rcount > 0,
@@ -1982,6 +2037,53 @@ def window_frame_reduce_plain(func: str, bounds, frame, s_iota, s_valid,
     if nul is not None:
         nul = torch.empty_like(nul).index_put_((s_iota,), nul)
     return out, nul
+
+
+def _segmented_prefix(v, p_start):
+    """Inclusive prefix sums of v restarted at every partition start (row
+    i's partition starts at p_start[i]), by log-step doubling: step d
+    adds the partial sum d rows up when that row is in the partition."""
+    n = v.shape[0]
+    iota = torch.arange(n, dtype=torch.int64, device=v.device)
+    s = v
+    d = 1
+    while d < n:
+        src = iota - d
+        prev = s[torch.clamp(src, min=0)]
+        s = torch.where(src >= p_start, prev + s, s)
+        d <<= 1
+    return s
+
+
+def _f64_frame_sum(a_s, contrib, p_start, fsc, fec, empty):
+    """Each frame's f64 sum of the contributing rows.  Only finite values
+    enter the sum, a prefix restarted at each partition start (so a NaN,
+    an infinity or a huge value in one partition leaves the others
+    alone); an f64 argument also counts its NaN, +inf and -inf rows
+    (integer prefixes): a frame with a NaN or with both infinities is
+    NaN, one with one infinity that infinity.  Integer and decimal
+    arguments (avg) are finite."""
+    dev = a_s.device
+    av = a_s.to(torch.float64)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    fin = contrib & torch.isfinite(av)
+    v = torch.where(fin, av, zero)
+    incl = _segmented_prefix(v, p_start)
+    rsum = torch.where(empty, zero, incl[fec] - (incl[fsc] - v[fsc]))
+    if not a_s.dtype.is_floating_point:
+        return rsum
+
+    def frame_has(flag):
+        c = torch.cumsum(flag.to(torch.int64), 0)
+        return ~empty & (c[fec] - (c - flag.to(torch.int64))[fsc] > 0)
+    nan = frame_has(contrib & torch.isnan(av))
+    pinf = frame_has(contrib & (av == float("inf")))
+    minf = frame_has(contrib & (av == float("-inf")))
+    inf = torch.full((), float("inf"), dtype=torch.float64, device=dev)
+    rsum = torch.where(pinf, inf, torch.where(minf, -inf, rsum))
+    return torch.where(nan | (pinf & minf),
+                       torch.full((), float("nan"), dtype=torch.float64,
+                                  device=dev), rsum)
 
 
 def _clz64(x):
@@ -2000,11 +2102,13 @@ def window_frame_reduce(func: str, bounds, frame, s_iota, s_valid,
                         has_default: bool = False, scale: int = 0,
                         table=None):
     """K13b (csrc/window.cu): window_frame_reduce_plain's result.  A
-    frame function is two launches: one single-pass scan writes the
-    prefix count (and sum) of the contributing rows, then one kernel
-    computes each row's frame, its function and the scatter to input
-    order; the ranks, lag / lead and first / last value are the second
-    launch alone."""
+    frame function is one memset and two launches: one single-pass scan
+    writes the prefix count of the contributing rows (with an f64
+    argument's NaN, +inf and -inf counts) and, for sum / avg, their
+    prefix sum (f64 sums over the finite values, restarted at each
+    partition start), then one kernel computes each row's frame, its
+    function and the scatter to input order; the ranks, lag / lead and
+    first / last value are the second launch alone."""
     opt = [t for t in (a_s, anm_s, dflt_s, dnull_s, table)
            if t is not None]
     if _on_cpu(s_iota, s_valid, *bounds, *opt):
@@ -2051,7 +2155,7 @@ def window_frame_reduce(func: str, bounds, frame, s_iota, s_valid,
         raise ValueError(f"window_frame_reduce: {n} rows (the count "
                          "prefix is int32)")
     lib = _lib()
-    sbytes = lib.otbt_window_scratch_bytes(n, code)
+    sbytes = lib.otbt_window_scratch_bytes(n, code, a_float)
     scratch = torch.empty(sbytes, dtype=torch.uint8, device=dev) \
         if sbytes else None
 

@@ -54,3 +54,32 @@ def float_to_bits(t: torch.Tensor) -> torch.Tensor:
 def bits_to_float(t: torch.Tensor) -> torch.Tensor:
     """Inverse of float_to_bits."""
     return t.view(torch.float64)
+
+
+_INT64_MAX = (1 << 63) - 1
+
+
+def float_word(t: torch.Tensor) -> torch.Tensor:
+    """f64 tensor -> its canonical order word, an int64 key: -0.0 becomes
+    +0.0 and every NaN the one +NaN, then the bits viewed as int64 with a
+    negative pattern flipped (b ^ INT64_MAX).  Word order is the numeric
+    order with NaN last and NaN equal to NaN (PostgreSQL's float8 order);
+    equal words are equal values under float8eq.  The canonical NaN's
+    word is 0x7FF8000000000000 and +inf's 0x7FF0000000000000, both below
+    the join's reserved sentinels INT64_MAX (a NULL key) and
+    INT64_MAX - 1 (an invalid probe row), so no f64 key collides with
+    them."""
+    x = t.to(torch.float64)
+    x = torch.where(x == 0, torch.zeros((), dtype=x.dtype, device=x.device),
+                    x)
+    x = torch.where(torch.isnan(x), torch.full((), float("nan"),
+                                               dtype=x.dtype,
+                                               device=x.device), x)
+    b = x.view(torch.int64)
+    return torch.where(b >= 0, b, b ^ _INT64_MAX)
+
+
+def word_float(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of float_word on its image (canonical values)."""
+    w = w.to(torch.int64)
+    return torch.where(w >= 0, w, w ^ _INT64_MAX).view(torch.float64)

@@ -8,6 +8,8 @@ kernels are held against those on the card by chip_smoke.py.  Hashes,
 destinations, rows, their order and counts must be equal exactly.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -296,6 +298,76 @@ def test_compact_matches_reference(density, out_size):
     assert int(tc) == int(rc) == int(mask.sum())
     for g, w in zip(tcols, rcols):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_compact_of_129_columns_matches_reference():
+    """K3 over more columns than one launch takes (128): every column
+    compacted as the reference does."""
+    rng = np.random.default_rng(129)
+    n = 300
+    mask = rng.random(n) < 0.4
+    cols = tuple(rng.integers(-1000, 1000, n).astype(
+        (np.int64, np.int32, np.int16, np.uint8)[j % 4]) for j in range(129))
+    rc, rcols = RK.compact(jnp.asarray(mask),
+                           tuple(jnp.asarray(c) for c in cols), 200)
+    tc, tcols = TK.compact(_t(mask), tuple(_t(c) for c in cols), 200)
+    assert int(tc) == int(rc) == int(mask.sum())
+    assert len(tcols) == 129
+    for g, w in zip(tcols, rcols):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+class _FakeCompactLib:
+    """otbt_compact without a card: each launch's columns compacted by
+    compact_plain on the tensors behind its pointers, written through
+    the output pointers; records (columns, one-block limit) a launch."""
+
+    def __init__(self, tensors):
+        self.by_ptr = {t.data_ptr(): t for t in tensors}
+        self.launches = []
+
+    def otbt_compact_scratch_bytes(self, n, out_size, one_rows):
+        return 0 if max(n, out_size) <= one_rows else 64
+
+    def otbt_compact(self, mask, n, out_size, one_rows, scratch, sbytes,
+                     count, ins, outs, widths, k, stream):
+        assert (scratch is None) == (sbytes == 0)
+        cols = tuple(self.by_ptr[ins[j]] for j in range(k))
+        assert [c.element_size() for c in cols] == list(widths[:k])
+        cnt, got = TK.compact_plain(self.by_ptr[mask], cols, out_size)
+        cnt = cnt.reshape(1)
+        for dst, src in zip([count] + list(outs[:k]), (cnt,) + got):
+            ctypes.memmove(dst, src.data_ptr(), src.numel() *
+                           src.element_size())
+        self.launches.append((k, one_rows))
+        return 0
+
+
+@pytest.mark.parametrize("k,sets", [(0, [0]), (4, [4]), (128, [128]),
+                                    (129, [128, 1]), (300, [128, 128, 44])])
+@pytest.mark.parametrize("n", [1000, 20000])
+def test_compact_launches_a_set_of_128_columns_at_a_time(monkeypatch, k,
+                                                         sets, n):
+    """On the card compact makes one launch for up to 128 columns and one
+    a set of 128 beyond (csrc/compact.cu kMaxCols), each counted, below
+    and above the one-block limit; the results equal compact_plain (the
+    library faked with it: no card here)."""
+    rng = np.random.default_rng(k + n)
+    mask = _t(rng.random(n) < 0.5)
+    cols = tuple(_t(rng.integers(0, 100, n).astype(
+        (np.int64, np.int32, np.int16, np.uint8)[j % 4])) for j in range(k))
+    lib = _FakeCompactLib((mask,) + cols)
+    monkeypatch.setattr(TK, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(TK, "_lib", lambda: lib)
+    monkeypatch.setattr(TK, "_stream", lambda: 0)
+    TK.reset_launches()
+    count, outs = TK.compact(mask, cols, 777)
+    assert lib.launches == [(s, TK.COMPACT_ONE_ROWS) for s in sets]
+    assert TK.LAUNCHES["compact"] == len(sets)
+    wc, want = TK.compact_plain(mask, cols, 777)
+    assert int(count) == int(wc) and len(outs) == k
+    for g, w in zip(outs, want):
+        assert torch.equal(g, w)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,8 @@ on inputs that take each branch, and the tests check which branch the
 reference took.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -290,6 +292,90 @@ def test_compose_index_and_masks_match_reference():
         np.asarray(RK.anti_mask(jnp.asarray(counts), jnp.asarray(pvalid))))
 
 
+@pytest.mark.parametrize("n_take", [0, 1, 2, 1001])
+@pytest.mark.parametrize("k", [1, 2, 17, 49])
+def test_compose_indices_match_reference_prior_by_prior(k, n_take):
+    """K9 for one join side: k priors of different lengths and two null
+    masks (49 with 49 priors: past one launch's 48) gathered at one take,
+    with indices past either end (a JAX gather counts a negative index
+    from the end, then clamps), against the reference's compose_index
+    applied prior by prior (and the same gather of each mask)."""
+    rng = np.random.default_rng(62 + k * 7 + n_take)
+    lens = rng.integers(1, 400, k)
+    priors = [rng.integers(0, 10**9, m).astype(np.int64) for m in lens]
+    masks = [rng.random(m) < 0.4
+             for m in ((lens[0], 3) if k < 49 else lens)]
+    take = rng.integers(-450, 450, n_take).astype(np.int64)
+    outs, mouts = TK.compose_indices(tuple(_t(p) for p in priors), _t(take),
+                                     tuple(_t(m) for m in masks))
+    assert len(outs) == k and len(mouts) == len(masks)
+    for got, prior in zip(outs, priors):
+        assert got.dtype == torch.int64 and got.shape == (n_take,)
+        np.testing.assert_array_equal(_np(got), np.asarray(
+            RK.compose_index(jnp.asarray(prior), jnp.asarray(take))))
+    for got, m in zip(mouts, masks):
+        assert got.dtype == torch.bool and got.shape == (n_take,)
+        np.testing.assert_array_equal(
+            _np(got), np.asarray(jnp.asarray(m)[jnp.asarray(take)]))
+    # the reference's one-prior signature is the same gather
+    np.testing.assert_array_equal(
+        _np(TK.compose_index(_t(priors[0]), _t(take))), _np(outs[0]))
+
+
+class _FakeComposeLib:
+    """otbt_compose_indices without a card: each launch's gathers done
+    by compose_indices_plain on the tensors behind its pointers, written
+    through the output pointers; records (priors, masks) a launch."""
+
+    def __init__(self, tensors):
+        self.by_ptr = {t.data_ptr(): t for t in tensors}
+        self.launches = []
+
+    def otbt_compose_indices(self, priors, n_priors, outs, k, masks,
+                             n_masks, mask_outs, m, take, n, stream):
+        ps = tuple(self.by_ptr[priors[j]] for j in range(k))
+        ms = tuple(self.by_ptr[masks[j]] for j in range(m))
+        assert [p.shape[0] for p in ps] == list(n_priors[:k])
+        assert [x.shape[0] for x in ms] == list(n_masks[:m])
+        got, mgot = TK.compose_indices_plain(ps, self.by_ptr[take], ms)
+        for dst, src in zip(list(outs[:k]) + list(mask_outs[:m]),
+                            got + mgot):
+            ctypes.memmove(dst, src.data_ptr(), src.numel() *
+                           src.element_size())
+        self.launches.append((k, m))
+        return 0
+
+
+@pytest.mark.parametrize("k,m,sets", [(5, 2, [(5, 2)]),
+                                      (48, 0, [(48, 0)]),
+                                      (49, 49, [(48, 48), (1, 1)]),
+                                      (97, 3, [(48, 3), (48, 0), (1, 0)])])
+def test_compose_indices_launches_a_set_of_48_at_a_time(monkeypatch, k, m,
+                                                        sets):
+    """On the card compose_indices makes one launch for up to 48 priors
+    and 48 masks and one a set of 48 beyond (csrc/join.cu kMaxCompose),
+    each counted; the outputs equal the plain version (the library faked
+    with it: no card here)."""
+    rng = np.random.default_rng(k * 100 + m)
+    priors = tuple(_t(rng.integers(0, 10**9, int(rng.integers(1, 300))))
+                   for _ in range(k))
+    masks = tuple(_t(rng.random(int(rng.integers(1, 300))) < 0.5)
+                  for _ in range(m))
+    take = _t(rng.integers(-320, 320, 501))
+    lib = _FakeComposeLib(priors + masks + (take,))
+    monkeypatch.setattr(TK, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(TK, "_lib", lambda: lib)
+    monkeypatch.setattr(TK, "_stream", lambda: 0)
+    TK.reset_launches()
+    outs, mouts = TK.compose_indices(priors, take, masks)
+    assert lib.launches == sets
+    assert TK.LAUNCHES["compose_index"] == len(sets)
+    want, mwant = TK.compose_indices_plain(priors, take, masks)
+    assert len(outs) == k and len(mouts) == m
+    for g, w in zip(outs + mouts, want + mwant):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, 4099])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_masks_at_odd_lengths_and_offset_views_match_reference(n, offset):
@@ -430,6 +516,7 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
         lambda: TK.join_probe_counts(k, k, v),
         lambda: TK.join_expand(k, k, k, 16),
         lambda: TK.compose_index(k, k),
+        lambda: TK.compose_indices((k, k), k, (v,)),
         lambda: TK.semi_mask(k),
         lambda: TK.anti_mask(k, v),
         lambda: TK.grouped_agg_sort((k,), v, (k,), 8, ("sum",)),

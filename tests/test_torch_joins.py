@@ -227,18 +227,20 @@ def test_small_join_matches_reference(small_sessions, sql):
 
 def test_join_chain_moves_indices_not_payloads(small_sessions, monkeypatch):
     """Late materialization: the joins of a chain compose index vectors
-    (compose_index) instead of gathering every carried column."""
+    (compose_indices) instead of gathering every carried column, one
+    call for each join side whatever the number of priors it carries."""
     r, t = small_sessions
     composed = []
-    real = TK.compose_index
+    real = TK.compose_indices
 
-    def counting(prior, take):
-        composed.append(int(take.shape[0]))
-        return real(prior, take)
-    monkeypatch.setattr(TK, "compose_index", counting)
+    def counting(priors, take, masks=()):
+        composed.append(len(priors))
+        return real(priors, take, masks)
+    monkeypatch.setattr(TK, "compose_indices", counting)
     sql = SMALL_JOINS[14]
     assert t.query(sql) == r.query(sql)
-    assert len(composed) >= 2
+    assert sum(composed) >= 2
+    assert len(composed) < sum(composed)
 
 
 def test_lazy_batch_surface_matches_reference():
