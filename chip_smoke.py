@@ -74,7 +74,14 @@ masks at 1, 15, 16, 17 and
 limit, pass and look-back tile edges, 1 to 17 and 129 columns, captured
 and replayed, 1 launch a call (+ 1 memset above the limit; one each a
 set of 128 columns); K9's compose_indices with 1 to 49 priors and null
-masks, captured and replayed; GROUP BY, DISTINCT,
+masks, captured and replayed; K7 at the direct / search boundary, on
+runs across blocks, an all-NULL build and probe keys at both ends of
+int64, in every table form and with int64 slots, 2 launches a call;
+K15c exactly equal to its plain version on NaN, +-inf, 1e20, tied and
+overflowing rows and centroids for all three metrics, and at its tile
+edges (n, lists and dimensions around 128, 16 and the resident row
+tile), its registers, spills and blocks an SM; an int window sum past
+2^31 on the eager, fused and Cluster(2) tiers; GROUP BY, DISTINCT,
 joins and window sums over double precision keys with NaN, +-inf, 1e300,
 -0.0 and NULL on the eager, fused and Cluster(2) tiers against a Python
 oracle) and
@@ -86,7 +93,8 @@ function, and the queries; for K13b, K9 and K3 also the device-only
 time (the recorded calls captured into a CUDA graph and replayed) and the
 host time of a wrapper call, and the shapes of K3's and K9's compose
 calls; K3's two forms (one block, look-back tiles) in turns on cluster
-Q3's calls and in its recaptured program.
+Q3's calls and in its recaptured program; K7 and K15c also device-only
+and host, and the graph nodes of each program's replay.
 
 Run from the repository root:  python3 chip_smoke.py  [--sf 1.0]
 (--checks: only build the kernels and run the kernel checks, about half
@@ -683,6 +691,92 @@ def join_kernel_check(torch, K):
         "large inputs): ok")
 
 
+def probe_cases(np, rng):
+    """(label, sorted build keys, probe keys, probe valid, branch) at K7's
+    edges: live keys spanning T - 1 (direct) and T (search), T = max(2 nb,
+    np); one key repeated over many blocks of rows; runs of 200-700 rows
+    across block boundaries on both branches; an all-INT64_MAX build;
+    probe keys at INT64_MIN and INT64_MAX (and one inside) on both."""
+    imin, imax = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+
+    def probes(keys, m, lo, hi):
+        pk = np.concatenate([rng.choice(keys, m // 2),
+                             rng.integers(lo, hi, m - m // 2)])
+        pk[:6] = (imin, imax, imin + 1, imax - 1, 0, -1)
+        rng.shuffle(pk[6:])
+        return pk.astype(np.int64), rng.random(m) < 0.9
+
+    out = []
+    nb, m, tail = 5000, 4000, 300
+    T = max(2 * nb, m)
+    for span, direct in ((T - 1, True), (T, False)):
+        live = np.sort(rng.integers(-1234, -1234 + span + 1, nb - tail))
+        live[0], live[-1] = -1234, -1234 + span
+        sk = np.concatenate([np.sort(live), np.full(tail, imax)])
+        out.append((f"span T{'' if span == T else ' - 1'}", sk,
+                    *probes(live, m, -2000, span), direct))
+    hot = np.sort(np.concatenate([np.full(150_000, 7),
+                                  rng.integers(0, 100_000, 50_000)]))
+    out.append(("one key over 586 blocks of rows", hot,
+                *probes(hot, 300_000, -5, 100_005), True))
+    runs = np.repeat(np.cumsum(rng.integers(1, 4, 800)),
+                     rng.integers(200, 701, 800))
+    out.append(("runs of 200-700 rows", runs,
+                *probes(runs, 100_000, -5, int(runs[-1]) + 5), True))
+    sparse = runs * 10**12 - 7
+    out.append(("runs of 200-700 rows, sparse", sparse,
+                *probes(sparse, 100_000, -10**15, 10**15), False))
+    out.append(("no live key", np.full(1000, imax),
+                *probes(np.arange(5), 3000, -5, 5), False))
+    ends = np.sort(np.concatenate([[imin, imin + 1, imax - 1], rng.integers(
+        imin // 2, imax // 2, 2000)]))
+    out.append(("keys at both ends of int64", ends,
+                *probes(ends, 6000, imin, imax), False))
+    return out
+
+
+def probe_kernel_check(torch, K):
+    """K7 against join_probe_counts_plain (counts equal, lo equal where a
+    row matches) on probe_cases, with int32 and with int64 table slots
+    (probe_counts_cuda asked for them; join_probe_counts takes them from
+    2^31 build rows on); the branch each case takes checked with the
+    plain rule; the kernel launches and memsets a call (graph nodes):
+    2 + 0."""
+    import numpy as np
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(12)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    imax = np.iinfo(np.int64).max
+    cases = probe_cases(np, rng)
+    for label, sk, pk, pv, direct in cases:
+        live = sk[sk != imax]
+        T = max(2 * len(sk), len(pk))
+        took = bool(len(live)) and int(live[-1]) - int(sk[0]) < T
+        check(took == direct, f"probe case {label}: the direct branch "
+              f"is {took}, want {direct}")
+        tsk, tpk, tpv = t(sk), t(pk), t(pv)
+        want = K.join_probe_counts_plain(tsk, tpk, tpv)
+        compare_probe(torch, K.join_probe_counts(tsk, tpk, tpv), want,
+                      f"{label}, int32 slots")
+        compare_probe(torch, K.probe_counts_cuda(tsk, tpk, tpv, True), want,
+                      f"{label}, int64 slots")
+    label, sk, pk, pv, _d = cases[2]
+    tsk, tpk, tpv = t(sk), t(pk), t(pv)
+    launches = kernel_launches(
+        torch, lambda: K.join_probe_counts(tsk, tpk, tpv))
+    check(launches == (2, 0), f"join_probe_counts: {launches[0]} launches, "
+          f"{launches[1]} memsets a call, want (2, 0)")
+    torch.cuda.synchronize()
+    say(f"K7 join_probe_counts vs plain ({len(cases)} edge cases: span T - 1 "
+        "and T, one key over 586 blocks, runs across blocks on both "
+        "branches, an all-INT64_MAX build, probe keys at INT64_MIN and "
+        "INT64_MAX; int32 and int64 slots): ok; kernel launches + memsets "
+        f"a call: {launches[0]} + {launches[1]}")
+
+
 MASK_SIZES = (1, 15, 16, 17, (1 << 20) + 3)
 
 
@@ -1190,6 +1284,49 @@ def float_key_check(torch, K):
         "GROUP BY, DISTINCT, one- and two-key joins, partitioned sum / avg; "
         f"NaN, +-inf, 1e300, -0.0, NULL) = the oracle on {tiers} tiers "
         "(eager, fused, Cluster(2) program): ok")
+
+
+# an int column's window sum past 2^31 (ROADMAP queue 3's standing item:
+# the reference's int32 cumsum wraps there, the port widens to int64)
+INT_WINDOW_SQL = ("select k, sum(x) over (order by k rows between 1 "
+                  "preceding and 1 following) from w32 order by k")
+INT_WINDOW_ROWS = {"k": [1, 2, 3, 4, 5],
+                   "x": [5, None, 2147483647, 2147483647, -3]}
+INT_WINDOW_WANT = [(1, 5), (2, 2147483652), (3, 4294967294),
+                   (4, 4294967291), (5, 2147483644)]
+
+
+def int_window_check(torch):
+    """INT_WINDOW_SQL through the port's Session on the card (eager and
+    fused tiers) and ClusterSession over Cluster(2) on the card, against
+    the sums computed by hand: K13b widens an int32 argument as its
+    plain version does."""
+    import numpy as np
+    from opentenbase_tpu_torch.exec import executor as X
+    from opentenbase_tpu_torch.exec.dist_session import ClusterSession
+    from opentenbase_tpu_torch.exec.session import LocalNode, Session
+    from opentenbase_tpu_torch.parallel.cluster import Cluster
+    data = {"k": np.asarray(INT_WINDOW_ROWS["k"], np.int64),
+            "x": list(INT_WINDOW_ROWS["x"])}
+    s = Session(LocalNode())
+    s.execute("create table w32 (k bigint, x int)")
+    s._insert_rows(s.node.catalog.table("w32"), s.node.stores["w32"],
+                   dict(data), 5)
+    cs = ClusterSession(Cluster(2))
+    cs.execute("create table w32 (k bigint, x int) distribute by shard(k)")
+    cs._insert_rows(cs.cluster.catalog.table("w32"), dict(data), 5)
+    fuse = X.Executor._fuse
+    try:
+        for tier, sess in (("eager", s), ("fused", s), ("Cluster(2)", cs)):
+            X.Executor._fuse = tier == "fused"
+            rows = [tuple(r) for r in sess.query(INT_WINDOW_SQL)]
+            torch.cuda.synchronize()
+            check(rows == INT_WINDOW_WANT, f"int window sum on the card, "
+                  f"{tier}: {rows}, want {INT_WINDOW_WANT}")
+    finally:
+        X.Executor._fuse = fuse
+    say("int32 window sum past 2^31 on the card = the hand sums on 3 tiers "
+        "(eager, fused, Cluster(2)): ok")
 
 
 WIN_RTOL = 1e-12    # K13b f64 sums / averages: the scan adds in tiles
@@ -1710,6 +1847,21 @@ def graph_nodes(torch, fn):
     return types
 
 
+def replay_nodes(torch, K, prog):
+    """(kernel nodes, memset nodes) of one run of a captured program's
+    body: its traced run captured once more into a CUDA graph (after one
+    eager warm-up run, as the program itself captures), its wrapper calls
+    kept out of LAUNCHES; None where that capture fails."""
+    try:
+        with prog._lock, K.capture_launches():
+            types = graph_nodes(torch, prog._traced_run)
+    except Exception as e:   # a measurement only: say why, go on
+        say(f"replay nodes not measured: {type(e).__name__}: {e}")
+        return None
+    return (types.get(_CU_GRAPH_NODE_KERNEL, 0),
+            types.get(_CU_GRAPH_NODE_MEMSET, 0))
+
+
 def _profiled(torch, fn, reps):
     """The device-side event names of `reps` calls of `fn` under
     torch.profiler."""
@@ -1913,7 +2065,22 @@ def call_bytes_ops(name, a, kw, out):
 # the shapes of a kernel's timed main-path calls, printed with its line:
 # K3's rows, output slots and columns (its one-block path's limit comes
 # from these), K9's take length, priors and null masks
+def probe_shapes(calls) -> str:
+    """Build rows x probe rows and the branch of each recorded K7 call."""
+    imax = (1 << 63) - 1
+    out = []
+    for a, _kw in calls:
+        sk, pk = a[0], a[1]
+        nb, np_ = sk.shape[0], pk.shape[0]
+        live = sk[sk != imax]
+        direct = live.numel() > 0 and \
+            int(live[-1]) - int(sk[0]) < max(2 * nb, np_)
+        out.append(f"{nb} x {np_} ({'direct' if direct else 'search'})")
+    return "; ".join(out)
+
+
 CALL_SHAPES = {
+    "join_probe_counts": probe_shapes,
     "compact": lambda calls: "; ".join(
         f"{a[0].shape[0]} rows -> {int(a[2])} slots, {len(a[1])} columns"
         for a, _kw in calls),
@@ -2078,12 +2245,14 @@ def main():
     small_kernel_check(torch, K)
     sort_kernel_check(torch, K)
     join_kernel_check(torch, K)
+    probe_kernel_check(torch, K)
     cluster_kernel_check(torch, K)
     compact_kernel_check(torch, K)
     compose_kernel_check(torch, K)
     ann_kernel_check(torch, ANN)
     window_kernel_check(torch, K)
     float_key_check(torch, K)
+    int_window_check(torch)
     say(f"launch counts from captured graphs: torch.profiler agreed on "
         f"{PROFILER_COUNTS['agreed']}, lost its device events on "
         f"{PROFILER_COUNTS['lost']}")
@@ -2417,6 +2586,7 @@ def graph_replay_time(torch, s, sql, label, card):
     bytes bound of the fragment's needed columns at their encoded widths
     plus the four MVCC columns, read once."""
     from opentenbase_tpu_torch.exec import executor as X, fused
+    from opentenbase_tpu_torch.ops import kernels as K
     from opentenbase_tpu_torch.sql.parser import parse_sql
     seen = []
     orig = fused.FusedProgram.run
@@ -2442,10 +2612,12 @@ def graph_replay_time(torch, s, sql, label, card):
         for c in need:
             by += n * arrs[c].element_size()
     bound = by / HBM_BYTES_PER_S * 1e3
+    nodes = replay_nodes(torch, K, prog)
     say(f"K14 graph replay {label}: {ms:.4f} ms device, bound {bound:.4f} ms "
         f"({by / 1e6:.1f} MB of needed columns), "
         f"{sum(prog.graph_launches.values())} kernel launches a replay: "
-        f"{json.dumps(prog.graph_launches)} [{card}]")
+        f"{json.dumps(prog.graph_launches)}; graph nodes (kernels, "
+        f"memsets) {nodes} [{card}]")
     X.Executor._fuse = True
     return ms
 
@@ -3098,6 +3270,8 @@ def mesh_program_path(torch, K, cs, data, names, single, oracles, card):
         bound = by / HBM_BYTES_PER_S * 1e3
         per_replay = sum(v for k, v in prog.graph_launches.items()
                          if k != "mesh_program")
+        nodes = replay_nodes(torch, K, prog)
+        k7 = prog.graph_launches.get("join_probe_counts", 0)
         say(f"{_qname(key)} warm median: captured {pm:.3f} ms, eager "
             f"{em:.3f} ms ({em / pm:.2f}x), {REPS} a side in turns; "
             f"captured {' '.join(f'{v:.3f}' for v in ms[True])}; eager "
@@ -3106,8 +3280,10 @@ def mesh_program_path(torch, K, cs, data, names, single, oracles, card):
             f"({100 * dev_ms / pm:.1f}% of the warm call), the same body "
             f"launched op by op {plain_ms:.4f} ms, bound {bound:.4f} ms "
             f"({by / 1e6:.1f} MB of needed columns), {per_replay} kernel "
-            f"launches a replay, graph pool {prog.pool_bytes / 2**20:.1f} "
-            f"MiB, replay = eager run (max err {err:g}) [{card}]")
+            f"launches a replay ({k7} K7 calls), graph nodes (kernels, "
+            f"memsets) {nodes}, graph "
+            f"pool {prog.pool_bytes / 2**20:.1f} MiB, replay = eager run "
+            f"(max err {err:g}) [{card}]")
         if key == "m5":
             record = {
                 "name": "mesh_program", "route": "cuda",
@@ -3344,6 +3520,7 @@ def ann_kernel_check(torch, ANN):
             wi, wd = ANN.topk_nearest_plain(dist, v, k)
             check(torch.equal(gi, wi) and torch.equal(gd, wd),
                   f"ann_topk n={n} k={k} differs (small)")
+    assign_edge_check(torch, ANN, np, rng, t)
     for n, nlist, d in ((3000, 70, 128), (1000, 1, 7), (500, 130, 16)):
         vecs = t(rng.normal(size=(n, d)).astype(np.float32))
         cents = t(rng.normal(size=(nlist, d)).astype(np.float32))
@@ -3372,6 +3549,108 @@ def ann_kernel_check(torch, ANN):
                        f"ann_probe_scan {metric} (small)")
     torch.cuda.synchronize()
     say("K15 kernels vs plain (small inputs and edge branches): ok")
+
+
+def assign_special_cases(np, rng):
+    """(label, rows, centroids) whose scores are exact in f32 whatever the
+    order of the FMAs (small integer components), with the values that
+    decide jnp.argmax's rule: a NaN component, a component of 1e20 (an l2
+    score of inf - inf against a centroid of 1e20, a cosine |v| |c| of
+    inf x 0 against the zero centroid), +-inf components, an all-zero
+    row, duplicated centroids (ties to the lower index), a NaN centroid
+    (every row takes the first NaN), and centroids whose l2 norms
+    overflow (a row of -inf scores gives 0)."""
+    d, nlist = 16, 24
+    cents = rng.integers(-3, 4, (nlist, d)).astype(np.float32)
+    cents[7] = cents[3]
+    cents[19] = cents[3]
+    cents[11] = 0.0
+    rows = rng.integers(-3, 4, (300, d)).astype(np.float32)
+    rows[:40] = cents[rng.integers(0, nlist, 40)]     # exact ties
+    rows[40, 5] = np.nan
+    rows[41, 0] = 1e20
+    rows[42, 3] = -1e20
+    rows[43] = 0.0
+    rows[44, 2] = np.inf
+    rows[45, 9] = -np.inf
+    rows[46, :2] = (np.inf, -np.inf)
+    big = cents.copy()
+    big[5, 0] = 1e20
+    big[17, 0] = -1e20
+    nan_c = cents.copy()
+    nan_c[6, 4] = np.nan
+    nan_c[13, 0] = np.nan
+    huge = cents.copy()
+    huge[np.arange(nlist), np.arange(nlist) % d] = 1e20
+    return [("special rows", rows, cents),
+            ("centroids of 1e20", rows, big),
+            ("NaN centroids", rows, nan_c),
+            ("every l2 norm overflows", rows, huge)]
+
+
+# K15c's tile edges: rows not a multiple of the 128-row tile, 1 to 1000
+# lists around the 128-centroid tile, dimensions around the 16-dimension
+# stage, the resident row tile (d <= 160) and the streamed one (300)
+ASSIGN_EDGES = {"n": 1283, "nlist": (1, 127, 128, 129, 1000),
+                "d": (7, 16, 128, 130, 300)}
+
+
+def assign_kernel_info(torch, K, d):
+    """(registers a thread, spilled bytes a thread, blocks an SM) of the
+    compiled l2 assignment kernel at d dimensions."""
+    import ctypes
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    rc = K._lib().otbt_ann_assign_info(d, *(ctypes.addressof(v)
+                                            for v in vals))
+    check(rc == 0, f"otbt_ann_assign_info failed: error {rc}")
+    return tuple(v.value for v in vals)
+
+
+def assign_edge_check(torch, ANN, np, rng, t):
+    """K15c exactly equal to its plain version on assign_special_cases,
+    every metric; within assign_close at ASSIGN_EDGES; its kernel
+    launches a call (the centroid prep and the product, + the rows'
+    norms for cosine) and the compiled kernel's registers, spills and
+    blocks an SM (at least 2)."""
+    from opentenbase_tpu_torch.ops import kernels as K
+    cases = assign_special_cases(np, rng)
+    for label, rows, cents in cases:
+        for metric in ("l2", "cosine", "ip"):
+            got = ANN.assign_clusters(t(rows), t(cents), metric)
+            want = ANN.assign_clusters_plain(t(rows), t(cents), metric)
+            bad = torch.nonzero(got != want).flatten()[:8].tolist()
+            check(not bad, f"ann_assign {metric} differs from its plain "
+                  f"version ({label}) at rows {bad}: "
+                  f"{got[bad].tolist()} vs {want[bad].tolist()}")
+    n = ASSIGN_EDGES["n"]
+    for d in ASSIGN_EDGES["d"]:
+        vecs = t(rng.normal(size=(n, d)).astype(np.float32))
+        for nlist in ASSIGN_EDGES["nlist"]:
+            cents = t(rng.normal(size=(nlist, d)).astype(np.float32))
+            for metric in ("l2", "cosine", "ip"):
+                assign_close(torch, ANN.assign_clusters(vecs, cents, metric),
+                             ANN.assign_clusters_plain(vecs, cents, metric),
+                             vecs, cents, metric, f"ann_assign {metric} "
+                             f"n={n} nlist={nlist} d={d}")
+    vecs = t(rng.normal(size=(4096, 128)).astype(np.float32))
+    cents = t(rng.normal(size=(1000, 128)).astype(np.float32))
+    nodes = {m: kernel_launches(torch, lambda m=m: ANN.assign_clusters(
+        vecs, cents, m)) for m in ("l2", "cosine", "ip")}
+    for m, want in (("l2", (2, 0)), ("cosine", (3, 0)), ("ip", (2, 0))):
+        check(nodes[m] == want, f"ann_assign {m}: {nodes[m][0]} launches, "
+              f"{nodes[m][1]} memsets a call, want {want}")
+    info = {d: assign_kernel_info(torch, K, d) for d in (128, 300)}
+    check(info[128][2] >= 2, f"ann_assign at d = 128: {info[128][2]} "
+          "block(s) an SM, want 2")
+    torch.cuda.synchronize()
+    say(f"K15c ann_assign = plain exactly on {len(cases)} special "
+        "cases x 3 metrics (NaN, +-inf and 1e20 components, NaN, zero, "
+        "duplicated and overflowing centroids, an all-zero row); within "
+        f"assign_close at n={n}, nlist {ASSIGN_EDGES['nlist']}, d "
+        f"{ASSIGN_EDGES['d']}: ok; kernel launches a call: "
+        + ", ".join(f"{m} {k}" for m, (k, _z) in nodes.items())
+        + "; compiled kernel (registers, spilled bytes, blocks an SM): "
+        + ", ".join(f"d={d} {v}" for d, v in info.items()))
 
 
 def dist_close(torch, got, want, vecs, q, metric, what) -> float:
@@ -3901,6 +4180,15 @@ def vector_measure(torch, K, ANN, vp, err, card, profile=False):
         t_ops = ops / FP32_OPS_PER_S * 1e3
         lib = ann_library_ms(torch, kname, a, kw)
         shape = "x".join(str(x) for x in a[0].shape)
+        split = {}
+        if kname == "ann_assign":
+            split = device_split(
+                torch, K, kname, [(a, kw)], card, wrapper=fn,
+                library=lambda a: (lambda: (a[0] @ a[1].T).argmax(1)))
+            mhz, watts = clocks_during(torch, lambda: fn(*a, **kw))
+            split.update({"sm_clock_mhz": mhz, "power_w": watts})
+            say(f"kernel {kname} back to back: SM clock {mhz} MHz, power "
+                f"{watts} W (nvidia-smi medians) [{card}]")
         records.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": vp["launches"][kname],
@@ -3908,13 +4196,46 @@ def vector_measure(torch, K, ANN, vp, err, card, profile=False):
             "max_abs_err": err[kname], "ms": ms, "plain_ms": pms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib, "timed_on": f"vector {wname} {shape}"})
+            "library_ms": lib, "timed_on": f"vector {wname} {shape}",
+            **split})
         say(f"kernel {kname}: {ms:.4f} ms, plain {pms:.4f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms ({by / 1e6:.1f} MB, "
             f"{ops / 1e9:.2f} GFLOP), library "
             f"{'-' if lib is None else f'{lib:.4f} ms'}; launches "
             f"{vp['launches'][kname]} ({wname} on {shape}) [{card}]")
     return records
+
+
+def clocks_during(torch, fn, seconds=1.5):
+    """(median SM clock MHz, median power draw W) of nvidia-smi's samples
+    every 100 ms while `fn` runs back to back for `seconds`."""
+    p = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader,nounits", "-lms", "100"],
+                         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                         text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        p.terminate()
+        try:
+            out, _ = p.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+    samples = []
+    for line in out.splitlines():
+        try:
+            mhz, watts = (float(x) for x in line.split(","))
+        except ValueError:
+            continue
+        samples.append((mhz, watts))
+    if not samples:
+        return None, None
+    return (statistics.median(m for m, _w in samples),
+            statistics.median(w for _m, w in samples))
 
 
 def busy_share(torch, fn):
@@ -4029,23 +4350,26 @@ def _library_ms(torch, K, name, calls):
 
 # kernels whose time is also split into device-only and host time
 DEVICE_SPLIT = ("semi_mask", "anti_mask", "window_frame_reduce", "compact",
-                "compose_index")
+                "compose_index", "join_probe_counts")
 
 
-def device_split(torch, K, name, calls, card):
+def device_split(torch, K, name, calls, card, wrapper=None, library=None):
     """Kernel `name` over its timed calls: device-only ms (device_host_ms:
     a CUDA graph of the calls) and host ms a wrapper call, and the same
-    two times of its library call (semi_mask's `counts > 0`; for
-    anti_mask the two calls `probe_valid & (counts == 0)`; none for
-    compact, whose `x[mask]` syncs with the host and cannot be
-    captured)."""
+    two times of its library call (`library(a)` builds it, by default
+    _library_fn: semi_mask's `counts > 0`, join_probe_counts' two
+    searchsorted; for anti_mask the two calls `probe_valid & (counts ==
+    0)`; none for compact, whose `x[mask]` syncs with the host and cannot
+    be captured).  `wrapper` is the kernel's wrapper where it is not
+    ops/kernels.py's."""
+    wrapper = wrapper or wrapper_of(K, name)
     dev = host = ldev = lhost = 0.0
     lib_ok = True
     for a, kw in calls:
-        d, h = device_host_ms(torch, lambda: wrapper_of(K, name)(*a, **kw))
+        d, h = device_host_ms(torch, lambda: wrapper(*a, **kw))
         dev += d
         host += h
-        fn = _library_fn(torch, K, name, a)
+        fn = library(a) if library else _library_fn(torch, K, name, a)
         if name == "anti_mask":
             fn = (lambda a=a: a[1] & (a[0] == 0))
         if name == "compact":

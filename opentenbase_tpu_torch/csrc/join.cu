@@ -18,14 +18,32 @@
 //   elementwise epilogue turns the fast branch's acc_s back into keys
 //   (INT64_MAX where acc_s >= rng).  Bound: bytes; the sort's active
 //   passes (three for TPC-H's dense keys) dominate.
-// - Probe (K7): a one-thread kernel reads the sorted keys' ends and
-//   decides, on the device, between the reference's two strategies: a
-//   direct-address table of T + 1 slots (T = max(2 nb, np)), filled
-//   with atomicMin (first row) and atomicAdd (count) and read with one
-//   gather per probe row, when the live keys span less than T (uint64
-//   span); else two binary searches per probe row.  The table kernels
-//   and the probe kernel read the flag, so no host read is needed.
-//   Bound: bytes (the sorted and probe keys read, lo and count written).
+// - Probe (K7): the reference's two strategies, chosen on the device: a
+//   direct-address table over [min, min + T), T = max(2 nb, np), when
+//   the live keys span less than T (uint64 span), else a search.  Bound:
+//   bytes (the sorted and probe keys read, lo and count written); what
+//   costs is the table and the random reads.  Two launches, no atomics,
+//   no initialisation:
+//   - fill: the keys are sorted, so the row that starts a run is its
+//     slot's only writer (one int32 a slot, the run's first row: 4T
+//     bytes, 24 MB at T = 6 M, inside L2; int64 from 2^31 build rows
+//     on); the row that ends the live prefix writes the branch record,
+//     so neither a one-thread launch nor a search in every block (three
+//     synchronised rounds before any row) finds it; every gap-th row
+//     writes one of 1024 splitter keys;
+//   - probe: each block reads the branch record once; direct, one slot
+//     read, the slot's row checked against the key (a slot no run wrote
+//     holds garbage that fails the check: no build row carries that key;
+//     compute-sanitizer's initcheck would report the read by design), the
+//     count by galloping from the run's first row (one read of its own
+//     line for TPC-H's short runs); search, only in a block that holds a
+//     valid probe row (the cluster programs' padded probes are mostly
+//     invalid), the splitters copied into shared memory bracket the lower
+//     bound, a binary search over one gap, and the same gallop.
+//   This form was measured on the card against three others on Q5's
+//   calls and kept as the fastest: a memset of the table first (-1 slots
+//   skip the key read of a miss), (first row, count) pairs (no gallop,
+//   twice the table), and both; see PERF.md.
 // - Expansion (K8): the per-row pair count (count, or max(count, 1)
 //   for valid probe rows of a left outer join) is scanned in scan.cuh
 //   and one thread per probe row writes its pairs; pairs past the total
@@ -201,111 +219,148 @@ __global__ void __launch_bounds__(256) compose_kernel(
   }
 }
 
-// stats[0] = 1 when the direct table applies, stats[1] = the least key.
-__global__ void probe_stats(const long long* __restrict__ sk, long long nb,
-                            long long T, long long* __restrict__ stats) {
-  // live keys (!= INT64_MAX) form a prefix of the sorted keys
-  long long lo = 0, hi = nb;
-  while (lo < hi) {
-    long long mid = lo + (hi - lo) / 2;
-    if (sk[mid] != kI64Max) lo = mid + 1; else hi = mid;
+// The end of the run of `key` that holds sk[lo]: gallop forward (lo + 1,
+// + 2, + 4, ...; a short run is one read of lo's own cache line), then a
+// binary search inside the last step.
+__device__ __forceinline__ long long run_end(const long long* __restrict__ sk,
+                                             long long nb, long long lo,
+                                             long long key) {
+  long long in = lo, out = nb, step = 1;
+  while (in + step < nb) {
+    if (sk[in + step] != key) {
+      out = in + step;
+      break;
+    }
+    in += step;
+    step <<= 1;
   }
-  long long mn = sk[0];
-  bool ok = lo > 0;
-  if (ok) {
-    long long mx = sk[lo - 1];
-    ok = mx >= mn && (u64)mx - (u64)mn < (u64)T;
+  long long a = in + 1;
+  while (a < out) {
+    const long long mid = a + (out - a) / 2;
+    if (sk[mid] == key) a = mid + 1; else out = mid;
   }
-  stats[0] = ok ? 1 : 0;
-  stats[1] = mn;
+  return a;
 }
 
-__global__ void table_init(const long long* __restrict__ stats,
-                           long long slots, long long nb,
-                           long long* __restrict__ lo_tab,
-                           long long* __restrict__ cnt_tab) {
-  if (!stats[0]) return;
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < slots; i += stride) {
-    lo_tab[i] = nb;
-    cnt_tab[i] = 0;
-  }
-}
+constexpr int kSplitters = 1024;   // search branch: sampled build keys
 
-__global__ void table_fill(const long long* __restrict__ stats,
-                           const long long* __restrict__ sk, long long nb,
-                           long long T, long long* __restrict__ lo_tab,
-                           long long* __restrict__ cnt_tab) {
-  if (!stats[0]) return;
-  const long long mn = stats[1];
-  long long stride = (long long)gridDim.x * blockDim.x;
+// The scratch of one call: the branch record (the reference's test and
+// the least key), the splitters (every gap-th sorted key), the T slots.
+struct ProbeHead {
+  longlong2 gate;                 // {1 when the direct table applies, min}
+  long long spl[kSplitters];
+};
+
+// The direct table without atomics: the keys are sorted, so the row that
+// starts a run is the only writer of its key's slot (every run whose key
+// lies in [min, min + T): all of them on the direct branch, a few or none
+// on the search branch, which reads no slot).  The row that ends the live
+// prefix (keys != INT64_MAX come first) writes the branch record from the
+// live keys' uint64 span, row 0 when no key is live; every gap-th row
+// writes its splitter.  One writer each: no atomics, no initialisation.
+template <typename Slot>
+__global__ void probe_fill(const long long* __restrict__ sk, long long nb,
+                           long long T, ProbeHead* __restrict__ head,
+                           Slot* __restrict__ tab) {
+  const long long mn = sk[0];
+  const long long gap = (nb + kSplitters - 1) / kSplitters;
+  const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < nb; i += stride) {
-    long long k = sk[i];
-    // the reference files NULL / invalid keys (INT64_MAX) in slot T,
-    // which no probe reads (a probe's slot is clamped below T): skip
-    // them rather than serialise their atomics on one address
-    if (k == kI64Max) continue;
-    long long cell = clampll(k - mn, 0, T - 1);
-    atomicMin(lo_tab + cell, i);
-    atomicAdd((u64*)(cnt_tab + cell), 1ULL);
+    const long long k = sk[i];
+    if (i % gap == 0) head->spl[i / gap] = k;
+    if (k == kI64Max) {
+      if (i == 0) head->gate = make_longlong2(0, mn);
+      continue;
+    }
+    if (i + 1 == nb || sk[i + 1] == kI64Max)
+      head->gate = make_longlong2((u64)k - (u64)mn < (u64)T, mn);
+    if (i > 0 && sk[i - 1] == k) continue;
+    const u64 off = (u64)k - (u64)mn;
+    if (off < (u64)T) tab[off] = (Slot)i;
   }
 }
 
-__device__ __forceinline__ long long lower_bound(const long long* sk,
-                                                 long long nb, long long v) {
-  long long lo = 0, hi = nb;
-  while (lo < hi) {
-    long long mid = lo + (hi - lo) / 2;
-    if (sk[mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ long long upper_bound(const long long* sk,
-                                                 long long nb, long long v) {
-  long long lo = 0, hi = nb;
-  while (lo < hi) {
-    long long mid = lo + (hi - lo) / 2;
-    if (sk[mid] <= v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__global__ void probe_kernel(const long long* __restrict__ stats,
-                             const long long* __restrict__ sk, long long nb,
+template <typename Slot>
+__global__ void probe_kernel(const long long* __restrict__ sk, long long nb,
                              const long long* __restrict__ probe,
                              const bool* __restrict__ probe_valid,
                              long long np, long long T,
-                             const long long* __restrict__ lo_tab,
-                             const long long* __restrict__ cnt_tab,
+                             const ProbeHead* __restrict__ head,
+                             const Slot* __restrict__ tab,
                              long long* __restrict__ lo_out,
                              long long* __restrict__ cnt_out) {
-  const bool direct = stats[0] != 0;
-  const long long mn = stats[1];
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < np; i += stride) {
-    bool pv = probe_valid[i];
-    long long key = probe[i];
-    long long pk = pv ? key : kI64Max - 1;
-    bool usable = pv && key != kI64Max;
-    long long lo, c = 0;
-    if (direct) {
-      // the reference's int64 difference, wrapping as it does
-      long long off = (long long)((u64)pk - (u64)mn);
-      long long loc = clampll(off, 0, T - 1);
-      if (usable && off >= 0 && off < T) c = cnt_tab[loc];
-      lo = c > 0 ? lo_tab[loc] : 0;
-    } else {
-      lo = lower_bound(sk, nb, pk);
-      long long loc = lo < nb ? lo : nb - 1;
-      if (usable && sk[loc] == pk) c = upper_bound(sk, nb, pk) - lo;
+  __shared__ long long spl[kSplitters];
+  const longlong2 gate = head->gate;
+  const bool direct = gate.x != 0;
+  const long long mn = gate.y;
+  const long long gap = (nb + kSplitters - 1) / kSplitters;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (!direct) {
+    // only a block with a valid probe row searches: it copies the
+    // splitters (8 KB, coalesced) into shared memory
+    bool any = false;
+    for (long long i = first; i < np && !any; i += stride)
+      any = probe_valid[i];
+    if (__syncthreads_or(any)) {
+      for (int j = threadIdx.x; j < kSplitters; j += blockDim.x)
+        spl[j] = (long long)j * gap < nb ? head->spl[j] : kI64Max;
+      __syncthreads();
+    }
+  }
+  for (long long i = first; i < np; i += stride) {
+    const long long key = probe[i];
+    // an invalid row and a NULL key (INT64_MAX) match nothing; lo is 0
+    // where the count is 0, as the reference's direct branch gives
+    const bool usable = probe_valid[i] && key != kI64Max;
+    long long lo = 0, c = 0;
+    if (usable && direct) {
+      // the reference's int64 difference, wrapping as it does; a slot no
+      // run wrote (uninitialised) fails the key check: no build row
+      // carries that key
+      const long long off = (long long)((u64)key - (u64)mn);
+      if (off >= 0 && off < T) {
+        const long long st = (long long)tab[off];
+        if (st >= 0 && st < nb && sk[st] == key) {
+          lo = st;
+          c = run_end(sk, nb, st, key) - st;
+        }
+      }
+    } else if (usable) {
+      // the splitters bracket the lower bound to one gap of the keys
+      int a = 0, b = kSplitters;
+      while (a < b) {
+        const int mid = (a + b) >> 1;
+        if (spl[mid] < key) a = mid + 1; else b = mid;
+      }
+      long long l = a > 0 ? (long long)(a - 1) * gap + 1 : 0;
+      long long h = (long long)a * gap < nb ? (long long)a * gap : nb;
+      while (l < h) {
+        const long long mid = l + (h - l) / 2;
+        if (sk[mid] < key) l = mid + 1; else h = mid;
+      }
+      if (l < nb && sk[l] == key) {
+        lo = l;
+        c = run_end(sk, nb, l, key) - l;
+      }
     }
     lo_out[i] = lo;
     cnt_out[i] = c;
   }
+}
+
+// table: the ProbeHead, then the T slots
+template <typename Slot>
+void launch_probe(const long long* sk, long long nb, const long long* probe,
+                  const bool* pv, long long np, long long T, void* table,
+                  long long* lo, long long* cnt, cudaStream_t s) {
+  ProbeHead* head = (ProbeHead*)table;
+  Slot* tab = (Slot*)((char*)table + sizeof(ProbeHead));
+  probe_fill<Slot><<<otbt::grid_for(nb), otbt::kThreads, 0, s>>>(
+      sk, nb, T, head, tab);
+  probe_kernel<Slot><<<otbt::grid_for(np), otbt::kThreads, 0, s>>>(
+      sk, nb, probe, pv, np, T, head, tab, lo, cnt);
 }
 
 // The pair count of probe row i.
@@ -459,29 +514,36 @@ extern "C" int otbt_join_build(const void* keys, const void* valid,
   return (int)cudaGetLastError();
 }
 
-// sorted_keys: nb >= 1; probe, probe_valid, lo, cnt: np; T = max(2 nb,
-// np); stats: 2 int64 scratch; lo_tab, cnt_tab: T + 1 int64 scratch
-// (slot T, the reference's overflow slot, stays at its initial value).
+// Bytes of K7's scratch: the branch record and the splitters (8208
+// bytes), then T slots of one int32 (int64 when `wide`).
+extern "C" long long otbt_probe_table_bytes(long long T, int wide) {
+  return (long long)sizeof(ProbeHead) + T * (wide ? 8 : 4);
+}
+
+// sorted_keys: nb >= 1; probe, probe_valid: np; T = max(2 nb, np);
+// table: otbt_probe_table_bytes(T, wide) bytes; out: 2 x np int64, lo
+// then count.  wide: int64 slots (needed from 2^31 build rows on).
+// Two launches (fill, probe), no atomics, no initialisation.
 extern "C" int otbt_join_probe_counts(const void* sorted_keys, long long nb,
                                       const void* probe,
                                       const void* probe_valid, long long np,
-                                      long long T, void* stats, void* lo_tab,
-                                      void* cnt_tab, void* lo, void* cnt,
-                                      void* stream) {
-  if (nb < 1 || T < 1) return (int)cudaErrorInvalidValue;
+                                      long long T, void* table,
+                                      long long table_bytes, int wide,
+                                      void* out, void* stream) {
+  if (nb < 1 || np < 0 || T < 1 || (!wide && nb >= (1LL << 31)) ||
+      table_bytes < otbt_probe_table_bytes(T, wide))
+    return (int)cudaErrorInvalidValue;
+  if (np == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   const long long* sk = (const long long*)sorted_keys;
-  long long* st = (long long*)stats;
-  probe_stats<<<1, 1, 0, s>>>(sk, nb, T, st);
-  table_init<<<otbt::grid_for(T + 1), otbt::kThreads, 0, s>>>(
-      st, T + 1, nb, (long long*)lo_tab, (long long*)cnt_tab);
-  table_fill<<<otbt::grid_for(nb), otbt::kThreads, 0, s>>>(
-      st, sk, nb, T, (long long*)lo_tab, (long long*)cnt_tab);
-  if (np > 0)
-    probe_kernel<<<otbt::grid_for(np), otbt::kThreads, 0, s>>>(
-        st, sk, nb, (const long long*)probe, (const bool*)probe_valid, np, T,
-        (const long long*)lo_tab, (const long long*)cnt_tab, (long long*)lo,
-        (long long*)cnt);
+  const long long* pk = (const long long*)probe;
+  const bool* pv = (const bool*)probe_valid;
+  long long* lo = (long long*)out;
+  long long* cnt = lo + np;
+  if (wide)
+    launch_probe<long long>(sk, nb, pk, pv, np, T, table, lo, cnt, s);
+  else
+    launch_probe<int>(sk, nb, pk, pv, np, T, table, lo, cnt, s);
   return (int)cudaGetLastError();
 }
 

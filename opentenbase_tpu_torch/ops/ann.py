@@ -13,8 +13,9 @@ each launch adds one to ops/kernels.py LAUNCHES under its kernel's name:
 - ann_topk: `topk_nearest` (the order of lax.top_k(-masked, k): ascending
   distance, ties to the lower row, masked rows as +inf); above
   MAX_TOPK the order comes from the sort kernel (K10 sort_rows);
-- ann_assign: `assign_clusters` (tiled f32 product with a fused
-  arg-best; the (n, nlist) score matrix is never made);
+- ann_assign: `assign_clusters` (a register-blocked f32 product fed by
+  asynchronous copies, with jnp.argmax's arg-best fused behind it; the
+  (n, nlist) score matrix is never made);
 - ann_lloyd_update: `lloyd_update`, the centroid update of `_lloyd_step`
   (rows ordered by cluster with the sort kernel, then fixed-order sums:
   the same rows build the same centroids bit for bit);
@@ -187,7 +188,12 @@ def assign_clusters_plain(vecs, centroids, metric: str = "l2"):
 
 
 def assign_clusters(vecs, centroids, metric: str = "l2"):
-    """(n, d) f32, (nlist, d) f32 -> (n,) int32 nearest-centroid ids."""
+    """(n, d) f32, (nlist, d) f32 -> (n,) int32 nearest-centroid ids:
+    jnp.argmax of the metric's score, so a NaN score wins (the first
+    NaN), ties go to the lower centroid and a row of -inf scores gives
+    0.  On the card one prep launch (the centroids transposed, their
+    norms), the rows' norms for cosine, and one register-blocked tile
+    product with the arg-best fused behind it (csrc/kmeans.cu)."""
     m = _metric(metric)
     if K._on_cpu(vecs, centroids):
         return assign_clusters_plain(vecs, centroids, metric)
@@ -196,12 +202,16 @@ def assign_clusters(vecs, centroids, metric: str = "l2"):
     _check2(centroids, "centroids", d)
     nlist = centroids.shape[0]
     dev = vecs.device
-    scratch = torch.empty(nlist + (n if metric == "cosine" else 0),
-                          dtype=torch.float32, device=dev)
+    lib = K._lib()
+    nbytes = lib.otbt_ann_assign_scratch_bytes(n, nlist, d, m)
+    if nbytes < 0:
+        raise ValueError(f"ann_assign: no centroid or no dimension "
+                         f"({nlist} x {d})")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    rc = K._lib().otbt_ann_assign(K._ptr(vecs), n, K._ptr(centroids), nlist,
-                                  d, m, K._ptr(scratch), K._ptr(out),
-                                  K._stream())
+    rc = lib.otbt_ann_assign(K._ptr(vecs), n, K._ptr(centroids), nlist, d, m,
+                             K._ptr(scratch), nbytes, K._ptr(out),
+                             K._stream())
     K._ok(rc, "ann_assign")
     K._count("ann_assign")
     return out

@@ -45,8 +45,9 @@ SIGNATURES = {
                        _P],
     "otbt_join_scratch_bytes": [_LL],
     "otbt_join_build": [_P, _P, _LL, _P, _LL, _P, _P, _P],
-    "otbt_join_probe_counts": [_P, _LL, _P, _P, _LL, _LL, _P, _P, _P, _P,
-                               _P, _P],
+    "otbt_probe_table_bytes": [_LL, _I],
+    "otbt_join_probe_counts": [_P, _LL, _P, _P, _LL, _LL, _P, _LL, _I, _P,
+                               _P],
     "otbt_join_expand": [_P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P,
                          _LL, _P],
     "otbt_compose_indices": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _LL, _P],
@@ -69,7 +70,9 @@ SIGNATURES = {
                             _P],
     "otbt_ann_topk_scratch": [_LL, _I],
     "otbt_ann_topk": [_P, _P, _LL, _I, _P, _P, _P, _P],
-    "otbt_ann_assign": [_P, _LL, _P, _I, _I, _I, _P, _P, _P],
+    "otbt_ann_assign_scratch_bytes": [_LL, _I, _I, _I],
+    "otbt_ann_assign_info": [_I, _P, _P, _P],
+    "otbt_ann_assign": [_P, _LL, _P, _I, _I, _I, _P, _LL, _P, _P],
     "otbt_ann_lloyd_update": [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _P],
     "otbt_window_bounds": [_P, _I, _I, _LL, _LL] + [_P] * 12,
     "otbt_window_frame_reduce": [_I, _LL] + [_P] * 8 + [_I, _P, _LL, _P, _P,
@@ -82,7 +85,9 @@ RESTYPES = {"otbt_scan_tiles": _LL, "otbt_exchange_tiles": _LL,
             "otbt_sort_scratch_bytes": _LL, "otbt_join_scratch_bytes": _LL,
             "otbt_exchange_max_dn": _LL, "otbt_ann_topk_scratch": _LL,
             "otbt_window_scratch_bytes": _LL,
-            "otbt_compact_scratch_bytes": _LL}
+            "otbt_compact_scratch_bytes": _LL,
+            "otbt_ann_assign_scratch_bytes": _LL,
+            "otbt_probe_table_bytes": _LL}
 
 _lock = threading.Lock()
 _lib = None

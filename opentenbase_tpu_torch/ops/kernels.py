@@ -863,6 +863,11 @@ def join_probe_counts_plain(sorted_keys, probe_keys, probe_valid):
     return lo, torch.where(usable & hit, hi - lo, zero)
 
 
+#: build rows from which K7's table slots are int64 (a row index no
+#: longer fits an int32)
+PROBE_WIDE_ROWS = 1 << 31
+
+
 def join_probe_counts(sorted_keys, probe_keys, probe_valid):
     """(lo, count) per probe row: the build rows sorted_keys[lo:lo +
     count] carry the probe row's key.  Two strategies, as the reference:
@@ -872,11 +877,24 @@ def join_probe_counts(sorted_keys, probe_keys, probe_valid):
     `lo` of a row with count 0 is unspecified (the reference's branches
     differ there).
 
-    On the card the branch is taken on the device: a one-thread kernel
-    reads the sorted keys' ends and sets a flag that the table kernels
-    and the probe kernel read, so the join makes no host read here."""
+    On the card: two launches, no atomics and no host read.  The fill
+    writes each run's first row into its key's slot (one writer a slot:
+    the keys are sorted), the branch record and the splitter keys; the
+    probe checks the slot's row against its key and gallops to the run's
+    end, or in the search branch brackets the lower bound with the
+    splitters in shared memory.  One scratch allocation (the table) and
+    one output, lo and count the two rows of one (2, np) int64 tensor;
+    lo is 0 where the count is 0."""
     if _on_cpu(sorted_keys, probe_keys, probe_valid):
         return join_probe_counts_plain(sorted_keys, probe_keys, probe_valid)
+    return probe_counts_cuda(sorted_keys, probe_keys, probe_valid,
+                             sorted_keys.shape[0] >= PROBE_WIDE_ROWS)
+
+
+def probe_counts_cuda(sorted_keys, probe_keys, probe_valid, wide: bool):
+    """join_probe_counts' launch on CUDA tensors, with int64 table slots
+    when `wide` (join_probe_counts sets it from PROBE_WIDE_ROWS build
+    rows on; a check may set it to reach that path at a small size)."""
     nb, np_ = sorted_keys.shape[0], probe_keys.shape[0]
     _check(sorted_keys, "sorted_keys", (torch.int64,), nb)
     _check(probe_keys, "probe_keys", (torch.int64,), np_)
@@ -886,18 +904,16 @@ def join_probe_counts(sorted_keys, probe_keys, probe_valid):
         return (torch.zeros(np_, dtype=torch.int64, device=dev),
                 torch.zeros(np_, dtype=torch.int64, device=dev))
     T = max(2 * nb, np_)
-    stats = torch.empty(2, dtype=torch.int64, device=dev)
-    lo_tab = torch.empty(T + 1, dtype=torch.int64, device=dev)
-    cnt_tab = torch.empty(T + 1, dtype=torch.int64, device=dev)
-    lo = torch.empty(np_, dtype=torch.int64, device=dev)
-    cnt = torch.empty(np_, dtype=torch.int64, device=dev)
-    rc = _lib().otbt_join_probe_counts(
+    lib = _lib()
+    nbytes = lib.otbt_probe_table_bytes(T, int(wide))
+    table = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = torch.empty((2, np_), dtype=torch.int64, device=dev)
+    rc = lib.otbt_join_probe_counts(
         _ptr(sorted_keys), nb, _ptr(probe_keys), _ptr(probe_valid), np_, T,
-        _ptr(stats), _ptr(lo_tab), _ptr(cnt_tab), _ptr(lo), _ptr(cnt),
-        _stream())
+        _ptr(table), nbytes, int(wide), _ptr(out), _stream())
     _ok(rc, "join_probe_counts")
     _count("join_probe_counts", 1)
-    return lo, cnt
+    return out[0], out[1]
 
 
 def join_expand_plain(lo, counts, perm, out_size: int,

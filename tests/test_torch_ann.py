@@ -190,6 +190,57 @@ def test_assign_clusters(metric, kdata):
     assert len(diff) <= 2
 
 
+def _special_assign_case(case):
+    """Rows and centroids of small integers (every score exact in f32,
+    whatever the order of the products) with the values that decide
+    jnp.argmax's rule: NaN, +-inf and 1e20 components, an all-zero row,
+    duplicated centroids and a zero centroid; `case` adds centroids of
+    1e20 (an l2 score of inf - inf, a cosine |v| |c| of inf x 0), NaN
+    centroids (every row takes the first NaN), or centroids whose l2
+    norms overflow (a row of -inf scores gives 0)."""
+    rng = np.random.default_rng(31)
+    d, nlist = 16, 24
+    cents = rng.integers(-3, 4, (nlist, d)).astype(np.float32)
+    cents[7] = cents[19] = cents[3]
+    cents[11] = 0.0
+    rows = rng.integers(-3, 4, (120, d)).astype(np.float32)
+    rows[:30] = cents[rng.integers(0, nlist, 30)]      # exact ties
+    rows[30, 5] = np.nan
+    rows[31, 0] = 1e20
+    rows[32, 3] = -1e20
+    rows[33] = 0.0
+    rows[34, 2] = np.inf
+    rows[35, 9] = -np.inf
+    rows[36, :2] = (np.inf, -np.inf)
+    if case == "big":
+        cents[5, 0], cents[17, 0] = 1e20, -1e20
+    elif case == "nan":
+        cents[6, 4] = cents[13, 0] = np.nan
+    elif case == "overflow":
+        cents[np.arange(nlist), np.arange(nlist) % d] = 1e20
+    return rows, cents
+
+
+@pytest.mark.parametrize("case", ["rows", "big", "nan", "overflow"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_assign_clusters_nan_inf_and_ties_equal_reference(metric, case):
+    """jnp.argmax's rule, exactly: a NaN score wins (the first NaN),
+    ties go to the lower centroid, a row of -inf scores gives 0; the
+    card's kernel is held to the same plain version by chip_smoke.py."""
+    rows, cents = _special_assign_case(case)
+    want = np.asarray(RANN.assign_clusters(jnp.asarray(rows),
+                                           jnp.asarray(cents), metric))
+    got = ANN.assign_clusters(torch.from_numpy(rows),
+                              torch.from_numpy(cents), metric).numpy()
+    np.testing.assert_array_equal(got, want)
+    if case == "nan":
+        assert (want[37:] == 6).all()       # the first NaN centroid
+    if case == "overflow" and metric == "l2":
+        assert (want[37:] == 0).all()       # every score -inf
+    if case == "rows":
+        assert want[30] == 0                # a NaN row: every score NaN
+
+
 def test_lloyd_step(kdata):
     vecs, _ = kdata
     nlist = 32

@@ -215,6 +215,109 @@ def test_join_probe_counts_empty_and_invalid_builds():
     assert (_np(got[1]) == 0).all()
 
 
+@pytest.mark.parametrize("span_short", [1, 0])
+def test_join_probe_counts_at_the_direct_search_boundary(span_short):
+    """Live keys spanning T - 1 take the direct table, spanning T the
+    binary search (T = max(2 nb, np), NULL keys after them)."""
+    rng = np.random.default_rng(44 + span_short)
+    nb, np_, tail = 500, 1500, 40
+    T = max(2 * nb, np_)
+    span = T - span_short
+    live = np.sort(rng.integers(-77, -77 + span + 1, nb - tail))
+    live[0], live[-1] = -77, -77 + span
+    sk = np.concatenate([live, np.full(tail, I64.max)]).astype(np.int64)
+    pkeys = np.concatenate([rng.choice(live, np_ // 2), rng.integers(
+        -100, span, np_ - np_ // 2)]).astype(np.int64)
+    pkeys[:4] = (I64.min, I64.max, -77, -77 + span)
+    pvalid = rng.random(np_) < 0.9
+    assert _direct_ok(sk, np_) == bool(span_short)
+    want = RK.join_probe_counts(jnp.asarray(sk), jnp.asarray(pkeys),
+                                jnp.asarray(pvalid))
+    got = TK.join_probe_counts(_t(sk), _t(pkeys), _t(pvalid))
+    assert _compare_probe(got, want) > 0
+
+
+@pytest.mark.parametrize("scale", [1, 10**12])
+def test_join_probe_counts_long_run_of_one_key(scale):
+    """One key over many blocks of rows and runs of hundreds of rows, on
+    the direct table (scale 1) and the binary search (keys 1e12 apart)."""
+    rng = np.random.default_rng(46)
+    runs = np.repeat(np.cumsum(rng.integers(1, 4, 40)),
+                     rng.integers(100, 400, 40))
+    keys = np.sort(np.concatenate([np.full(3000, 17), runs]))
+    sk = (keys * scale - 5).astype(np.int64)
+    pkeys = (rng.choice(np.concatenate([keys, [17] * 500, [-3, 999]]), 4000)
+             * scale - 5).astype(np.int64)
+    pvalid = rng.random(4000) < 0.95
+    assert _direct_ok(sk, 4000) == (scale == 1)
+    want = RK.join_probe_counts(jnp.asarray(sk), jnp.asarray(pkeys),
+                                jnp.asarray(pvalid))
+    got = TK.join_probe_counts(_t(sk), _t(pkeys), _t(pvalid))
+    _compare_probe(got, want)
+    assert int(_np(got[1]).max()) == 3000 + int((runs == 17).sum())
+
+
+class _FakeProbeLib:
+    """otbt_probe_table_bytes and otbt_join_probe_counts without a card:
+    the counts by join_probe_counts_plain on the tensors behind the
+    pointers, written through the output pointer (lo, then count);
+    records the arguments of each call."""
+
+    def __init__(self, tensors):
+        self.by_ptr = {t.data_ptr(): t for t in tensors}
+        self.sizes = {}
+        self.calls = []
+
+    def otbt_probe_table_bytes(self, T, wide):
+        self.sizes[wide] = 8208 + T * (8 if wide else 4)
+        return self.sizes[wide]
+
+    def otbt_join_probe_counts(self, sk, nb, probe, pv, np_, T, table,
+                               table_bytes, wide, out, stream):
+        lo, cnt = TK.join_probe_counts_plain(
+            self.by_ptr[sk], self.by_ptr[probe], self.by_ptr[pv])
+        for j, x in enumerate((lo, cnt)):
+            ctypes.memmove(out + 8 * np_ * j, x.data_ptr(), 8 * np_)
+        self.calls.append((nb, np_, T, table_bytes, wide))
+        return 0
+
+
+@pytest.mark.parametrize("route,np_,wide", [("rows", 701, False),
+                                            ("rows", 701, True),
+                                            ("forced", 200, False),
+                                            ("forced", 200, True)])
+def test_join_probe_counts_hands_one_table_and_one_output(monkeypatch, route,
+                                                          np_, wide):
+    """On the card the K7 wrapper makes one scratch allocation of the size
+    the library names (int64 slots from PROBE_WIDE_ROWS build rows, or
+    when probe_counts_cuda is asked for them), passes that choice and
+    T = max(2 nb, np), and returns lo and count as the two rows of one
+    (2, np) output, counted as one launch; the outputs equal the plain
+    version (the library faked with it: no card here)."""
+    rng = np.random.default_rng(48)
+    sk = _t(np.sort(rng.integers(0, 90, 300)).astype(np.int64))
+    pk = _t(rng.integers(-5, 95, np_).astype(np.int64))
+    pv = _t(rng.random(np_) < 0.9)
+    lib = _FakeProbeLib((sk, pk, pv))
+    monkeypatch.setattr(TK, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(TK, "_lib", lambda: lib)
+    monkeypatch.setattr(TK, "_stream", lambda: 0)
+    TK.reset_launches()
+    if route == "rows":
+        if wide:
+            monkeypatch.setattr(TK, "PROBE_WIDE_ROWS", 300)
+        lo, cnt = TK.join_probe_counts(sk, pk, pv)
+    else:
+        lo, cnt = TK.probe_counts_cuda(sk, pk, pv, wide)
+    T = max(600, np_)
+    assert lib.calls == [(300, np_, T, lib.sizes[int(wide)], int(wide))]
+    assert lib.sizes[int(wide)] == 8208 + T * (8 if wide else 4)
+    assert TK.LAUNCHES["join_probe_counts"] == 1
+    assert lo.untyped_storage().data_ptr() == cnt.untyped_storage(
+    ).data_ptr() and cnt.data_ptr() == lo.data_ptr() + 8 * np_
+    _compare_probe((lo, cnt), TK.join_probe_counts_plain(sk, pk, pv))
+
+
 # ---------------------------------------------------------------------------
 # K8 join_expand
 # ---------------------------------------------------------------------------

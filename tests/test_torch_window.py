@@ -281,6 +281,44 @@ def test_window_on_cluster_matches_single_node(sessions, cluster, sql):
     assert cluster.last_tier == "mesh"
 
 
+INT_WINDOW_X = [5, None, 2147483647, 2147483647, -3]
+
+
+def _int_window_oracle(xs, before=1, after=1):
+    """ROWS between `before` preceding and `after` following: the sum of
+    the frame's non-NULL values in int64 (numpy), NULL for none."""
+    out = []
+    for i in range(len(xs)):
+        frame = [x for x in xs[max(i - before, 0):i + after + 1]
+                 if x is not None]
+        out.append(int(np.sum(np.asarray(frame, np.int64)))
+                   if frame else None)
+    return out
+
+
+@pytest.mark.parametrize("tier", ["single", "cluster"])
+def test_int_window_sum_past_int32_matches_oracle(tier):
+    """sum(x) over an int column widens to int64 as PostgreSQL's does,
+    past 2^31 (the reference's int32 cumsum wraps there: ROADMAP queue
+    3), on the port's Session and on ClusterSession over Cluster(2)."""
+    data = {"k": np.arange(1, 6, dtype=np.int64), "x": list(INT_WINDOW_X)}
+    if tier == "single":
+        s = TSession(TNode(device="cpu"))
+        s.execute("create table w32 (k bigint, x int)")
+        s._insert_rows(s.node.catalog.table("w32"), s.node.stores["w32"],
+                       data, 5)
+    else:
+        s = ClusterSession(Cluster(2, device="cpu"))
+        s.execute("create table w32 (k bigint, x int) "
+                  "distribute by shard(k)")
+        s._insert_rows(s.cluster.catalog.table("w32"), data, 5)
+    got = s.query("select k, sum(x) over (order by k rows between 1 "
+                  "preceding and 1 following) from w32 order by k")
+    want = _int_window_oracle(INT_WINDOW_X)
+    assert [tuple(r) for r in got] == list(zip(range(1, 6), want))
+    assert want == [5, 2147483652, 4294967294, 4294967291, 2147483644]
+
+
 def test_gathered_window_feeding_a_join_runs_once(sessions, cluster,
                                                   monkeypatch):
     """A window over all rows that feeds a join (TPC-DS q44's shape)
