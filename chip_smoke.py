@@ -77,6 +77,13 @@ set of 128 columns); K9's compose_indices with 1 to 49 priors and null
 masks, captured and replayed; K7 at the direct / search boundary, on
 runs across blocks, an all-NULL build and probe keys at both ends of
 int64, in every table form and with int64 slots, 2 launches a call;
+K8 on an exact fit, 64 x the total, left outer with padding rows, all
+counts 0, rows off its tile and one probe row with 2^20 matches (its
+time against the plain version), at most 1 launch + 1 memset a call;
+K5, eager and traced, on one group over 2^20 rows, every row its own
+group at 2^21, groups past max_groups, f64 NaN / +-inf / +-0.0 and 40
+aggregates, its f64 sums the same bits in two runs, 2 + K10's + 1
+launches a call and no memset;
 K15c exactly equal to its plain version on NaN, +-inf, 1e20, tied and
 overflowing rows and centroids for all three metrics, and at its tile
 edges (n, lists and dimensions around 128, 16 and the resident row
@@ -93,8 +100,8 @@ function, and the queries; for K13b, K9 and K3 also the device-only
 time (the recorded calls captured into a CUDA graph and replayed) and the
 host time of a wrapper call, and the shapes of K3's and K9's compose
 calls; K3's two forms (one block, look-back tiles) in turns on cluster
-Q3's calls and in its recaptured program; K7 and K15c also device-only
-and host, and the graph nodes of each program's replay.
+Q3's calls and in its recaptured program; K7, K15c, K8 and K5 also
+device-only and host, and the graph nodes of each program's replay.
 
 Run from the repository root:  python3 chip_smoke.py  [--sf 1.0]
 (--checks: only build the kernels and run the kernel checks, about half
@@ -566,8 +573,12 @@ def compare_group(torch, got, want, kinds, what):
     for k, g, w in zip(kinds, go, wo):
         check(g.dtype == w.dtype, f"grouped_agg_sort {k} dtype ({what})")
         if g.dtype.is_floating_point and k in ("sum", "sumf"):
-            d = (g - w).abs()
-            check(bool((d <= SUMF_RTOL * w.abs()).all()),
+            # a non-finite sum (NaN, or inf) is the same value exactly
+            fin = torch.isfinite(w)
+            d = torch.where(fin, (g - w).abs(), torch.zeros_like(w))
+            same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+            check(bool(torch.where(fin, d <= SUMF_RTOL * w.abs(),
+                                   same).all()),
                   f"grouped_agg_sort {k} beyond rtol {SUMF_RTOL} ({what})")
             err = max(err, float(d.max()) if d.numel() else 0.0)
         else:
@@ -775,6 +786,150 @@ def probe_kernel_check(torch, K):
         "branches, an all-INT64_MAX build, probe keys at INT64_MIN and "
         "INT64_MAX; int32 and int64 slots): ok; kernel launches + memsets "
         f"a call: {launches[0]} + {launches[1]}")
+
+
+def expand_cases(np, rng):
+    """(label, lo, counts, perm, out_size, left_outer, probe_valid) at
+    K8's edges: one probe row with 2^20 matches among short rows (skew);
+    all-zero counts with out_size > 0; an exact fit; out_size far past
+    the total (the traced class); left outer with padding rows; probe
+    rows that are not a multiple of the 4096-row tile."""
+    nb = (1 << 20) + 4099
+    perm = rng.permutation(nb)
+    out = []
+    for np_ in (4096 * 25 + 77, 4096 * 3):
+        cnt = np.where(rng.random(np_) < 0.4, rng.integers(1, 6, np_), 0)
+        lo = np.where(cnt > 0, rng.integers(0, nb - 6, np_), 0)
+        pv = rng.random(np_) < 0.9
+        pv[-1000:] = False
+        eff = np.where(pv, np.maximum(cnt, 1), 0)
+        out += [
+            (f"{np_} rows, exact fit", lo, cnt, perm, int(cnt.sum()), False,
+             None),
+            (f"{np_} rows, out_size 64 x the total", lo, cnt, perm,
+             64 * int(cnt.sum()), False, None),
+            (f"{np_} rows, left outer with padding rows", lo, cnt, perm,
+             int(eff.sum()) + 4097, True, pv),
+            (f"{np_} rows, left outer, exact fit", lo, cnt, perm,
+             int(eff.sum()), True, pv),
+            (f"{np_} rows, all counts 0", lo, np.zeros(np_, np.int64), perm,
+             5000, False, None),
+        ]
+    np_ = 200_003
+    cnt = np.where(rng.random(np_) < 0.3, rng.integers(1, 4, np_), 0)
+    lo = np.where(cnt > 0, rng.integers(0, nb - 4, np_), 0)
+    cnt[123_457], lo[123_457] = 1 << 20, 0
+    out.append(("skew: one probe row with 2^20 matches", lo, cnt, perm,
+                int(cnt.sum()) + 1000, False, None))
+    return out
+
+
+def expand_kernel_check(torch, K, card):
+    """K8 against join_expand_plain, exactly (total, pairs, (0, 0) past
+    the total), on expand_cases; the kernel and memset nodes of one call
+    (at most 1 + 1); the skewed case's time against its plain version."""
+    import numpy as np
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(13)
+
+    def t(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev)
+    cases = expand_cases(np, rng)
+    for label, lo, cnt, perm, size, outer, pv in cases:
+        a = (t(lo), t(cnt), t(perm), size, outer, t(pv))
+        compare_expand(torch, K.join_expand(*a), K.join_expand_plain(*a),
+                       label)
+    label, lo, cnt, perm, size, outer, pv = cases[-1]
+    a = (t(lo), t(cnt), t(perm), size, outer, t(pv))
+    skew_ms = time_fn(torch, lambda: K.join_expand(*a), reps=5)
+    skew_plain = time_fn(torch, lambda: K.join_expand_plain(*a), reps=5)
+    launches = kernel_launches(torch, lambda: K.join_expand(*a))
+    check(launches[0] <= 1 and launches[1] <= 1,
+          f"join_expand: {launches[0]} launches, {launches[1]} memsets a "
+          "call, want at most 1 + 1")
+    torch.cuda.synchronize()
+    say(f"K8 join_expand vs plain ({len(cases)} edge cases: exact fit, "
+        "64 x the total, left outer with padding rows, all counts 0, "
+        "rows off the tile, one probe row with 2^20 matches): ok; kernel "
+        f"launches + memsets a call: {launches[0]} + {launches[1]}; the "
+        f"skewed call ({len(lo)} probe rows, {int(cnt.sum())} pairs) "
+        f"{skew_ms:.4f} ms, plain {skew_plain:.4f} ms [{card}]")
+
+
+def group_edge_cases(np, rng):
+    """(label, keys, valid, inputs, kinds, max_groups) at K5's edges: one
+    group over 2^20 sorted rows; every row its own group at 2^21; more
+    groups than max_groups; f64 sum, min and max over NaN, +-inf and
+    +-0.0; 40 aggregates (two reduce launches)."""
+    n = (1 << 20) + 5000
+    big = np.where(np.arange(n) < (1 << 20), 7, rng.integers(0, 900, n))
+    vals = rng.normal(0, 1e3, n)
+    ints = rng.integers(-10**9, 10**9, n)
+    m = 1 << 21
+    nf = rng.choice([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.5, -2.25], 70000)
+    nk = rng.integers(0, 5000, 70000)
+    nk[:300] = -1
+    nf[:300] = -0.0
+    return [
+        ("one group over 2^20 rows", (big,), rng.random(n) < 0.97,
+         (vals, ints, vals, vals, ints), ("sumf", "sum", "min", "max",
+                                          "count"), 1 << 11),
+        ("every row its own group, 2^21 rows", (rng.permutation(m),),
+         np.ones(m, bool), (rng.normal(0, 1, m),), ("sumf",), m),
+        ("groups past max_groups", (rng.integers(0, 5000, 70000),
+                                    rng.integers(0, 3, 70000).astype(
+                                        np.int32)),
+         rng.random(70000) < 0.9, (nf, nk), ("sumf", "count"), 1000),
+        ("f64 NaN, +-inf, +-0.0", (nk,), np.ones(70000, bool),
+         (nf, nf, nf, nf), ("sumf", "sum", "min", "max"), 8192),
+        ("40 aggregates", (nk,), np.ones(70000, bool),
+         (nk, nf) * 20, ("sum", "max") * 20, 8192),
+    ]
+
+
+def group_kernel_check(torch, K, card):
+    """K5 against grouped_agg_sort_plain, eager and traced, on
+    group_edge_cases (keys, counts and ints exact, f64 sums within
+    SUMF_RTOL); the f64 sums of the 2^20-row group twice, bit for bit;
+    the kernel and memset nodes of one call (2 + K10's + 1 a set of 32
+    aggregates, no memset)."""
+    import numpy as np
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(14)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cases = group_edge_cases(np, rng)
+    for label, keys, valid, ins, kinds, mg in cases:
+        a = (tuple(t(k) for k in keys), t(valid), tuple(t(x) for x in ins),
+             mg, kinds)
+        for traced in (False, True):
+            compare_group(torch, K.grouped_agg_sort(*a, traced=traced),
+                          K.grouped_agg_sort_plain(*a, traced=traced), kinds,
+                          f"{label}, traced={traced}")
+        if label.startswith("one group"):
+            runs = [K.grouped_agg_sort(*a)[1][0] for _ in range(2)]
+            check(torch.equal(runs[0].view(torch.int64),
+                              runs[1].view(torch.int64)),
+                  "grouped_agg_sort: f64 sums differ between two runs")
+            big = a
+    nodes = {}
+    for label, a in (("2^20 + 5000 rows, 5 aggregates", big),
+                     ("4096 rows", ((big[0][0][:4096],), big[1][:4096],
+                                    (big[2][0][:4096],), 64, ("sumf",)))):
+        nodes[label] = kernel_launches(
+            torch, lambda a=a: K.grouped_agg_sort(*a))
+        want = (2 + (3 if a[1].shape[0] > 4096 else 1) + 1, 0)
+        check(nodes[label] == want, f"grouped_agg_sort {label}: "
+              f"{nodes[label]} launches + memsets a call, want {want}")
+    torch.cuda.synchronize()
+    say(f"K5 grouped_agg_sort vs plain, eager and traced ({len(cases)} edge "
+        "cases: one group over 2^20 rows, every row its own group at 2^21, "
+        "groups past max_groups, f64 NaN / +-inf / +-0.0, 40 aggregates): "
+        "ok; f64 sums the same bits in two runs; kernel launches + memsets "
+        "a call: " + ", ".join(f"{k} {v[0]} + {v[1]}"
+                               for k, v in nodes.items()) + f" [{card}]")
 
 
 MASK_SIZES = (1, 15, 16, 17, (1 << 20) + 3)
@@ -1988,14 +2143,23 @@ def call_bytes_ops(name, a, kw, out):
         nb, np_ = a[0].shape[0], a[1].shape[0]
         return 8 * nb + 9 * np_ + 16 * np_, np_ * _lg(nb)
     if name == "join_expand":
-        # lo, counts (+ probe_valid) read; each perm entry a pair needs,
-        # at most min(total, nb) of them, read once; the pairs and the
+        # counts (+ probe_valid for a left outer join) read for every
+        # row; lo only for the rows with matches, and each perm entry a
+        # match needs, at most nb of them, read once; the pairs and the
         # total written
-        n, nb = a[1].shape[0], a[2].shape[0]
-        size = int(a[3])
+        counts, nb = a[1], a[2].shape[0]
+        n, size = counts.shape[0], int(a[3])
         total = int(out[2])
-        pv = 0 if kw.get("probe_valid") is None else n
-        return 16 * n + pv + 8 * min(total, nb) + 16 * size + 8, n + total
+        outer = bool(kw.get("left_outer", a[4] if len(a) > 4 else False))
+        pv = kw.get("probe_valid", a[5] if len(a) > 5 else None)
+        has = counts > 0
+        if outer and pv is not None:
+            has = has & pv
+        rows = int(has.sum())
+        pairs = int(counts[has].sum())
+        pvb = n if outer and pv is not None else 0
+        return (8 * n + pvb + 8 * rows + 8 * min(pairs, nb)
+                + 16 * size + 8), n + total
     if name == "compose_index":
         # take read once; per prior one entry read and one written a row,
         # per null mask one byte read and one written
@@ -2246,6 +2410,8 @@ def main():
     sort_kernel_check(torch, K)
     join_kernel_check(torch, K)
     probe_kernel_check(torch, K)
+    expand_kernel_check(torch, K, card)
+    group_kernel_check(torch, K, card)
     cluster_kernel_check(torch, K)
     compact_kernel_check(torch, K)
     compose_kernel_check(torch, K)
@@ -4350,7 +4516,8 @@ def _library_ms(torch, K, name, calls):
 
 # kernels whose time is also split into device-only and host time
 DEVICE_SPLIT = ("semi_mask", "anti_mask", "window_frame_reduce", "compact",
-                "compose_index", "join_probe_counts")
+                "compose_index", "join_probe_counts", "join_expand",
+                "grouped_agg_sort")
 
 
 def device_split(torch, K, name, calls, card, wrapper=None, library=None):

@@ -10,7 +10,7 @@
 // - Build (K6): the reference's two branches, chosen on the device with
 //   no host read: one kernel takes the min and max of the valid keys,
 //   the next applies the reference's 62-bit gate in float32 (as
-//   groupsort.cu group_gate does for K5) and writes one word a row: the
+//   groupsort.cu group_words does for K5) and writes one word a row: the
 //   fast branch's acc = clip(key - min, 0, rng - 1), rng for an invalid
 //   row; else the key, INT64_MAX for an invalid row.  K10's radix sort
 //   (sort.cu, called through its C entry) orders that word with the row
@@ -44,12 +44,24 @@
 //   calls and kept as the fastest: a memset of the table first (-1 slots
 //   skip the key read of a miss), (first row, count) pairs (no gallop,
 //   twice the table), and both; see PERF.md.
-// - Expansion (K8): the per-row pair count (count, or max(count, 1)
-//   for valid probe rows of a left outer join) is scanned in scan.cuh
-//   and one thread per probe row writes its pairs; pairs past the total
-//   stay (0, 0).  Bound: bytes.  A probe row with many matches is
-//   written by one thread: skew serialises, which TPC-H's key joins
-//   (at most a few dozen matches a row) do not show.
+// - Expansion (K8): one launch after one memset of its control words.
+//   Tiles of 4096 probe rows take tickets (lookback.cuh); a tile reads
+//   its pair counts (count, or max(count, 1) for valid probe rows of a
+//   left outer join) with 16-byte loads, scans them in registers and
+//   keeps the inclusive prefix in shared memory, chains its total to
+//   the tiles before it by the decoupled look-back, then writes its own
+//   pairs: the block's threads stride over the tile's output range,
+//   eight slots a thread a step with their loads in flight together,
+//   each finding its probe row in the shared prefix (one read while the
+//   row repeats, else a binary search of the rows after it), so
+//   adjacent threads store adjacent slots and a probe row with many
+//   matches is spread over the whole block.  The
+//   last tile writes the total and publishes it to padding blocks that
+//   take tickets after every tile and write (0, 0) from the total (or
+//   out_size) on: every slot is written once, no memset of the outputs,
+//   no offsets in device memory.  Bound: bytes (the counts and, for a
+//   left outer join, probe_valid read once; lo and perm read for the
+//   rows and pairs that have them; 16 bytes a slot written).
 // - Compose (K9): one launch gathers every prior index vector of a join
 //   side and its output-space null masks at `take` (two rows a thread,
 //   take read once); the prior reads are random, so they bound it, and
@@ -57,7 +69,7 @@
 //   one elementwise pass, 16 rows a thread with 16-byte loads and
 //   stores.
 #include "common.cuh"
-#include "scan.cuh"
+#include "lookback.cuh"
 
 extern "C" int otbt_sort_perm(const void* words, int w, long long n,
                               void* scratch, long long scratch_bytes,
@@ -363,40 +375,213 @@ void launch_probe(const long long* sk, long long nb, const long long* probe,
       sk, nb, probe, pv, np, T, head, tab, lo, cnt);
 }
 
-// The pair count of probe row i.
-struct PairCount {
+namespace lb = otbt::lb;
+
+constexpr int kExpThreads = 256;
+constexpr int kExpRounds = 8;                     // 16-byte loads a thread
+constexpr int kExpWarps = kExpThreads / 32;
+constexpr int kExpRoundRows = 2 * kExpThreads;    // 512 rows a round
+constexpr int kExpTile = kExpRounds * kExpRoundRows;   // 4096 rows
+constexpr int kExpPadBlocks = 264;
+constexpr int kExpUnroll = 8;                     // slots a thread a step
+// warp 0 scans the (round, warp) runs two a lane
+static_assert(kExpRounds * kExpWarps == 64, "64 runs a tile");
+
+struct Expand {
   const long long* counts;
   const bool* probe_valid;   // may be null
   int left_outer;
-  __device__ __forceinline__ long long operator()(long long i) const {
-    long long c = counts[i];
-    if (!left_outer) return c;
-    if (probe_valid && !probe_valid[i]) return 0;
-    return c > 1 ? c : 1;
-  }
+  const long long* lo;
+  const long long* perm;
+  long long np, out_size;
+  long long* probe_idx;
+  long long* build_idx;
+  long long* total;
 };
 
-__global__ void expand_pairs(PairCount eff, const long long* __restrict__ lo,
-                             const long long* __restrict__ perm,
-                             const long long* __restrict__ offsets,
-                             long long np, long long out_size,
-                             long long* __restrict__ probe_idx,
-                             long long* __restrict__ build_idx) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       p < np; p += stride) {
-    long long e = eff(p);
-    if (e == 0) continue;
-    long long base = offsets[p];
-    bool miss = eff.left_outer && eff.counts[p] == 0;
-    long long first = lo[p];
-    for (long long r = 0; r < e; ++r) {
-      long long j = base + r;
-      if (j >= out_size) break;
-      probe_idx[j] = p;
-      build_idx[j] = miss ? -1 : perm[first + r];
+// The pair counts of rows i and i + 1 (0 past np).
+__device__ __forceinline__ void pair_counts(const Expand& x, long long i,
+                                            bool vec, long long& e0,
+                                            long long& e1) {
+  long long c0 = 0, c1 = 0;
+  if (vec && i + 1 < x.np) {
+    const longlong2 v =
+        __ldg(reinterpret_cast<const longlong2*>(x.counts + i));
+    c0 = v.x;
+    c1 = v.y;
+  } else {
+    if (i < x.np) c0 = x.counts[i];
+    if (i + 1 < x.np) c1 = x.counts[i + 1];
+  }
+  if (x.left_outer) {
+    const bool* pv = x.probe_valid;
+    c0 = i < x.np && (!pv || pv[i]) ? (c0 > 1 ? c0 : 1) : 0;
+    c1 = i + 1 < x.np && (!pv || pv[i + 1]) ? (c1 > 1 ? c1 : 1) : 0;
+  }
+  e0 = c0;
+  e1 = c1;
+}
+
+// ctrl: the chain's control words (lb::ctrl_words(tiles)), then [0] the
+// total is published; pub: the total; agg: one sum a tile; grp: one a
+// group of 32 tiles.  Blocks past the tiles write the padding.
+__global__ void __launch_bounds__(kExpThreads)
+    expand_tiles(Expand x, int tiles, int pad_blocks, int* ctrl,
+                 long long* pub, unsigned long long* agg,
+                 unsigned long long* grp) {
+  __shared__ __align__(16) long long incl[kExpTile];   // 32 KB
+  __shared__ unsigned long long wsum[kExpRounds * kExpWarps];
+  __shared__ int sh_tile;
+  __shared__ long long sh_x, sh_b;
+  const lb::Chain<unsigned long long, lb::NoSum> ch{tiles, ctrl, agg,
+                                                    nullptr, grp, nullptr};
+  const int tile = lb::take_tile(ctrl, &sh_tile);
+  int* done = ctrl + lb::ctrl_words(tiles);
+  if (tile >= tiles) {
+    // a padding block: every tile took its ticket before this one, so
+    // every tile is running and the last one publishes the total
+    if (threadIdx.x == 0) {
+      while (lb::ld_relaxed(done) == 0) {
+      }
+      __threadfence();
+      sh_x = __ldcg(pub);
+    }
+    __syncthreads();
+    const long long from = sh_x < x.out_size ? sh_x : x.out_size;
+    const long long step = (long long)pad_blocks * kExpThreads;
+    for (long long j = from + (long long)(tile - tiles) * kExpThreads +
+                       threadIdx.x;
+         j < x.out_size; j += step) {
+      x.probe_idx[j] = 0;
+      x.build_idx[j] = 0;
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long base = (long long)tile * kExpTile;
+  const bool vec = (((unsigned long long)x.counts) & 15ULL) == 0;
+  // round k, lane l of warp w: rows 512 k + 64 w + 2 l and + 1 of the tile
+  long long e[2 * kExpRounds];
+  unsigned long long ex[kExpRounds];   // the pair's offset in its warp's run
+#pragma unroll
+  for (int k = 0; k < kExpRounds; ++k)
+    pair_counts(x, base + k * kExpRoundRows + 64 * warp + 2 * lane, vec,
+                e[2 * k], e[2 * k + 1]);
+#pragma unroll
+  for (int k = 0; k < kExpRounds; ++k) {
+    const unsigned long long s =
+        (unsigned long long)e[2 * k] + (unsigned long long)e[2 * k + 1];
+    const unsigned long long inc = lb::warp_incl(s, lane);
+    ex[k] = inc - s;
+    if (lane == 31) wsum[k * kExpWarps + warp] = inc;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the 64 (round, warp) runs in row order, two a lane
+    const unsigned long long a = wsum[2 * lane], b = wsum[2 * lane + 1];
+    const unsigned long long inc = lb::warp_incl(a + b, lane);
+    wsum[2 * lane] = inc - a - b;
+    wsum[2 * lane + 1] = inc - b;
+    if (lane == 31) sh_b = (long long)inc;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kExpRounds; ++k) {
+    const long long off = (long long)(wsum[k * kExpWarps + warp] + ex[k]);
+    const int r = k * kExpRoundRows + 64 * warp + 2 * lane;
+    *reinterpret_cast<longlong2*>(incl + r) =
+        make_longlong2(off + e[2 * k], off + e[2 * k] + e[2 * k + 1]);
+  }
+  const long long bsum = sh_b;
+  if (threadIdx.x == 0)
+    lb::publish(ch, tile, (unsigned long long)bsum, lb::NoSum{});
+  if (warp == 0) {
+    unsigned long long xc;
+    lb::NoSum xs;
+    lb::look_back(ch, tile, lane, (unsigned long long)bsum, lb::NoSum{}, xc,
+                  xs);
+    if (lane == 0) sh_x = (long long)xc;
+  }
+  __syncthreads();
+  const long long first = sh_x;
+  if (tile == tiles - 1 && threadIdx.x == 0) {
+    const long long total = first + bsum;
+    *x.total = total;
+    *pub = total;
+    lb::st_release(done, 1);
+  }
+  // this tile's slots [first, first + bsum) below out_size, kExpUnroll
+  // a thread a step, kExpThreads apart (adjacent threads on adjacent
+  // slots).  The row of slot first + j is the first r with incl[r] > j;
+  // rows only move forward, so a slot whose row is the last one's (a
+  // row with many matches) takes one shared read, else a binary search
+  // of the rows after it.  Each step's loads are in flight together.
+  long long lim = x.out_size - first;
+  if (lim > bsum) lim = bsum;
+  int r = 0;
+  for (long long j0 = threadIdx.x; j0 < lim;
+       j0 += (long long)kExpUnroll * kExpThreads) {
+    long long p[kExpUnroll], rank[kExpUnroll], at[kExpUnroll];
+#pragma unroll
+    for (int u = 0; u < kExpUnroll; ++u) {
+      const long long j = j0 + (long long)u * kExpThreads;
+      p[u] = -1;
+      if (j < lim) {
+        if (incl[r] <= j) {
+          int lo = r + 1, hi = kExpTile - 1;
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (incl[mid] > j) hi = mid; else lo = mid + 1;
+          }
+          r = lo;
+        }
+        p[u] = base + r;
+        rank[u] = j - (r > 0 ? incl[r - 1] : 0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kExpUnroll; ++u)
+      at[u] = p[u] >= 0 ? __ldg(x.lo + p[u]) + rank[u] : -1;
+    if (x.left_outer) {
+#pragma unroll
+      for (int u = 0; u < kExpUnroll; ++u)
+        if (p[u] >= 0 && __ldg(x.counts + p[u]) == 0) at[u] = -1;
+    }
+    long long b[kExpUnroll];
+#pragma unroll
+    for (int u = 0; u < kExpUnroll; ++u)
+      b[u] = at[u] >= 0 ? __ldg(x.perm + at[u]) : -1;
+#pragma unroll
+    for (int u = 0; u < kExpUnroll; ++u) {
+      if (p[u] < 0) continue;
+      const long long j = first + j0 + (long long)u * kExpThreads;
+      x.probe_idx[j] = p[u];
+      x.build_idx[j] = b[u];
     }
   }
+}
+
+long long expand_tiles_of(long long np) {
+  const long long t = (np + kExpTile - 1) / kExpTile;
+  return t > 0 ? t : 1;
+}
+
+// Scratch of one expansion, in bytes: the control words and the done
+// word (zeroed by the call's memset), the total, the tile sums, the
+// group sums.
+struct ExpandLayout {
+  long long zero_bytes, pub, agg, grp, total;
+};
+
+ExpandLayout expand_layout(long long np) {
+  const long long tiles = expand_tiles_of(np);
+  ExpandLayout L;
+  L.zero_bytes = 4 * (lb::ctrl_words(tiles) + 1);
+  L.pub = (L.zero_bytes + 7) & ~7LL;
+  L.agg = L.pub + 8;
+  L.grp = L.agg + 8 * tiles;
+  L.total = L.grp + 8 * ((tiles + 31) / 32);
+  return L;
 }
 
 // Semi / anti mask, 16 rows a thread in chunks of 512 rows a warp.  The
@@ -547,26 +732,49 @@ extern "C" int otbt_join_probe_counts(const void* sorted_keys, long long nb,
   return (int)cudaGetLastError();
 }
 
-// lo, counts, probe_valid (may be null), offsets: np; perm: nb;
-// tile_sums: otbt_scan_tiles(np); total: 1; probe_idx, build_idx:
-// out_size, zeroed by the caller.
+// Scratch bytes of otbt_join_expand over np probe rows.
+extern "C" long long otbt_join_expand_scratch_bytes(long long np) {
+  return np < 0 ? -1 : expand_layout(np).total;
+}
+
+// lo, counts, probe_valid (may be null): np; perm: nb; probe_idx,
+// build_idx: out_size (every slot written); total: one int64; scratch:
+// otbt_join_expand_scratch_bytes(np) bytes.  One memset of the control
+// words, one launch.
 extern "C" int otbt_join_expand(const void* lo, const void* counts,
                                 const void* perm, const void* probe_valid,
                                 long long np, long long nb, int left_outer,
-                                void* offsets, void* tile_sums, void* total,
                                 void* probe_idx, void* build_idx,
-                                long long out_size, void* stream) {
+                                long long out_size, void* total,
+                                void* scratch, long long scratch_bytes,
+                                void* stream) {
   (void)nb;
+  if (np < 0 || out_size < 0 ||
+      scratch_bytes < otbt_join_expand_scratch_bytes(np))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = expand_tiles_of(np);
+  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  PairCount eff{(const long long*)counts, (const bool*)probe_valid,
-                left_outer};
-  otbt::exclusive_scan(eff, np, (long long*)offsets, (long long*)tile_sums,
-                       (long long*)total, s);
-  if (np > 0)
-    expand_pairs<<<otbt::grid_for(np), otbt::kThreads, 0, s>>>(
-        eff, (const long long*)lo, (const long long*)perm,
-        (const long long*)offsets, np, out_size, (long long*)probe_idx,
-        (long long*)build_idx);
+  const ExpandLayout L = expand_layout(np);
+  unsigned char* sb = (unsigned char*)scratch;
+  cudaError_t e = cudaMemsetAsync(sb, 0, L.zero_bytes, s);
+  if (e != cudaSuccess) return (int)e;
+  Expand x;
+  x.counts = (const long long*)counts;
+  x.probe_valid = (const bool*)probe_valid;
+  x.left_outer = left_outer;
+  x.lo = (const long long*)lo;
+  x.perm = (const long long*)perm;
+  x.np = np;
+  x.out_size = out_size;
+  x.probe_idx = (long long*)probe_idx;
+  x.build_idx = (long long*)build_idx;
+  x.total = (long long*)total;
+  long long pad = (out_size + 4 * kExpThreads - 1) / (4 * kExpThreads);
+  if (pad > kExpPadBlocks) pad = kExpPadBlocks;
+  expand_tiles<<<(unsigned)(tiles + pad), kExpThreads, 0, s>>>(
+      x, (int)tiles, (int)pad, (int*)sb, (long long*)(sb + L.pub),
+      (unsigned long long*)(sb + L.agg), (unsigned long long*)(sb + L.grp));
   return (int)cudaGetLastError();
 }
 
@@ -625,11 +833,4 @@ extern "C" int otbt_join_mask(const void* counts, const void* probe_valid,
         chunks, (unsigned char*)out);
   }
   return (int)cudaGetLastError();
-}
-
-// Scratch entries (int64) of a scan's tile_sums over n rows: what the
-// caller allocates for otbt_join_expand and otbt_group_ids.
-extern "C" long long otbt_scan_tiles(long long n) {
-  long long tiles = (n + otbt::kScanTile - 1) / otbt::kScanTile;
-  return tiles > 0 ? tiles : 1;
 }

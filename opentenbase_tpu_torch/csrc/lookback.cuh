@@ -1,6 +1,7 @@
 // A single-pass decoupled look-back scan across thread blocks, shared by
-// K13b's prefix scan (window.cu wfr_scan) and K3's compaction
-// (compact.cu).
+// K13b's prefix scan (window.cu wfr_scan), K3's compaction (compact.cu),
+// K8's pair expansion (join.cu expand_tiles) and K5's group numbering
+// (groupsort.cu group_reduce).
 //
 // A block takes its tile from an atomic ticket (ctrl[0]), so every lower
 // tile is already running and none waits on a tile that is not resident.

@@ -38,22 +38,21 @@ SIGNATURES = {
     "otbt_grouped_agg_dense": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
     "otbt_sort_scratch_bytes": [_I, _LL],
     "otbt_sort_perm": [_P, _I, _LL, _P, _LL, _P, _P, _P],
-    "otbt_group_key_stats": [_P, _I, _LL, _P, _P, _P, _P],
-    "otbt_group_words": [_P, _I, _LL, _P, _P, _P, _I, _LL, _P, _P],
-    "otbt_group_words_dev": [_P, _I, _LL, _P, _P, _P, _P, _P, _P],
-    "otbt_group_ids": [_P, _I, _LL, _P, _P, _LL, _P, _P, _P, _P, _P, _P,
-                       _P],
+    "otbt_group_scratch_bytes": [_LL, _I, _I],
+    "otbt_group_words": [_P, _P, _I, _LL, _P, _I, _P, _LL, _P, _P],
+    "otbt_group_reduce": [_P, _P, _P, _I, _LL, _P, _P, _LL, _I, _P, _P, _P,
+                          _P, _P, _P, _P, _LL, _P],
     "otbt_join_scratch_bytes": [_LL],
     "otbt_join_build": [_P, _P, _LL, _P, _LL, _P, _P, _P],
     "otbt_probe_table_bytes": [_LL, _I],
     "otbt_join_probe_counts": [_P, _LL, _P, _P, _LL, _LL, _P, _LL, _I, _P,
                                _P],
-    "otbt_join_expand": [_P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P,
+    "otbt_join_expand_scratch_bytes": [_LL],
+    "otbt_join_expand": [_P, _P, _P, _P, _LL, _LL, _I, _P, _P, _LL, _P, _P,
                          _LL, _P],
     "otbt_compose_indices": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _LL, _P],
     "otbt_join_mask": [_P, _P, _LL, _I, _P, _P],
     "otbt_hash_columns": [_P, _I, _LL, _P, _P],
-    "otbt_scan_tiles": [_LL],
     "otbt_route_dest": [_P, _P, _P, _P, _I, _LL, _P, _P, _LL, _I, _P, _P],
     "otbt_compact_scratch_bytes": [_LL, _LL, _LL],
     "otbt_compact": [_P, _LL, _LL, _LL, _P, _LL, _P, _P, _P, _P, _I, _P],
@@ -81,13 +80,15 @@ SIGNATURES = {
     "otbt_window_scratch_bytes": [_LL, _I, _I],
     "otbt_range_minmax": [_P, _I, _P, _LL, _I, _I, _P, _P],
 }
-RESTYPES = {"otbt_scan_tiles": _LL, "otbt_exchange_tiles": _LL,
+RESTYPES = {"otbt_exchange_tiles": _LL,
             "otbt_sort_scratch_bytes": _LL, "otbt_join_scratch_bytes": _LL,
             "otbt_exchange_max_dn": _LL, "otbt_ann_topk_scratch": _LL,
             "otbt_window_scratch_bytes": _LL,
             "otbt_compact_scratch_bytes": _LL,
             "otbt_ann_assign_scratch_bytes": _LL,
-            "otbt_probe_table_bytes": _LL}
+            "otbt_probe_table_bytes": _LL,
+            "otbt_join_expand_scratch_bytes": _LL,
+            "otbt_group_scratch_bytes": _LL}
 
 _lock = threading.Lock()
 _lib = None

@@ -140,10 +140,16 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def _scan_tiles(n: int) -> int:
-    """Entries of a scan's tile-sum scratch over n rows (csrc/scan.cuh
-    sets the tile size; the library reports it)."""
-    return _lib().otbt_scan_tiles(n)
+def _llarr(vals) -> ctypes.Array:
+    """A host array of int64 for a C entry (at least one entry)."""
+    vals = list(vals)
+    return (ctypes.c_longlong * max(len(vals), 1))(*vals)
+
+
+def _iarr(vals) -> ctypes.Array:
+    """A host array of int32 for a C entry (at least one entry)."""
+    vals = list(vals)
+    return (ctypes.c_int * max(len(vals), 1))(*vals)
 
 
 # ---------------------------------------------------------------------------
@@ -379,17 +385,6 @@ def grouped_agg_dense(group_id, valid, agg_inputs: tuple,
     if _on_cpu(group_id, valid, *agg_inputs):
         return grouped_agg_dense_plain(group_id, valid, agg_inputs,
                                        num_groups, agg_kinds)
-    outs, present, launches = _agg_dense_launch(
-        group_id, valid, agg_inputs, num_groups, agg_kinds)
-    _count("grouped_agg_dense", launches)
-    return outs, present
-
-
-def _agg_dense_launch(group_id, valid, agg_inputs: tuple, num_groups: int,
-                      agg_kinds: tuple):
-    """The K4 kernel's launches (one per 32 aggregates) on CUDA tensors:
-    (outputs, present, launches).  Shared by grouped_agg_dense and the
-    segment reduce of grouped_agg_sort; each wrapper counts its own."""
     n = group_id.shape[0]
     _check(group_id, "group_id", (torch.int64,), n)
     _check(valid, "valid", (torch.bool,), n)
@@ -397,7 +392,8 @@ def _agg_dense_launch(group_id, valid, agg_inputs: tuple, num_groups: int,
         raise ValueError("num_groups must be >= 1")
     for v in agg_inputs:
         _check(v, "agg input", tuple(_DT), n)
-    outs, present, launches = [], None, 0
+    outs, present = [], None
+    # one launch per 32 aggregates
     for lo in range(0, max(len(agg_kinds), 1), _MAX_AGGS):
         kinds = agg_kinds[lo:lo + _MAX_AGGS]
         ins = agg_inputs[lo:lo + _MAX_AGGS]
@@ -414,13 +410,11 @@ def _agg_dense_launch(group_id, valid, agg_inputs: tuple, num_groups: int,
         ws = ws.reshape(-1)
         rc = _lib().otbt_grouped_agg_dense(
             _ptr(group_id), _ptr(valid), n, num_groups, k,
-            (ctypes.c_longlong * max(k, 1))(*(_ptr(v) for v in ins)),
-            (ctypes.c_int * max(k, 1))(*(c for c, _ in codes)),
-            (ctypes.c_int * max(k, 1))(*(_DT[v.dtype] for v in ins)),
-            (ctypes.c_longlong * max(k, 1))(*(i for _, i in codes)),
+            _llarr(_ptr(v) for v in ins), _iarr(c for c, _ in codes),
+            _iarr(_DT[v.dtype] for v in ins), _llarr(i for _, i in codes),
             _ptr(ws), _stream())
         _ok(rc, "grouped_agg_dense")
-        launches += 1
+        _count("grouped_agg_dense", 1)
         ws = ws.view(k + 1, num_groups)
         for a, ((code, _i), v) in enumerate(zip(codes, ins)):
             row = ws[a]
@@ -432,7 +426,7 @@ def _agg_dense_launch(group_id, valid, agg_inputs: tuple, num_groups: int,
             outs.append(row)
         if present is None:
             present = ws[k]
-    return tuple(outs), present, launches
+    return tuple(outs), present
 
 
 # ---------------------------------------------------------------------------
@@ -610,9 +604,9 @@ def _group_words_plain(ints, valid, mins, maxs, fast: bool, top: int):
 
 def _group_words_traced_plain(ints, valid):
     """The traced form's words without a host read (csrc/groupsort.cu
-    group_gate + group_words_dev): the pack test in float32 tensors,
-    both branches' words, the fast branch padded with zero words to the
-    exact branch's 1 + [k > 1] + k."""
+    group_words, which both forms run on the card): the pack test in
+    float32 tensors, both branches' words, the fast branch padded with
+    zero words to the exact branch's 1 + [k > 1] + k."""
     k, n = ints.shape
     dev = ints.device
     i64 = torch.iinfo(torch.int64)
@@ -688,6 +682,24 @@ def grouped_agg_sort_plain(key_cols: tuple, valid, agg_inputs: tuple,
     return gkeys, outs, n_groups
 
 
+#: key column dtypes the K5 kernels read as they are (csrc/groupsort.cu
+#: KeyDt); a key of another dtype is widened to int64 or float64 first
+_KEY_DT = {torch.int8: 0, torch.uint8: 1, torch.bool: 1, torch.int16: 2,
+           torch.int32: 3, torch.int64: 4, torch.float64: 5}
+_MAX_KEYS = 64          # csrc/groupsort.cu kMaxKeys
+
+
+def _agg_out_dtype(code: int, dt: torch.dtype) -> torch.dtype:
+    """The output dtype of one aggregate (as grouped_agg_dense_plain's):
+    int64 for counts and int sums, f64 for float sums, the input's own
+    for min and max."""
+    if code in (_K_COUNT, _K_SUM_INT):
+        return torch.int64
+    if code == _K_SUM_FLOAT:
+        return device_float()
+    return dt
+
+
 def grouped_agg_sort(key_cols: tuple, valid, agg_inputs: tuple,
                      max_groups: int, agg_kinds: tuple, traced: bool = False):
     """General grouped aggregation: sort on the keys (invalid rows
@@ -695,20 +707,20 @@ def grouped_agg_sort(key_cols: tuple, valid, agg_inputs: tuple,
     Returns (group key columns [max_groups], aggregate outputs
     [max_groups], n_groups).  Groups come in the reference's order: the
     order of the packed key word when the pack fits 62 bits, else of
-    [packed (wrapping), keys...].  The caller keeps n_groups <=
-    max_groups.
+    [packed (wrapping), keys...].  Groups at or past max_groups are
+    counted in n_groups and dropped; slots past n_groups hold sums and
+    counts of 0, min / max identities and the keys of the first sorted
+    row.
 
-    On the card: the key statistics, the sort words, the sort (K10's
-    kernel), the boundaries and their scan are kernels of groupsort.cu
-    and sort.cu, and the segment reduce is K4's kernel over the group
-    id scattered back to row order.  One host read per call: the key
-    minima and maxima, which choose the branch and size the words.
-
-    `traced=True` is the form a captured fragment program runs: no
-    host read; the branch is taken on the device (csrc/groupsort.cu
-    group_gate) and the words are sized for the exact branch, the fast
-    branch's one word padded with zero words.  Groups come out in the
-    same order."""
+    On the card, with no host read: two launches (csrc/groupsort.cu: the
+    key statistics, then the pack test on the device and the sort words,
+    the fast branch's one word padded with zero words to the exact
+    branch's 1 + [k > 1] + k), K10's sort, and one launch a set of 32
+    aggregates that numbers the groups, reduces every aggregate in
+    sorted order (no float atomics: f64 sums are the same bits every
+    run) and writes the keys, the filler and n_groups.  `traced` (the
+    form a captured fragment program runs) takes the same launches; it
+    selects the plain version's form on the CPU."""
     max_groups = int(max_groups)
     if any(k not in _AGG_KINDS for k in agg_kinds):
         raise ValueError(f"unknown aggregate kinds {agg_kinds}")
@@ -717,53 +729,54 @@ def grouped_agg_sort(key_cols: tuple, valid, agg_inputs: tuple,
     if _on_cpu(valid, *key_cols, *agg_inputs):
         return grouped_agg_sort_plain(key_cols, valid, agg_inputs,
                                       max_groups, agg_kinds, traced)
+    lib = _lib()
     n = valid.shape[0]
     _check(valid, "valid", (torch.bool,), n)
+    if n < 1:
+        raise ValueError("grouped_agg_sort: no rows")
     if max_groups < 1:
         raise ValueError("max_groups must be >= 1")
+    if len(key_cols) > _MAX_KEYS:
+        raise ValueError(f"grouped_agg_sort: at most {_MAX_KEYS} keys")
+    keys = []
     for kc in key_cols:
         if kc.dim() != 1 or kc.shape[0] != n:
             raise ValueError("key columns: want [n] tensors")
+        if kc.dtype not in _KEY_DT:
+            kc = kc.to(torch.float64 if kc.dtype.is_floating_point
+                       else torch.int64)
+        keys.append(kc.contiguous())
+    for v in agg_inputs:
+        _check(v, "agg input", tuple(_DT), n)
+    codes = [_agg_code(k, v.dtype) for k, v in zip(agg_kinds, agg_inputs)]
     dev = valid.device
-    lib = _lib()
-    ints = _sortable_ints(key_cols)
-    k = ints.shape[0]
-    mins = torch.full((k,), INT64_MAX, dtype=torch.int64, device=dev)
-    maxs = torch.full((k,), INT64_MIN, dtype=torch.int64, device=dev)
-    _ok(lib.otbt_group_key_stats(_ptr(ints), k, n, _ptr(valid), _ptr(mins),
-                                 _ptr(maxs), _stream()), "grouped_agg_sort")
-    if traced:
-        w = 1 + k + (1 if k > 1 else 0)
-        words = torch.empty((w, n), dtype=torch.int64, device=dev)
-        gate = torch.empty(2, dtype=torch.int64, device=dev)
-        _ok(lib.otbt_group_words_dev(_ptr(ints), k, n, _ptr(valid),
-                                     _ptr(mins), _ptr(maxs), _ptr(gate),
-                                     _ptr(words), _stream()),
-            "grouped_agg_sort")
-    else:
-        mm = torch.stack([mins, maxs]).cpu().tolist()
-        fast, top = _pack_gate(mm[0], mm[1], n)
-        w = 1 if fast else 1 + k + (1 if k > 1 else 0)
-        words = torch.empty((w, n), dtype=torch.int64, device=dev)
-        _ok(lib.otbt_group_words(_ptr(ints), k, n, _ptr(valid), _ptr(mins),
-                                 _ptr(maxs), int(fast), top, _ptr(words),
-                                 _stream()), "grouped_agg_sort")
+    k, a = len(keys), len(codes)
+    nbytes = lib.otbt_group_scratch_bytes(n, k, a)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    kptr = _llarr(_ptr(c) for c in keys)
+    kdt = _iarr(_KEY_DT[c.dtype] for c in keys)
+    words = torch.empty((1 + k + (1 if k > 1 else 0), n), dtype=torch.int64,
+                        device=dev)
+    _ok(lib.otbt_group_words(kptr, kdt, k, n, _ptr(valid), a, _ptr(scratch),
+                             nbytes, _ptr(words), _stream()),
+        "grouped_agg_sort")
     perm, _ = _sort_launch(words, "grouped_agg_sort")
-    flags = torch.empty(n, dtype=torch.uint8, device=dev)
-    excl = torch.empty(n, dtype=torch.int64, device=dev)
-    tiles = torch.empty(_scan_tiles(n), dtype=torch.int64, device=dev)
-    n_groups = torch.empty(1, dtype=torch.int64, device=dev)
-    gid_row = torch.empty(n, dtype=torch.int64, device=dev)
-    take = torch.empty(max_groups, dtype=torch.int64, device=dev)
-    _ok(lib.otbt_group_ids(_ptr(ints), k, n, _ptr(valid), _ptr(perm),
-                           max_groups, _ptr(flags), _ptr(excl), _ptr(tiles),
-                           _ptr(n_groups), _ptr(gid_row), _ptr(take),
-                           _stream()), "grouped_agg_sort")
-    outs, _present, _l = _agg_dense_launch(gid_row, valid, agg_inputs,
-                                           max_groups, agg_kinds)
+    gkeys = [torch.empty(max_groups, dtype=c.dtype, device=dev) for c in keys]
+    outs = [torch.empty(max_groups, dtype=_agg_out_dtype(c, v.dtype),
+                        device=dev)
+            for (c, _i), v in zip(codes, agg_inputs)]
+    n_groups = torch.empty((), dtype=torch.int64, device=dev)
+    _ok(lib.otbt_group_reduce(
+        kptr, kdt, _llarr(_ptr(g) for g in gkeys), k, n, _ptr(valid),
+        _ptr(perm), max_groups, a, _llarr(_ptr(v) for v in agg_inputs),
+        _iarr(c for c, _i in codes), _iarr(_DT[v.dtype] for v in agg_inputs),
+        _llarr(i for _c, i in codes), _llarr(_ptr(o) for o in outs),
+        _ptr(n_groups), _ptr(scratch), nbytes, _stream()),
+        "grouped_agg_sort")
     _count("grouped_agg_sort", 1)
-    gkeys = tuple(kc.index_select(0, take) for kc in key_cols)
-    return gkeys, outs, n_groups[0]
+    gkeys = tuple(g if g.dtype == kc.dtype else g.to(kc.dtype)
+                  for g, kc in zip(gkeys, key_cols))
+    return gkeys, tuple(outs), n_groups
 
 
 # ---------------------------------------------------------------------------
@@ -953,34 +966,38 @@ def join_expand(lo, counts, perm, out_size: int, left_outer: bool = False,
     or past total hold (0, 0) and are invalid downstream (the reference
     leaves other values there).
 
-    On the card: the per-row pair count and its exclusive prefix sum
-    are kernels of scan.cuh (block scan, scan of the block sums,
-    add-back), then one thread per probe row writes its pairs."""
+    On the card: one memset of the control words and one launch
+    (csrc/join.cu expand_tiles): tiles of probe rows scan their pair
+    counts in a single pass chained by the decoupled look-back, each
+    tile writes its own pairs (adjacent threads on adjacent slots), and
+    padding blocks write (0, 0) past the total.  One allocation holds
+    both outputs, the total and the scratch."""
     out_size = int(out_size)
     ts = (lo, counts, perm) + (() if probe_valid is None else (probe_valid,))
     if _on_cpu(*ts):
         return join_expand_plain(lo, counts, perm, out_size, left_outer,
                                  probe_valid)
+    lib = _lib()
     n, nb = counts.shape[0], perm.shape[0]
     _check(lo, "lo", (torch.int64,), n)
     _check(counts, "counts", (torch.int64,), n)
     _check(perm, "perm", (torch.int64,), nb)
     if probe_valid is not None:
         _check(probe_valid, "probe_valid", (torch.bool,), n)
-    dev = counts.device
-    probe_idx = torch.zeros(out_size, dtype=torch.int64, device=dev)
-    build_idx = torch.zeros(out_size, dtype=torch.int64, device=dev)
-    excl = torch.empty(max(n, 1), dtype=torch.int64, device=dev)
-    tiles = torch.empty(_scan_tiles(n), dtype=torch.int64, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
-    rc = _lib().otbt_join_expand(
+    if out_size < 0:
+        raise ValueError("join_expand: out_size must be >= 0")
+    sbytes = lib.otbt_join_expand_scratch_bytes(n)
+    buf = torch.empty(2 * out_size + 1 + (sbytes + 7) // 8,
+                      dtype=torch.int64, device=counts.device)
+    at = _ptr(buf)
+    rc = lib.otbt_join_expand(
         _ptr(lo), _ptr(counts), _ptr(perm),
         None if probe_valid is None else _ptr(probe_valid), n, nb,
-        int(left_outer), _ptr(excl), _ptr(tiles), _ptr(total),
-        _ptr(probe_idx), _ptr(build_idx), out_size, _stream())
+        int(left_outer), at, at + 8 * out_size, out_size,
+        at + 16 * out_size, at + 8 * (2 * out_size + 1), sbytes, _stream())
     _ok(rc, "join_expand")
     _count("join_expand", 1)
-    return probe_idx, build_idx, total[0]
+    return buf[:out_size], buf[out_size:2 * out_size], buf[2 * out_size]
 
 
 def _jax_take(x, take):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time this tree's K7 (join_probe_counts) and K15c (assign_clusters)
-against another checkout of the port, in turns in one process, each
-side through its own tree's wrappers.
+"""Time this tree's K7 (join_probe_counts), K8 (join_expand), K5
+(grouped_agg_sort) and K15c (assign_clusters) against another checkout
+of the port, in turns in one process, each side through its own tree's
+wrappers.
 
 Run from the repository root, on one CUDA card, with the other tree
 unpacked into a git-ignored directory:
@@ -12,16 +13,21 @@ unpacked into a git-ignored directory:
 
 The other tree's package is loaded under another name, so its wrappers,
 its C interface and its kernel library (built from its own sources) are
-its own.  K7 is timed on TPC-H Q5's calls: Q5 at --sf run once on this
-tree's eager executor with the calls recorded.  K15c at the vector
+its own.  K7 and K8 are timed on TPC-H Q5's calls, K5 on Q3's call and
+on Q13's calls: Q5, Q3 and Q13 at --sf run once on this tree's eager
+executor with the calls recorded.  K15c at the vector
 path's shape: 1 M x 128 f32 rows (chip_smoke.py vector_data, seed 11)
 against 1000 of them as centroids, l2.  Each side's results are held
 against this tree's plain versions first; the other tree's K15c is also
 run on chip_smoke.py's NaN / inf / tie cases and the rows where it
 differs from jnp.argmax's rule are printed (a record, not a check).
 Then, in turns (other, this, this, other, ...): event-loop ms (CUDA
-events around the wrapper calls) and device-only ms (the calls captured
-into a CUDA graph), and the kernel nodes of one call.  The last line is
+events around the wrapper calls), device-only ms (the calls captured
+into a CUDA graph) and, for K8 and K5, host ms (the host clock around
+calls that are not waited for), and the kernel and memset nodes of one
+call.  A K5 call of a tree whose eager form reads the device from the
+host cannot be captured: its device-only ms and nodes are those of its
+traced form (the same launches but the host read).  The last line is
 one JSON object with every number.
 """
 
@@ -63,8 +69,12 @@ def in_turns(sides: dict, measure, rounds: int) -> dict:
     return out
 
 
-def q5_probe_calls(torch, K, sf: float):
-    """The K7 calls of TPC-H Q5 at `sf` on this tree's eager executor."""
+RECORDED = ("join_probe_counts", "join_expand", "grouped_agg_sort")
+
+
+def recorded_calls(torch, K, sf: float):
+    """{kernel: {query: [args]}} of RECORDED on TPC-H Q5, Q3 and Q13 at
+    `sf` on this tree's eager executor."""
     import chip_smoke as S
     from opentenbase_tpu_torch.exec import executor as X
     from opentenbase_tpu_torch.exec.session import LocalNode, Session
@@ -76,13 +86,65 @@ def q5_probe_calls(torch, K, sf: float):
     s = Session(LocalNode())
     s.execute(SCHEMA)
     datagen.load_into(s, data, datagen.TABLES)
-    calls, restore = S.record_calls(K, ["join_probe_counts"])
-    try:
-        s.query(Q[5])
-        torch.cuda.synchronize()
-    finally:
-        restore()
-    return [a for a, _kw in calls["join_probe_counts"]]
+    out = {n: {} for n in RECORDED}
+    for q in (5, 3, 13):
+        calls, restore = S.record_calls(K, list(RECORDED))
+        try:
+            s.query(Q[q])
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        for n in RECORDED:
+            out[n][q] = calls[n]
+    return out
+
+
+def host_ms(torch, fn, reps=20):
+    """Host ms a call of `fn`: the host clock around `reps` calls that
+    are not waited for (a call that reads the device waits inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def nodes_a_call(torch, fn):
+    """(kernel nodes, memset nodes) of one call captured in a CUDA graph."""
+    import chip_smoke as S
+    types = S.graph_nodes(torch, fn)
+    return (types.get(S._CU_GRAPH_NODE_KERNEL, 0),
+            types.get(S._CU_GRAPH_NODE_MEMSET, 0))
+
+
+def timed_sides(torch, S, sides, captured, calls, rounds, result, key,
+                card):
+    """Event-loop, device-only and host ms of each side over `calls`, in
+    turns; `captured[side]` is the function captured for device-only ms
+    and nodes (the side's own, or its traced form)."""
+    def over(timer, pick):
+        return lambda side: sum(timer(torch, lambda a=a, kw=kw:
+                                      pick(side)(*a, **kw))
+                                for a, kw in calls)
+    result[f"{key}_ms"] = in_turns(
+        {k: k for k in sides}, over(S.time_fn, sides.get), rounds)
+    result[f"{key}_device_ms"] = in_turns(
+        {k: k for k in sides}, over(S.graph_device_ms, captured.get), rounds)
+    result[f"{key}_host_ms"] = in_turns(
+        {k: k for k in sides}, over(host_ms, sides.get), rounds)
+    a, kw = calls[0]
+    result[f"{key}_nodes_a_call"] = {
+        k: nodes_a_call(torch, lambda fn=fn: fn(*a, **kw))
+        for k, fn in captured.items()}
+    for m in ("ms", "device_ms", "host_ms"):
+        S.say(f"{key}_{m}: " + "; ".join(
+            f"{k} {' '.join(f'{x:.4f}' for x in v)}"
+            for k, v in result[f"{key}_{m}"].items()) + f" [{card}]")
+    S.say(f"{key} kernel + memset nodes a call: "
+          f"{json.dumps(result[f'{key}_nodes_a_call'])}")
 
 
 def main() -> int:
@@ -120,7 +182,8 @@ def main() -> int:
     S.say(f"other tree's ann_assign, rows that differ from jnp.argmax's "
           f"rule: {json.dumps(nan_rule)}")
 
-    calls = q5_probe_calls(torch, K, args.sf)
+    rec = recorded_calls(torch, K, args.sf)
+    calls = [a for a, _kw in rec["join_probe_counts"][5]]
     S.say(f"Q5's K7 calls: {S.probe_shapes([(a, {}) for a in calls])}")
     probe = {"other": PK.join_probe_counts, "this": K.join_probe_counts}
     for side, fn in probe.items():
@@ -128,16 +191,47 @@ def main() -> int:
             S.compare_probe(torch, fn(*a), K.join_probe_counts_plain(*a),
                             f"{side} tree, Q5's calls")
 
-    def over_calls(timer):
-        return lambda fn: sum(timer(torch, lambda a=a: fn(*a))
-                              for a in calls)
     result = {"card": card, "sf": args.sf, "nan_rule_other": nan_rule}
-    result["k7_ms"] = in_turns(probe, over_calls(S.time_fn), args.rounds)
-    result["k7_device_ms"] = in_turns(probe, over_calls(S.graph_device_ms),
-                                      args.rounds)
-    result["k7_nodes_a_call"] = {
-        k: S.graph_nodes(torch, lambda fn=fn: fn(*calls[0])).get(
-            S._CU_GRAPH_NODE_KERNEL, 0) for k, fn in probe.items()}
+    timed_sides(torch, S, probe, probe, rec["join_probe_counts"][5],
+                args.rounds, result, "k7", card)
+
+    # K8 on Q5's calls
+    expand = {"other": PK.join_expand, "this": K.join_expand}
+    ecalls = rec["join_expand"][5]
+    for side, fn in expand.items():
+        for a, kw in ecalls:
+            S.compare_expand(torch, fn(*a, **kw),
+                             K.join_expand_plain(*a, **kw),
+                             f"{side} tree, Q5's calls")
+    timed_sides(torch, S, expand, expand, ecalls, args.rounds, result, "k8",
+                card)
+    # K5 on Q3's call and on Q13's calls; the other tree's device-only
+    # time and nodes through its traced form
+    group = {"other": PK.grouped_agg_sort, "this": K.grouped_agg_sort}
+    group_captured = {
+        "other": lambda *a, **kw: PK.grouped_agg_sort(
+            *a, **{**kw, "traced": True}),
+        "this": K.grouped_agg_sort}
+    for q in (3, 13):
+        gcalls = rec["grouped_agg_sort"][q]
+        S.say(f"Q{q}'s K5 calls: " + "; ".join(
+            f"{a[1].shape[0]} rows ({int(a[1].sum())} valid), {len(a[0])} "
+            f"keys, max_groups {int(a[3])}" for a, _kw in gcalls))
+        for side, fn in group.items():
+            for a, kw in gcalls:
+                S.compare_group(torch, fn(*a, **kw),
+                                K.grouped_agg_sort_plain(*a, **kw), a[4],
+                                f"{side} tree, Q{q}'s calls")
+        timed_sides(torch, S, group, group_captured, gcalls, args.rounds,
+                    result, f"k5_q{q}", card)
+        # K10's share: this tree's sort alone on the words of the calls
+        words = [K._group_words_traced_plain(K._sortable_ints(a[0]), a[1])
+                 for a, _kw in gcalls]
+        result[f"k5_q{q}_sort_device_ms"] = sum(
+            S.graph_device_ms(torch, lambda w=w: K.sort_perm(w))
+            for w in words)
+        S.say(f"k5_q{q}: K10's sort alone on the same words, device-only "
+              f"{result[f'k5_q{q}_sort_device_ms']:.4f} ms [{card}]")
 
     vecs = torch.from_numpy(S.vector_data(torch, np, 1_000_000, 11)).to(dev)
     pick = np.random.default_rng(11).choice(vecs.shape[0], S.VEC_LISTS,
@@ -153,7 +247,7 @@ def main() -> int:
         assign, lambda fn: S.time_fn(torch, fn, reps=3), args.rounds)
     result["k15c_device_ms"] = in_turns(
         assign, lambda fn: S.graph_device_ms(torch, fn, reps=3), args.rounds)
-    for key in ("k7_ms", "k7_device_ms", "k15c_ms", "k15c_device_ms"):
+    for key in ("k15c_ms", "k15c_device_ms"):
         S.say(f"{key}: " + "; ".join(
             f"{k} {' '.join(f'{x:.4f}' for x in v)}"
             for k, v in result[key].items()) + f" [{card}]")

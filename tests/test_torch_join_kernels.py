@@ -374,6 +374,125 @@ def test_join_expand_exact_fit_and_empty():
     assert int(got[2]) == 0 and (_np(got[0]) == 0).all()
 
 
+def test_join_expand_one_probe_row_with_5000_matches():
+    """A skewed join: one probe row matches 5000 build rows (the card
+    spreads its pairs over a whole block), among rows with a few."""
+    rng = np.random.default_rng(52)
+    bkeys = np.concatenate([np.full(5000, 7), rng.integers(8, 60, 900)])
+    bvalid = np.concatenate([np.ones(5000, bool), rng.random(900) < 0.9])
+    pkeys = rng.integers(8, 70, 1500)
+    pkeys[[3, 700, 1499]] = 7
+    sk, perm = TK.join_build(_t(bkeys.astype(np.int64)), _t(bvalid))
+    lo, cnt = TK.join_probe_counts(sk, _t(pkeys.astype(np.int64)),
+                                   _t(np.ones(1500, bool)))
+    assert int(_np(cnt).max()) == 5000
+    total = int(_np(cnt).sum())
+    for out_size in (total, total + 37):
+        want = RK.join_expand(jnp.asarray(_np(lo)), jnp.asarray(_np(cnt)),
+                              jnp.asarray(_np(perm)), out_size)
+        got = TK.join_expand(lo, cnt, perm, out_size)
+        assert int(got[2]) == int(want[2]) == total
+        for g, w in zip(got[:2], want[:2]):
+            np.testing.assert_array_equal(_np(g)[:total],
+                                          np.asarray(w)[:total])
+            assert (_np(g)[total:] == 0).all()
+
+
+def test_join_expand_left_outer_with_padding_rows_and_an_exact_fit():
+    """Left outer: padding rows (probe_valid False) emit nothing, valid
+    rows without a match one (p, -1) pair; out_size exactly the total, so
+    no slot is filler and the whole outputs equal the reference's."""
+    rng = np.random.default_rng(53)
+    _sk, perm, lo, cnt, pvalid = _probe_case(rng, nb=400, np_=900)
+    pvalid[-200:] = False                       # a padded tail
+    eff = np.where(pvalid, np.maximum(_np(cnt), 1), 0)
+    total = int(eff.sum())
+    want = RK.join_expand(jnp.asarray(_np(lo)), jnp.asarray(_np(cnt)),
+                          jnp.asarray(_np(perm)), total, True,
+                          jnp.asarray(pvalid))
+    got = TK.join_expand(lo, cnt, perm, total, True, _t(pvalid))
+    assert int(got[2]) == int(want[2]) == total
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
+    assert (_np(got[1]) == -1).sum() == int(((_np(cnt) == 0) & pvalid).sum())
+    assert not np.isin(np.arange(700, 900), _np(got[0])).any()
+
+
+class _FakeExpandLib:
+    """otbt_join_expand_scratch_bytes and otbt_join_expand without a card:
+    the plain version's pairs (computed before the call) written through
+    the output pointers; records each call."""
+
+    def __init__(self, want):
+        self.want = want
+        self.calls = []
+
+    def otbt_join_expand_scratch_bytes(self, np_):
+        return 4 * np_ + 100
+
+    def otbt_join_expand(self, lo, counts, perm, pv, np_, nb, left_outer,
+                         probe_idx, build_idx, out_size, total, scratch,
+                         scratch_bytes, stream):
+        pi, bi, tot = self.want
+        ctypes.memmove(probe_idx, pi.data_ptr(), 8 * out_size)
+        ctypes.memmove(build_idx, bi.data_ptr(), 8 * out_size)
+        ctypes.memmove(total, tot.reshape(1).data_ptr(), 8)
+        self.calls.append((np_, nb, left_outer, pv is not None, probe_idx,
+                           build_idx, out_size, total, scratch,
+                           scratch_bytes))
+        return 0
+
+
+@pytest.mark.parametrize("left_outer", [False, True])
+def test_join_expand_makes_one_allocation_and_no_zero_fill(monkeypatch,
+                                                           left_outer):
+    """On the card the K8 wrapper makes one allocation (both outputs, the
+    total and the library's scratch, in that order), fills nothing with
+    zeros (the kernel writes every slot), makes one library call and
+    counts one launch; the outputs equal the plain version (the library
+    faked with it: no card here)."""
+    rng = np.random.default_rng(54)
+    _sk, perm, lo, cnt, pvalid = _probe_case(rng)
+    pv = _t(pvalid)
+    out_size = 1 << 11
+    want = TK.join_expand_plain(lo, cnt, perm, out_size, left_outer, pv)
+    lib = _FakeExpandLib(want)
+    allocs = []
+    real_empty = torch.empty
+
+    def empty(*a, **kw):
+        allocs.append((a, kw))
+        return real_empty(*a, **kw)
+
+    def no_fill(*a, **kw):
+        raise AssertionError("a zero-fill on the K8 path")
+    monkeypatch.setattr(TK, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(TK, "_lib", lambda: lib)
+    monkeypatch.setattr(TK, "_stream", lambda: 0)
+    monkeypatch.setattr(torch, "empty", empty)
+    for name in ("zeros", "zeros_like", "full", "full_like"):
+        monkeypatch.setattr(torch, name, no_fill)
+    for name in ("zero_", "fill_"):
+        monkeypatch.setattr(torch.Tensor, name, no_fill)
+    TK.reset_launches()
+    got = TK.join_expand(lo, cnt, perm, out_size, left_outer, pv)
+    monkeypatch.undo()
+    assert len(allocs) == 1 and len(lib.calls) == 1
+    assert TK.LAUNCHES["join_expand"] == 1
+    (np_, nb, lo_flag, with_pv, pi, bi, size, tot, scratch, sbytes), = \
+        lib.calls
+    assert (np_, nb, lo_flag, with_pv, size) == (700, 300, int(left_outer),
+                                                 True, out_size)
+    base = got[0].data_ptr()
+    assert (pi, bi, tot, scratch) == (base, base + 8 * out_size,
+                                      base + 16 * out_size,
+                                      base + 8 * (2 * out_size + 1))
+    assert got[0].untyped_storage().nbytes() >= 8 * (2 * out_size + 1) \
+        + sbytes
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # ---------------------------------------------------------------------------
 # K9 compose_index, semi_mask, anti_mask
 # ---------------------------------------------------------------------------
@@ -598,6 +717,151 @@ def test_grouped_agg_sort_float_key_groups():
                                         (jnp.asarray(one),), 8, ("sum",))
     assert int(gn) == int(wn) == 4
     np.testing.assert_array_equal(_np(c), np.asarray(wc))
+
+
+def _group_parity(keys, valid, ins, kinds, max_groups):
+    wk, wo, wn = RK.grouped_agg_sort(
+        tuple(jnp.asarray(k) for k in keys), jnp.asarray(valid),
+        tuple(jnp.asarray(a) for a in ins), max_groups, kinds)
+    for traced in (False, True):
+        gk, go, gn = TK.grouped_agg_sort(
+            tuple(_t(k) for k in keys), _t(valid), tuple(_t(a) for a in ins),
+            max_groups, kinds, traced=traced)
+        assert int(gn) == int(wn)
+        for g, w in zip(gk, wk):
+            np.testing.assert_array_equal(_np(g), np.asarray(w))
+        for kd, g, w in zip(kinds, go, wo):
+            g, w = _np(g), np.asarray(w)
+            assert g.dtype == w.dtype, (kd, g.dtype, w.dtype)
+            if g.dtype.kind == "f" and kd in ("sum", "sumf"):
+                np.testing.assert_allclose(g, w, rtol=SUMF_RTOL, atol=0)
+            else:
+                np.testing.assert_array_equal(g, w)
+    return int(wn)
+
+
+def test_grouped_agg_sort_one_group_over_4500_rows():
+    """One group spans more than 4096 sorted rows (more than four of the
+    card's 1024-row tiles), then small groups; both forms."""
+    rng = np.random.default_rng(71)
+    n = 6000
+    keys = (np.where(np.arange(n) < 4500, 7,
+                     rng.integers(0, 50, n)).astype(np.int64),)
+    valid = rng.random(n) < 0.95
+    assert _group_parity(keys, valid, _agg_inputs(rng, n), AGG_KINDS,
+                         8192) > 40
+
+
+def test_grouped_agg_sort_nan_and_inf_f64_aggregates():
+    """f64 sum, min and max over NaN, +-inf and +-0.0: a group with a NaN
+    is NaN, +inf and -inf sum to NaN, -0.0 sums to 0.0."""
+    rng = np.random.default_rng(72)
+    n = 3000
+    vals = rng.choice([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.5, -2.25], n)
+    vals[:40] = -0.0
+    keys = (np.where(np.arange(n) < 40, -1, rng.integers(0, 60, n)),)
+    ins = (vals, vals, vals, vals, rng.integers(0, 9, n))
+    kinds = ("sumf", "sum", "min", "max", "count")
+    assert _group_parity(keys, np.ones(n, bool), ins, kinds, 128) == 61
+
+
+def test_grouped_agg_sort_drops_groups_past_max_groups():
+    """More groups than max_groups: n_groups counts them all, the outputs
+    hold the first max_groups in the reference's order."""
+    rng = np.random.default_rng(73)
+    n = 2500
+    keys = (rng.integers(0, 300, n), rng.integers(0, 3, n).astype(np.int32))
+    valid = rng.random(n) < 0.9
+    assert _group_parity(keys, valid, _agg_inputs(rng, n), AGG_KINDS,
+                         16) > 16
+
+
+class _FakeGroupLib:
+    """K5's C interface and K10's without a card: the sort writes the
+    plain version's order, the reduce the plain version's outputs (both
+    computed before the call); records each call's name and sizes."""
+
+    def __init__(self, perm, want, nkeys):
+        self.perm, self.want, self.nkeys = perm, want, nkeys
+        self.calls = []
+
+    def otbt_group_scratch_bytes(self, n, k, aggs):
+        self.calls.append(("scratch_bytes", n, k, aggs))
+        return 64
+
+    def otbt_group_words(self, kptr, kdt, k, n, valid, aggs, scratch,
+                         sbytes, words, stream):
+        self.calls.append(("words", k, n, aggs, sbytes))
+        return 0
+
+    def otbt_sort_scratch_bytes(self, w, n):
+        self.calls.append(("sort_scratch_bytes", w, n))
+        return 0
+
+    def otbt_sort_perm(self, words, w, n, scratch, sbytes, perm, first,
+                       stream):
+        self.calls.append(("sort", w, n))
+        ctypes.memmove(perm, self.perm.data_ptr(), 8 * n)
+        return 0
+
+    def otbt_group_reduce(self, kptr, kdt, kouts, k, n, valid, perm,
+                          max_groups, aggs, ins, kinds, dtypes, idents, outs,
+                          n_groups, scratch, sbytes, stream):
+        self.calls.append(("reduce", k, n, max_groups, aggs,
+                           tuple(kinds[i] for i in range(aggs)),
+                           tuple(dtypes[i] for i in range(aggs))))
+        gk, go, gn = self.want
+        for c, g in enumerate(gk):
+            ctypes.memmove(kouts[c], g.data_ptr(), g.numel() * g.element_size())
+        for j, o in enumerate(go):
+            ctypes.memmove(outs[j], o.data_ptr(), o.numel() * o.element_size())
+        ctypes.memmove(n_groups, gn.reshape(1).data_ptr(), 8)
+        return 0
+
+
+def test_grouped_agg_sort_reads_nothing_from_the_device(monkeypatch):
+    """On the card neither form of the K5 wrapper reads the device from
+    the host (Tensor.cpu, .item, .tolist, .numpy and the scalar
+    conversions raise here), both make the same sequence of library
+    calls (the words, K10's sort, one reduce), and one launch is
+    counted; the library is faked with the plain version (no card)."""
+    rng = np.random.default_rng(74)
+    n = 900
+    keys, valid = _group_case("dense3", rng, n)
+    args = (tuple(_t(k) for k in keys), _t(valid),
+            tuple(_t(a) for a in _agg_inputs(rng, n)), 1024, AGG_KINDS)
+    seqs = {}
+    for traced in (False, True):
+        want = TK.grouped_agg_sort_plain(*args, traced=traced)
+        ints = TK._sortable_ints(args[0])
+        perm = TK.sort_perm_plain(TK._group_words_traced_plain(ints,
+                                                               args[1]))
+        lib = _FakeGroupLib(perm, want, len(keys))
+        with monkeypatch.context() as m:
+            m.setattr(TK, "_on_cpu", lambda *ts: False)
+            m.setattr(TK, "_lib", lambda: lib)
+            m.setattr(TK, "_stream", lambda: 0)
+
+            def host_read(*a, **kw):
+                raise AssertionError("a host read on the K5 path")
+            for name in ("cpu", "item", "tolist", "numpy", "__bool__",
+                         "__int__", "__float__"):
+                m.setattr(torch.Tensor, name, host_read)
+            TK.reset_launches()
+            got = TK.grouped_agg_sort(*args, traced=traced)
+            launches = dict(TK.LAUNCHES)
+        assert launches["grouped_agg_sort"] == 1
+        assert launches["sort_rows"] == 0
+        seqs[traced] = [c[0] for c in lib.calls], lib.calls
+        (gk, go, gn), (wk, wo, wn) = got, want
+        assert int(gn) == int(wn)
+        for g, w in zip(gk + go, wk + wo):
+            assert torch.equal(g, w)
+    assert seqs[False] == seqs[True]
+    assert seqs[True][0] == ["scratch_bytes", "words", "sort_scratch_bytes",
+                             "sort", "reduce"]
+    k = len(keys)
+    assert ("sort", 1 + k + 1, n) in seqs[True][1]
 
 
 def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
