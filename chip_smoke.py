@@ -84,6 +84,16 @@ K5, eager and traced, on one group over 2^20 rows, every row its own
 group at 2^21, groups past max_groups, f64 NaN / +-inf / +-0.0 and 40
 aggregates, its f64 sums the same bits in two runs, 2 + K10's + 1
 launches a call and no memset;
+K12's fixed form on an empty and a 1-row source, rows at its tile's
+multiples and one past, 1 and 64 destinations, region 1, every row to
+one destination, 65 columns and 20 sources (each in the broadcast form
+too), 1 kernel + 1 memset a call (one more kernel a column set);
+K15a and K15d on rows with an infinite, a NaN (either sign) or a zero
+component and a zero query (the same NaN rows as their plain
+versions), K15b on NaN distances of both signs, +inf, -0.0 and ties up
+to 2^20 + 3 rows against its plain version on the CPU and the NaN rule
+(every NaN after +inf), 1 kernel + at most 1 memset a call, and the
+card's Session on the `it` table, whose infinite row ranks last;
 K15c exactly equal to its plain version on NaN, +-inf, 1e20, tied and
 overflowing rows and centroids for all three metrics, and at its tile
 edges (n, lists and dimensions around 128, 16 and the resident row
@@ -96,8 +106,9 @@ on the inputs the main paths gave it, shows from the
 launch counters (set to 0 before each path, read after it) that each
 path went through each of its kernels, and times the kernels, their
 plain versions, a PyTorch library call where one computes the same
-function, and the queries; for K13b, K9 and K3 also the device-only
-time (the recorded calls captured into a CUDA graph and replayed) and the
+function, and the queries; for K13b, K9, K3, K12's fixed form and
+K15b also the device-only time (the recorded calls captured into a
+CUDA graph and replayed) and the
 host time of a wrapper call, and the shapes of K3's and K9's compose
 calls; K3's two forms (one block, look-back tiles) in turns on cluster
 Q3's calls and in its recaptured program; K7, K15c, K8 and K5 also
@@ -1069,6 +1080,94 @@ def cluster_kernel_check(torch, K):
     torch.cuda.synchronize()
     say("cluster kernels vs plain (routing, exchange in both forms; every "
         "branch, small and large inputs): ok")
+    exchange_edge_check(torch, K, np, rng, dev)
+
+
+# csrc/exchange.cu kXTile: rows a tile of the fixed form
+XCHG_TILE = 4096
+
+
+def exchange_edge_cases():
+    """(label, rows per source, ndst, region, skew, columns) at K12
+    fixed's edges: an empty and a 1-row source, rows at multiples of the
+    tile and one past, 1 and 64 destinations, region 1 (every
+    destination overflows), every row to one destination, a second
+    launch past 64 columns and past 248 column pointers (20 sources of
+    17 columns)."""
+    t = XCHG_TILE
+    return (
+        ("an empty source and a 1-row source", (0, 1, 3000), 2, 4096,
+         False, 6),
+        ("rows at the tile's multiples and one past",
+         (t, 2 * t, t + 1, 3 * t + 1), 4, 2 * t, False, 6),
+        ("1 destination", (3 * t + 5, 77), 1, 4 * t, False, 6),
+        ("64 destinations", (5 * t + 3, t), 64, 512, False, 6),
+        ("region 1: every destination overflows", (t + 9, 100), 2, 1,
+         False, 6),
+        ("region 1, 64 destinations", (2 * t + 1,), 64, 1, False, 3),
+        ("skew: every row to one destination", (2 * t + 100, 3 * t), 4,
+         8 * t, True, 6),
+        ("65 columns", (t + 5, 2 * t), 2, 4 * t, False, 65),
+        ("20 sources", (700,) * 20, 3, 8 * t, False, 17),
+    )
+
+
+def exchange_sources(torch, np, rng, rows, ndst, skew, k, dev):
+    """(cols, dest, valid) of sources with `rows` rows: k columns of
+    1, 2, 4 and 8 bytes (source 0 lacks column 2 where there are more
+    sources), destinations -1 .. ndst (out of range at both ends), or
+    all ndst - 1 with `skew`, 85% valid."""
+    kinds = (np.int64, np.int32, np.bool_, np.int16, np.float64, np.uint8)
+    srcs, ds, vs = [], [], []
+    for i, n in enumerate(rows):
+        cols = []
+        for j in range(k):
+            kind = kinds[j % len(kinds)]
+            a = rng.random(n) < 0.5 if kind is np.bool_ else \
+                rng.integers(-1000, 1000, n).astype(kind)
+            cols.append(None if i == 0 and j == 2 and len(rows) > 1
+                        else torch.from_numpy(a).to(dev))
+        srcs.append(tuple(cols))
+        d = np.full(n, ndst - 1, np.int32) if skew else \
+            rng.integers(-1, ndst + 1, n).astype(np.int32)
+        ds.append(torch.from_numpy(d).to(dev))
+        vs.append(torch.from_numpy(rng.random(n) < 0.85).to(dev))
+    return srcs, ds, vs
+
+
+def exchange_edge_check(torch, K, np, rng, dev):
+    """K12 fixed against its plain version on exchange_edge_cases (and
+    each in the broadcast form): count matrix, overflow, valid mask and
+    every moved value; the kernel and memset nodes of one captured call
+    (1 + 1 up to 64 columns, one more kernel a set beyond)."""
+    nodes = {}
+    for label, rows, ndst, region, skew, k in exchange_edge_cases():
+        srcs, ds, vs = exchange_sources(torch, np, rng, rows, ndst, skew, k,
+                                        dev)
+        compare_exchange_fixed(
+            torch, K.exchange_fixed(srcs, ds, vs, ndst, region),
+            K.exchange_fixed_plain(srcs, ds, vs, ndst, region), label)
+        compare_exchange_fixed(
+            torch, K.exchange_fixed(srcs, None, vs, 1, region),
+            K.exchange_fixed_plain(srcs, None, vs, 1, region),
+            f"{label}, broadcast form")
+        if label in ("skew: every row to one destination", "65 columns",
+                     "20 sources"):
+            nodes[label] = kernel_launches(
+                torch, lambda: K.exchange_fixed(srcs, ds, vs, ndst, region))
+    sets = {"skew: every row to one destination": 1, "65 columns": 2,
+            "20 sources": 2}
+    for label, (kern, mems) in nodes.items():
+        check(kern == sets[label] and mems == 1,
+              f"exchange_fixed ({label}): {kern} kernels + {mems} memsets "
+              f"a call, want {sets[label]} + 1")
+    torch.cuda.synchronize()
+    say(f"K12 exchange_fixed vs plain ({len(exchange_edge_cases())} edge "
+        "cases, each also in the broadcast form: an empty and a 1-row "
+        "source, rows at the tile's multiples and one past, 1 and 64 "
+        "destinations, region 1, every row to one destination, 65 columns,"
+        " 20 sources of 17): ok; kernel + memset nodes a call: " + ", ".join(
+            f"{label} {a} + {b}" for label, (a, b) in nodes.items()))
 
 
 def compact_sizes(K):
@@ -2254,6 +2353,21 @@ CALL_SHAPES = {
 }
 
 
+def exchange_shapes(torch, K, calls, key):
+    """One line per recorded K12 fixed call of `key`: rows per source,
+    destinations, columns and their widths, region, rows moved."""
+    for i, (a, kw) in enumerate(calls):
+        cols, dest, valid, ndst, region = a[:5]
+        widths = [next((c.element_size() for c in cs if c is not None), 0)
+                  for cs in zip(*cols)]
+        cm = K.exchange_fixed(*a, **kw)[2]
+        say(f"{_qname(key)} exchange_fixed call {i}: rows per source "
+            f"{[v.shape[0] for v in valid]}, {ndst} destinations, "
+            f"{len(widths)} columns of widths {widths}, region {int(region)},"
+            f" {int(torch_min_sum(cm, int(region)))} rows moved"
+            f"{'' if dest is not None else ' (gather form)'}")
+
+
 def torch_min_sum(cm, region: int):
     """Rows of a fixed-capacity exchange that fit: per destination the
     smaller of its row count and the region, summed."""
@@ -2508,6 +2622,8 @@ def main():
     calls7, launches7, k16 = mesh_program_path(
         torch, K, cs, data, names, {1: got1[1], 3: got2[3], 5: got2[5]},
         {1: want_q1, 3: want_q3, 5: want_q5}, card)
+    for key in ("m5", "m5c4"):
+        exchange_shapes(torch, K, calls7[key]["exchange_fixed"], key)
 
     # ---- slice 4: the fused tier and the serving tier ----
     X.Executor._fuse = True
@@ -3715,6 +3831,123 @@ def ann_kernel_check(torch, ANN):
                        f"ann_probe_scan {metric} (small)")
     torch.cuda.synchronize()
     say("K15 kernels vs plain (small inputs and edge branches): ok")
+    vector_edge_check(torch, ANN, np, rng, t)
+
+
+def nan_topk_oracle(np, dist, valid, k):
+    """The rows of the k smallest masked distances in PostgreSQL's float
+    order: -0.0 as 0.0, masked rows +inf, every NaN after +inf, ties to
+    the lower row."""
+    x = dist.astype(np.float64)
+    if valid is not None:
+        x = np.where(valid, x, np.inf)
+    nan = np.isnan(x)
+    return np.lexsort((np.arange(len(x)), np.where(nan, 0.0, x), nan))[:k]
+
+
+def vector_edge_check(torch, ANN, np, rng, t):
+    """K15a and K15d on rows with an infinite, a NaN (either sign) or a
+    zero component, a zero row and a zero query, all three metrics:
+    the same NaN rows as their plain versions and the others within
+    1e-4; K15b on NaN distances of both signs, +inf, -0.0 and ties
+    (small, and 2^20 + 3 rows with k 10, 125 and 1024) against its
+    plain version on the CPU and the oracle of the rule, exactly; its
+    kernel and memset nodes a call at the main path's two shapes; the
+    card's Session on the probe table `it`."""
+    neg_nan = np.copysign(np.float32(np.nan), np.float32(-1))
+    n, d = 4103, 128
+    v = rng.normal(size=(n, d)).astype(np.float32)
+    v[5, 3], v[6, 0], v[7, 9], v[8, 1] = np.inf, -np.inf, np.nan, neg_nan
+    v[9] = 0.0
+    v[10, :2] = (np.inf, -np.inf)
+    vecs = t(v)
+    valid = t(rng.random(n) < 0.9)
+    assign = t(np.zeros(n, np.int32))
+    probed = t(np.asarray([True, False]))
+    for qv in (rng.normal(size=d).astype(np.float32),
+               np.zeros(d, np.float32)):
+        q = t(qv)
+        for metric in ("l2", "cosine", "ip"):
+            for name, got, want in (
+                    ("ann_distances", ANN.distances(vecs, q, metric),
+                     ANN.distances_plain(vecs, q, metric)),
+                    ("ann_probe_scan",
+                     ANN.probe_scan(vecs, assign, probed, valid, q, metric),
+                     ANN.probe_scan_plain(vecs, assign, probed, valid, q,
+                                          metric))):
+                gn, wn = torch.isnan(got), torch.isnan(want)
+                check(torch.equal(gn, wn), f"{name} {metric}: NaN rows "
+                      f"differ from the plain version ({int(gn.sum())} on "
+                      f"the card, {int(wn.sum())} plain)")
+                g, w = got[~wn].double(), want[~wn].double()
+                check(torch.equal(torch.isinf(g), torch.isinf(w))
+                      and torch.equal(g[torch.isinf(g)], w[torch.isinf(w)]),
+                      f"{name} {metric}: infinite rows differ")
+                fin = torch.isfinite(w)
+                err = float((g[fin] - w[fin]).abs().max())
+                check(err <= 1e-4 * (1 + float(w[fin].abs().max())),
+                      f"{name} {metric} on the edge rows differs: {err}")
+    cases = [(np.asarray([3, np.nan, 1, neg_nan, np.inf, 2, -0.0, 0.0],
+                         np.float32), None, 8)]
+    check(nan_topk_oracle(np, cases[0][0], None, 8).tolist()
+          == [6, 7, 2, 5, 0, 4, 1, 3], "the NaN oracle's own example")
+    m = (1 << 20) + 3
+    big = rng.choice(np.asarray([0.5, 1.0, -0.0, 0.0, 2.0], np.float32), m)
+    big[rng.integers(0, m, 1000)] = np.nan
+    big[rng.integers(0, m, 1000)] = neg_nan
+    big[rng.integers(0, m, 500)] = np.inf
+    keep = rng.random(m) < 0.125
+    few = np.where(rng.random(m) < 0.999, np.float32(np.nan), big)
+    for k in (10, 125, 1024):
+        cases += [(big, keep, k), (big, None, k), (few, None, k)]
+    for dist, keep_, k in cases:
+        dv, vv = t(dist), None if keep_ is None else t(keep_)
+        gi, gd = ANN.topk_nearest(dv, vv, k)
+        wi, wd = ANN.topk_nearest_plain(dv.cpu(), None if vv is None
+                                        else vv.cpu(), k)
+        check(torch.equal(gi.cpu(), wi) and torch.equal(
+            gd.cpu().view(torch.int32), wd.view(torch.int32)),
+            f"ann_topk on NaN / inf distances ({len(dist)} rows, k {k}) "
+            "differs from its plain version")
+        check(gi.cpu().numpy().tolist() == nan_topk_oracle(
+            np, dist, keep_, k).tolist(),
+            f"ann_topk on NaN / inf distances ({len(dist)} rows, k {k}) "
+            "breaks the NaN rule")
+    d1k = t(rng.normal(size=1000).astype(np.float32))
+    dm = t(big)
+    nodes = {"k 10 over 2^20 + 3": kernel_launches(
+                 torch, lambda: ANN.topk_nearest(dm, None, 10)),
+             "k 125 over 1000": kernel_launches(
+                 torch, lambda: ANN.topk_nearest(d1k, None, 125))}
+    for label, (kern, mems) in nodes.items():
+        check(kern == 1 and mems <= 1, f"ann_topk ({label}): {kern} "
+              f"kernels + {mems} memsets a call, want 1 + at most 1")
+    rows = it_probe(None)
+    check(rows == [(1,), (3,)], f"the it probe on the card's Session gave "
+          f"{rows}, want [(1,), (3,)]")
+    torch.cuda.synchronize()
+    say(f"K15a / K15d vs plain on inf, NaN (both signs) and zero rows, a "
+        f"zero query, 3 metrics; K15b = plain on the CPU = the NaN rule on "
+        f"{len(cases)} cases (both NaN signs after +inf, -0.0, ties, "
+        f"2^20 + 3 rows, k 10 / 125 / 1024): ok; kernel + memset nodes a "
+        "call: " + ", ".join(f"{label} {a} + {b}"
+                             for label, (a, b) in nodes.items())
+        + f"; the it probe on the card's Session: {rows}")
+
+
+IT_PROBE = ("insert into it values (1, '[1,1]'), (2, '[Infinity,0]'), "
+            "(3, '[2,2]'), (4, '[3,3]')")
+
+
+def it_probe(device):
+    """`select id from it order by v <-> '[1,1]' limit 2` on a Session
+    of a LocalNode on `device` (None: the card): row 2's l2 distance is
+    inf - inf, NaN, which ranks last."""
+    from opentenbase_tpu_torch.exec.session import LocalNode, Session
+    s = Session(LocalNode() if device is None else LocalNode(device=device))
+    s.execute("create table it (id bigint, v vector(2))")
+    s.execute(IT_PROBE)
+    return s.query("select id from it order by v <-> '[1,1]' limit 2")
 
 
 def assign_special_cases(np, rng):
@@ -4347,6 +4580,11 @@ def vector_measure(torch, K, ANN, vp, err, card, profile=False):
         lib = ann_library_ms(torch, kname, a, kw)
         shape = "x".join(str(x) for x in a[0].shape)
         split = {}
+        if kname == "ann_topk":
+            split = device_split(
+                torch, K, kname, [(a, kw)], card, wrapper=fn,
+                library=lambda a: (lambda m=ANN._masked(a[0], a[1]):
+                                   torch.topk(m, a[2], largest=False)))
         if kname == "ann_assign":
             split = device_split(
                 torch, K, kname, [(a, kw)], card, wrapper=fn,
@@ -4517,7 +4755,9 @@ def _library_ms(torch, K, name, calls):
 # kernels whose time is also split into device-only and host time
 DEVICE_SPLIT = ("semi_mask", "anti_mask", "window_frame_reduce", "compact",
                 "compose_index", "join_probe_counts", "join_expand",
-                "grouped_agg_sort")
+                "grouped_agg_sort", "exchange_fixed")
+# kernels whose split also counts the kernel and memset nodes of a call
+SPLIT_NODES = ("exchange_fixed", "ann_topk")
 
 
 def device_split(torch, K, name, calls, card, wrapper=None, library=None):
@@ -4550,6 +4790,14 @@ def device_split(torch, K, name, calls, card, wrapper=None, library=None):
     rec = {"device_ms": dev, "host_ms": host,
            "torch_device_ms": ldev if lib_ok else None,
            "torch_host_ms": lhost if lib_ok else None}
+    if name in SPLIT_NODES:
+        types = [graph_nodes(torch, lambda a=a, kw=kw: wrapper(*a, **kw))
+                 for a, kw in calls]
+        rec["nodes_a_call"] = [[t.get(_CU_GRAPH_NODE_KERNEL, 0),
+                                t.get(_CU_GRAPH_NODE_MEMSET, 0)]
+                               for t in types]
+        say(f"kernel {name}: kernel + memset nodes of each call, captured: "
+            + ", ".join(f"{a} + {b}" for a, b in rec["nodes_a_call"]))
     label = "probe_valid & (counts == 0)" if name == "anti_mask" else \
         "library"
     lib = f"{ldev:.4f} ms, host {lhost:.4f} ms" if lib_ok else "-"

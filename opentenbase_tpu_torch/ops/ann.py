@@ -10,9 +10,11 @@ each launch adds one to ops/kernels.py LAUNCHES under its kernel's name:
 
 - ann_distances: `distances` (l2 / cosine / ip, f32, the reference's
   epilogue term for term);
-- ann_topk: `topk_nearest` (the order of lax.top_k(-masked, k): ascending
-  distance, ties to the lower row, masked rows as +inf); above
-  MAX_TOPK the order comes from the sort kernel (K10 sort_rows);
+- ann_topk: `topk_nearest` (ascending distance, ties to the lower row,
+  masked rows as +inf, every NaN after +inf: lax.top_k(-masked, k)'s
+  order but for a NaN, which PostgreSQL ranks above every value); one
+  launch of a threshold select; above MAX_TOPK the order comes from the
+  sort kernel (K10 sort_rows);
 - ann_assign: `assign_clusters` (a register-blocked f32 product fed by
   asynchronous copies, with jnp.argmax's arg-best fused behind it; the
   (n, nlist) score matrix is never made);
@@ -115,7 +117,9 @@ def _masked(dists, valid):
 def topk_nearest_plain(dists, valid, k: int):
     """The k smallest masked distances -> (rows int64, distances f32),
     by a stable sort of (masked distance, row): -0.0 ranks as 0.0, +inf
-    slots go to the lowest masked rows.  `valid` None: every row."""
+    slots go to the lowest masked rows, every NaN (either sign) after
+    +inf, in row order (PostgreSQL's float order; the reference's
+    lax.top_k ranks a sign-set NaN first).  `valid` None: every row."""
     masked = _masked(dists, valid)
     key = torch.where(masked == 0, torch.zeros((), dtype=masked.dtype,
                                                device=masked.device),
@@ -146,14 +150,16 @@ def topk_nearest(dists, valid, k: int):
         idx = K.sort_perm(words)[:k]
         return idx, masked.index_select(0, idx)
     lib = K._lib()
-    cand = torch.empty(lib.otbt_ann_topk_scratch(n, k), dtype=torch.int64,
-                       device=dev)
-    idx = torch.empty(k, dtype=torch.int64, device=dev)
-    out = torch.empty(k, dtype=torch.float32, device=dev)
+    # one allocation: the rows, the distances, then the kernel's scratch
+    sb = lib.otbt_ann_topk_scratch_bytes(n, k)
+    ob = (4 * k + 7) // 8 * 8
+    buf = torch.empty(8 * k + ob + sb, dtype=torch.uint8, device=dev)
+    idx = buf[:8 * k].view(torch.int64)
+    out = buf[8 * k:8 * k + 4 * k].view(torch.float32)
     rc = lib.otbt_ann_topk(K._ptr(dists),
                            None if valid is None else K._ptr(valid), n, k,
-                           K._ptr(cand), K._ptr(idx), K._ptr(out),
-                           K._stream())
+                           K._ptr(buf) + 8 * k + ob, sb, K._ptr(idx),
+                           K._ptr(out), K._stream())
     K._ok(rc, "ann_topk")
     K._count("ann_topk")
     return idx, out

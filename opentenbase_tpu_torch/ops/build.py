@@ -62,13 +62,14 @@ SIGNATURES = {
     "otbt_fused_scan_agg": [_P, _LL, _P, _P, _P, _I, _P, _P],
     "otbt_exchange_scatter": [_P, _P, _P, _I, _I, _LL, _P, _LL, _P, _P,
                               _P, _P, _P, _I, _P],
-    "otbt_exchange_fixed": [_P, _P, _P, _I, _I, _LL, _P, _P, _P, _P, _P,
-                            _LL, _P, _P, _P, _P, _P, _I, _P],
+    "otbt_exchange_fixed_scratch_bytes": [_P, _I, _I],
+    "otbt_exchange_fixed": [_P, _P, _P, _I, _I, _LL, _P, _P, _P, _P, _P, _P,
+                            _P, _I, _P, _LL, _P],
     "otbt_ann_distances": [_P, _P, _LL, _I, _I, _I, _P, _P],
     "otbt_ann_probe_scan": [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _I, _P,
                             _P],
-    "otbt_ann_topk_scratch": [_LL, _I],
-    "otbt_ann_topk": [_P, _P, _LL, _I, _P, _P, _P, _P],
+    "otbt_ann_topk_scratch_bytes": [_LL, _I],
+    "otbt_ann_topk": [_P, _P, _LL, _I, _P, _LL, _P, _P, _P],
     "otbt_ann_assign_scratch_bytes": [_LL, _I, _I, _I],
     "otbt_ann_assign_info": [_I, _P, _P, _P],
     "otbt_ann_assign": [_P, _LL, _P, _I, _I, _I, _P, _LL, _P, _P],
@@ -82,7 +83,9 @@ SIGNATURES = {
 }
 RESTYPES = {"otbt_exchange_tiles": _LL,
             "otbt_sort_scratch_bytes": _LL, "otbt_join_scratch_bytes": _LL,
-            "otbt_exchange_max_dn": _LL, "otbt_ann_topk_scratch": _LL,
+            "otbt_exchange_max_dn": _LL,
+            "otbt_exchange_fixed_scratch_bytes": _LL,
+            "otbt_ann_topk_scratch_bytes": _LL,
             "otbt_window_scratch_bytes": _LL,
             "otbt_compact_scratch_bytes": _LL,
             "otbt_ann_assign_scratch_bytes": _LL,

@@ -1344,7 +1344,7 @@ def exchange_plain(cols, dest, valid, ndn_dst: int):
 class _XchgArgs:
     """The exchange kernels' arguments on CUDA tensors, checked: the
     host pointer arrays of the sources' destinations, valid masks and
-    row counts, the tile count, and the int64 tile scratch."""
+    row counts."""
 
     def __init__(self, name: str, cols, dest, valid, ndn_dst: int):
         self.rows, self.k, self.dtypes = _exchange_args(cols, dest, valid,
@@ -1363,7 +1363,7 @@ class _XchgArgs:
                 if c is not None and not c.is_contiguous():
                     raise ValueError(f"{name}: column not contiguous")
         for dt in self.dtypes:
-            if torch.empty(0, dtype=dt).element_size() not in (1, 2, 4, 8):
+            if dt.itemsize not in (1, 2, 4, 8):
                 raise TypeError(f"{name}: unsupported dtype {dt}")
         self.cols = cols
         self.dev = dev = valid[0].device
@@ -1371,25 +1371,26 @@ class _XchgArgs:
         self.dptrs = arr(*([0] * nsrc if dest is None else map(_ptr, dest)))
         self.vptrs = arr(*(_ptr(v) for v in valid))
         self.nrows = arr(*self.rows)
-        self.tiles = lib.otbt_exchange_tiles(max(self.rows))
-        scratch = nsrc * self.tiles * ndn_dst
-        self.tile_counts = torch.empty(scratch, dtype=torch.int64, device=dev)
-        self.tile_base = torch.empty(scratch, dtype=torch.int64, device=dev)
-        self.pos = torch.empty(max(sum(self.rows), 1), dtype=torch.int64,
-                               device=dev)
 
-    def columns(self, outs):
+    def columns(self, outs, out_ptrs=None):
         """(source column pointers, output column pointers, widths):
         the host arrays of the scatter (0 where a source lacks a
-        column)."""
+        column); `out_ptrs` the outputs' addresses where the caller has
+        them."""
         nsrc, k = self.nsrc, self.k
         kk = max(k, 1)
         ins_p = (ctypes.c_longlong * (nsrc * kk))(
-            *[0 if c is None else _ptr(c) for cs in self.cols for c in cs],
+            *[0 if c is None else c.data_ptr() for cs in self.cols
+              for c in cs],
             *([0] * (nsrc * kk - nsrc * k)))
-        outs_p = (ctypes.c_longlong * kk)(*(_ptr(o) for o in outs))
-        widths = (ctypes.c_int * kk)(*(o.element_size() for o in outs))
+        outs_p = (ctypes.c_longlong * kk)(
+            *(out_ptrs or [o.data_ptr() for o in outs]))
+        widths = (ctypes.c_int * kk)(*(dt.itemsize for dt in self.dtypes))
         return ins_p, outs_p, widths
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
 
 
 def _xchg_inputs(cols, dest, valid):
@@ -1424,10 +1425,16 @@ def exchange(cols, dest, valid, ndn_dst: int):
     if on_cpu:
         return exchange_plain(cols, dest, valid, ndn_dst)
     x = _XchgArgs("exchange", cols, dest, valid, ndn_dst)
-    counts = torch.empty(x.nsrc * ndn_dst, dtype=torch.int64, device=x.dev)
+    tiles = x.lib.otbt_exchange_tiles(max(x.rows))
+    scratch = torch.empty(2 * x.nsrc * tiles * ndn_dst + x.nsrc * ndn_dst
+                          + max(sum(x.rows), 1), dtype=torch.int64,
+                          device=x.dev)
+    tile_counts, tile_base, counts, pos = torch.split(
+        scratch, [x.nsrc * tiles * ndn_dst] * 2
+        + [x.nsrc * ndn_dst, max(sum(x.rows), 1)])
     _ok(x.lib.otbt_exchange_count(x.dptrs, x.vptrs, x.nrows, x.nsrc,
-                                  ndn_dst, x.tiles, _ptr(x.tile_counts),
-                                  _ptr(x.tile_base), _ptr(counts),
+                                  ndn_dst, tiles, _ptr(tile_counts),
+                                  _ptr(tile_base), _ptr(counts),
                                   _stream()), "exchange")
     cm = counts.view(x.nsrc, ndn_dst).cpu().numpy()
     region = _region(cm)
@@ -1437,8 +1444,8 @@ def exchange(cols, dest, valid, ndn_dst: int):
                  for dt in x.dtypes)
     ins_p, outs_p, widths = x.columns(outs)
     _ok(x.lib.otbt_exchange_scatter(x.dptrs, x.vptrs, x.nrows, x.nsrc,
-                                    ndn_dst, x.tiles, _ptr(x.tile_base),
-                                    region, _ptr(x.pos), _ptr(out_valid),
+                                    ndn_dst, tiles, _ptr(tile_base),
+                                    region, _ptr(pos), _ptr(out_valid),
                                     ins_p, outs_p, widths, x.k, _stream()),
         "exchange")
     _count("exchange", 1)
@@ -1470,8 +1477,10 @@ def exchange_fixed(cols, dest, valid, ndn_dst: int, region: int):
 
     Returns (output columns, output valid, the [nsrc, ndn_dst] int64
     count matrix, the [ndn_dst] int64 overflow: rows beyond each
-    region), all on the device.  On the card: csrc/exchange.cu
-    otbt_exchange_fixed, one call, capturable into a CUDA graph."""
+    region), all on the device, views of one allocation.  On the card:
+    csrc/exchange.cu otbt_exchange_fixed, one memset of look-back
+    control words and one launch (one more a set of 64 columns beyond
+    the first, fewer with many sources), capturable into a CUDA graph."""
     region = int(region)
     if region < 1:
         raise ValueError("exchange_fixed: region must be >= 1")
@@ -1479,20 +1488,45 @@ def exchange_fixed(cols, dest, valid, ndn_dst: int, region: int):
     if on_cpu:
         return exchange_fixed_plain(cols, dest, valid, ndn_dst, region)
     x = _XchgArgs("exchange_fixed", cols, dest, valid, ndn_dst)
-    dev = x.dev
-    counts = torch.empty((x.nsrc, ndn_dst), dtype=torch.int64, device=dev)
-    totals = torch.empty(ndn_dst, dtype=torch.int64, device=dev)
-    over = torch.empty(ndn_dst, dtype=torch.int64, device=dev)
-    out_valid = torch.empty(ndn_dst * region, dtype=torch.bool, device=dev)
-    outs = tuple(torch.empty(ndn_dst * region, dtype=dt, device=dev)
-                 for dt in x.dtypes)
-    ins_p, outs_p, widths = x.columns(outs)
-    _ok(x.lib.otbt_exchange_fixed(x.dptrs, x.vptrs, x.nrows, x.nsrc,
-                                  ndn_dst, x.tiles, _ptr(x.tile_counts),
-                                  _ptr(x.tile_base), _ptr(counts),
-                                  _ptr(totals), _ptr(over), region,
-                                  _ptr(x.pos), _ptr(out_valid), ins_p,
-                                  outs_p, widths, x.k, _stream()),
+    nsrc = x.nsrc
+    sb = x.lib.otbt_exchange_fixed_scratch_bytes(x.nrows, nsrc, ndn_dst)
+    if sb < 0:
+        raise ValueError(f"exchange_fixed: {sum(x.rows)} rows in {nsrc} "
+                         "sources is beyond the kernel's tile count")
+    # one allocation: the count matrix, totals and overflow, the valid
+    # mask, the columns (a block of each dtype, every column 16-byte
+    # aligned), then the kernel's scratch; a few views of it
+    size = ndn_dst * region
+    head = 8 * (nsrc + 2) * ndn_dst
+    vat = _up16(head)
+    at = vat + _up16(size)
+    blocks = {}
+    for j, dt in enumerate(x.dtypes):
+        blocks.setdefault(dt, []).append(j)
+    layout = []
+    for dt, js in blocks.items():
+        stride = _up16(size * dt.itemsize)
+        layout.append((dt, js, at, stride))
+        at += len(js) * stride
+    buf = torch.empty(at + sb, dtype=torch.uint8, device=x.dev)
+    base = buf.data_ptr()
+    heads = buf[:head].view(torch.int64).view(nsrc + 2, ndn_dst)
+    counts, totals, over = heads[:nsrc], heads[nsrc], heads[nsrc + 1]
+    out_valid = buf[vat:vat + size].view(torch.bool)
+    outs, out_ptrs = [None] * x.k, [0] * x.k
+    for dt, js, o, stride in layout:
+        cols_dt = buf[o:o + len(js) * stride].view(dt).view(
+            len(js), stride // dt.itemsize)[:, :size]
+        for i, (j, c) in enumerate(zip(js, cols_dt.unbind(0))):
+            outs[j] = c
+            out_ptrs[j] = base + o + i * stride
+    outs = tuple(outs)
+    ins_p, outs_p, widths = x.columns(outs, out_ptrs)
+    _ok(x.lib.otbt_exchange_fixed(x.dptrs, x.vptrs, x.nrows, nsrc, ndn_dst,
+                                  region, base, base + 8 * nsrc * ndn_dst,
+                                  base + 8 * (nsrc + 1) * ndn_dst,
+                                  base + vat, ins_p, outs_p, widths, x.k,
+                                  base + at, sb, _stream()),
         "exchange_fixed")
     _count("exchange_fixed", 1)
     return outs, out_valid, counts, over

@@ -158,6 +158,105 @@ def test_topk_example_order():
     assert np.isinf(dist[-1].item())
 
 
+NEG_NAN = np.copysign(np.float32(np.nan), np.float32(-1))
+
+
+def _nan_rule_oracle(d, valid, k):
+    """Rows of the k smallest in PostgreSQL's float order: masked rows
+    +inf, -0.0 as 0.0, every NaN (either sign) after +inf, ties to the
+    lower row."""
+    x = d.astype(np.float64)
+    if valid is not None:
+        x = np.where(valid, x, np.inf)
+    nan = np.isnan(x)
+    return np.lexsort((np.arange(len(x)), np.where(nan, 0.0, x), nan))[:k]
+
+
+@pytest.mark.parametrize("case", ["example", "both signs", "ties", "masked",
+                                  "mostly nan"])
+def test_topk_plain_ranks_every_nan_after_inf(case):
+    """topk_nearest_plain against the oracle of the NaN rule.  The
+    reference's lax.top_k(-masked, k) ranks a sign-set NaN first (on
+    the example, rows [3 6 7 2 5 0 4 1]); the port keeps PostgreSQL's
+    order on every platform."""
+    rng = np.random.default_rng(21)
+    valid = None
+    if case == "example":
+        d = np.asarray([3, np.nan, 1, NEG_NAN, np.inf, 2, -0.0, 0.0],
+                       np.float32)
+    else:
+        d = rng.choice(np.asarray([1.0, -0.0, 0.0, 2.0, np.inf, np.nan,
+                                   NEG_NAN], np.float32), 300)
+        if case == "ties":
+            d[:100] = 1.0
+        if case == "masked":
+            valid = rng.random(300) < 0.4
+        if case == "mostly nan":
+            d = np.where(rng.random(300) < 0.9, NEG_NAN, d).astype(np.float32)
+    k = len(d)
+    idx, dist = ANN.topk_nearest_plain(
+        torch.from_numpy(d), None if valid is None else
+        torch.from_numpy(valid), k)
+    want = _nan_rule_oracle(d, valid, k)
+    np.testing.assert_array_equal(idx.numpy(), want)
+    masked = d if valid is None else np.where(valid, d, np.float32(np.inf))
+    np.testing.assert_array_equal(dist.numpy().view(np.int32),
+                                  masked[want].view(np.int32))
+    if case == "example":
+        assert idx.tolist() == [6, 7, 2, 5, 0, 4, 1, 3]
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_distances_plain_keeps_nan_on_nonfinite_rows(metric):
+    """Rows with an infinite or NaN component (either sign): the same
+    NaN rows as the reference's distances, and the same bits elsewhere
+    (infinities).  l2's inf - inf is NaN in both, never a clamped 0:
+    the card's kernels are held to this plain version."""
+    rng = np.random.default_rng(5)
+    n, d = 48, 16
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    specials = (np.inf, -np.inf, np.nan, NEG_NAN)
+    for i in range(n):
+        vecs[i, i % d] = specials[i % 4]
+        if i % 3 == 0:
+            vecs[i, (i + 5) % d] = specials[(i + 1) % 4]
+    q = rng.normal(size=d).astype(np.float32)
+    want = np.asarray(RANN.distances(jnp.asarray(vecs), jnp.asarray(q),
+                                     metric))
+    got = ANN.distances_plain(torch.from_numpy(vecs), torch.from_numpy(q),
+                              metric).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    keep = ~np.isnan(want)
+    np.testing.assert_array_equal(got[keep].view(np.int32),
+                                  want[keep].view(np.int32))
+    assert np.isnan(got).any()
+
+
+IT_ROWS = ("insert into it values (1, '[1,1]'), (2, '[Infinity,0]'), "
+           "(3, '[2,2]'), (4, '[3,3]')")
+
+
+@pytest.mark.parametrize("tier", ["session", "cluster host tier"])
+def test_sql_nan_distance_ranks_last(tier):
+    """Row 2's l2 distance to [1,1] is inf - inf, NaN: it ranks after
+    every other row, so the top two are rows 1 and 3.  The reference's
+    Session returns [(2,)] here (its x86 NaN carries the sign bit, which
+    lax.top_k ranks first, and it then counts one finite slot)."""
+    if tier == "session":
+        s = Session(LocalNode(device="cpu"))
+        s.execute("create table it (id bigint, v vector(2))")
+    else:
+        s = ClusterSession(Cluster(2, device="cpu"))
+        s.execute("create table it (id bigint, v vector(2)) "
+                  "distribute by shard(id)")
+        s.execute("set enable_mesh_exchange = off")
+    s.execute(IT_ROWS)
+    assert s.query("select id from it order by v <-> '[1,1]' limit 2") \
+        == [(1,), (3,)]
+    if tier != "session":
+        assert s.last_tier == "host"
+
+
 def _scores_f64(vecs, c, metric):
     v, c = vecs.astype(np.float64), c.astype(np.float64)
     dots = v @ c.T

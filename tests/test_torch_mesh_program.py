@@ -335,6 +335,78 @@ def test_exchange_fixed_broadcast_form_cannot_overflow():
     assert torch.equal(fo[2][:int(live.sum())], ms)
 
 
+# the fixed form's kernel ranks rows in tiles of this many (csrc/exchange.cu
+# kXTile)
+XTILE = 4096
+EDGE_CASES = {
+    "empty and 1-row sources": ((0, 1, 300), 2, 64, False),
+    "rows at the tile's multiples": ((XTILE, 2 * XTILE), 4, XTILE, False),
+    "one row past the tile": ((XTILE + 1, 1), 4, XTILE, False),
+    "1 destination": ((5000,), 1, 2 * XTILE, False),
+    "2 destinations": ((3000, 3000), 2, XTILE, False),
+    "64 destinations": ((9000,), 64, 256, False),
+    "region 1": ((500, 500), 4, 1, False),
+    "region 1, 64 destinations": ((2 * XTILE + 1,), 64, 1, False),
+    "every row to one destination": ((XTILE + 9, 77), 4, 2 * XTILE, True),
+}
+
+
+def _exchange_oracle(cols, dest, valid, ndst, region):
+    """The stable partition in numpy, row by row: destination d gets its
+    live rows in source order, then row order; the first `region` of
+    them fill rows [d * region, ...) of each output (zeros elsewhere,
+    and where a source lacks a column)."""
+    counts = np.zeros((len(valid), ndst), np.int64)
+    slots = [[] for _ in range(ndst)]
+    for s, v in enumerate(valid):
+        v = v.numpy()
+        d = np.zeros(len(v), np.int64) if dest is None \
+            else dest[s].numpy().astype(np.int64)
+        for i in range(len(v)):
+            if v[i] and 0 <= d[i] < ndst:
+                counts[s, d[i]] += 1
+                slots[d[i]].append((s, i))
+    out_valid = np.zeros(ndst * region, bool)
+    outs = []
+    for j in range(len(cols[0])):
+        dt = next(c[j] for c in cols if c[j] is not None).numpy().dtype
+        o = np.zeros(ndst * region, dt)
+        for d in range(ndst):
+            for r, (s, i) in enumerate(slots[d][:region]):
+                out_valid[d * region + r] = True
+                if cols[s][j] is not None:
+                    o[d * region + r] = cols[s][j].numpy()[i]
+        outs.append(o)
+    over = np.maximum(counts.sum(axis=0) - region, 0)
+    return outs, out_valid, counts, over
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+@pytest.mark.parametrize("form", ["routed", "broadcast"])
+def test_exchange_fixed_plain_matches_the_oracle_at_the_kernels_edges(
+        case, form):
+    """exchange_fixed_plain (the card's kernel is held to it) against a
+    row-by-row numpy oracle on the shapes at the fixed form's edges:
+    empty and 1-row sources, rows at the tile's multiples and one past,
+    1 to 64 destinations, region 1 (every destination overflows) and
+    every row bound for one destination."""
+    rows, ndst, region, skew = EDGE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    cols, dest, valid = _sources(rng, rows, ndst)
+    if skew:
+        dest = [torch.full_like(d, ndst - 1) for d in dest]
+    if form == "broadcast":
+        dest, ndst = None, 1
+    fo, fv, fc, over = TK.exchange_fixed_plain(cols, dest, valid, ndst,
+                                               region)
+    wo, wv, wc, wover = _exchange_oracle(cols, dest, valid, ndst, region)
+    assert fc.numpy().tolist() == wc.tolist()
+    assert over.numpy().tolist() == wover.tolist()
+    np.testing.assert_array_equal(fv.numpy(), wv)
+    for g, w in zip(fo, wo):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
 @pytest.mark.parametrize("out_size", [1, 7, 100])
 def test_compact_below_the_count_keeps_the_first_rows(out_size):
     """K3 at a gather class below the live count: the first out_size
