@@ -84,6 +84,15 @@ K5, eager and traced, on one group over 2^20 rows, every row its own
 group at 2^21, groups past max_groups, f64 NaN / +-inf / +-0.0 and 40
 aggregates, its f64 sums the same bits in two runs, 2 + K10's + 1
 launches a call and no memset;
+K4 on one group, Q1's shape, all rows invalid, 40 aggregates, group
+counts on either side of its private / block and block / global edges,
+f64 NaN / +-inf / +-0.0 on each branch and views offset by one element,
+its private branch's f64 sums the same bits in two runs, 1 kernel + 1
+memset a call (1 + 0 on one block, 2 + 0 on the block and global
+branches); the Lloyd update on one
+cluster holding 90% of the rows, runs of a tile +- 1 between empty
+clusters, 7 and 200 dimensions, all rows invalid and one row, the same
+bits in two runs, 2 kernels and no memset after the sort;
 K12's fixed form on an empty and a 1-row source, rows at its tile's
 multiples and one past, 1 and 64 destinations, region 1, every row to
 one destination, 65 columns and 20 sources (each in the broadcast form
@@ -112,7 +121,12 @@ CUDA graph and replayed) and the
 host time of a wrapper call, and the shapes of K3's and K9's compose
 calls; K3's two forms (one block, look-back tiles) in turns on cluster
 Q3's calls and in its recaptured program; K7, K15c, K8 and K5 also
-device-only and host, and the graph nodes of each program's replay.
+device-only and host, and the graph nodes of each program's replay; K4
+device-only, host and nodes a call on Q1's, Q6's (one group) and the
+cluster program Q1's calls, the Lloyd update on every step of the first
+index build (largest and median cluster beside each), each beside a
+yardstick of the plain version's PyTorch calls (several calls, not one
+library call).
 
 Run from the repository root:  python3 chip_smoke.py  [--sf 1.0]
 (--checks: only build the kernels and run the kernel checks, about half
@@ -136,7 +150,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12           # H100 SXM non-tensor peak (ops bound)
-SUMF_RTOL = 1e-9                 # f64 atomics sum in another order
+SUMF_RTOL = 1e-9                 # f64 sums: the plain versions'
+#                                  index_add_ adds in another order
 REPS = 5                         # warm query runs behind each median
 DEVICE = "cuda"
 # kernel -> (source, the reference kernel it replaces, the query whose
@@ -941,6 +956,321 @@ def group_kernel_check(torch, K, card):
         "ok; f64 sums the same bits in two runs; kernel launches + memsets "
         "a call: " + ", ".join(f"{k} {v[0]} + {v[1]}"
                                for k, v in nodes.items()) + f" [{card}]")
+
+
+def k4_branch_edges(K, n, k):
+    """(first group count on the block branch, first on the global one) of
+    K4 at n rows and k aggregates, from the library's own plan."""
+    lib = K._lib()
+
+    def first(want):
+        lo, hi = 1, 1 << 20
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if lib.otbt_grouped_agg_dense_branch(n, mid, k) >= want:
+                hi = mid
+            else:
+                lo = mid + 1
+        return lo
+    return first(1), first(2)
+
+
+K4_BRANCHES = ("private", "block", "global")
+
+
+class K4Tally:
+    """Every K4 launch of the main path, by path and branch: wraps
+    K.grouped_agg_dense (as the executor reaches it) and asks the
+    library which branch each launch of a call takes (one a set of 32
+    aggregates), captured calls included.  Keeps the first call made
+    outside capture of each (rows, groups, aggregates) shape that takes
+    the block branch, for block_vs_global.  `path` names the phase
+    running; restore() unwraps."""
+
+    def __init__(self, K):
+        import threading
+        self.K = K
+        self.path = "setup"
+        self.by_path = {}      # path -> {branch: launches}
+        self.shapes = {}       # (branch, rows, groups, aggregates) -> launches
+        self.block_calls = {}  # (rows, groups, aggregates) -> (a, kw)
+        self.lock = threading.Lock()
+        self.orig = K.grouped_agg_dense
+        K.grouped_agg_dense = self._call
+
+    def _call(self, *a, **kw):
+        import torch
+        gid, g, kinds = a[0], int(a[3]), tuple(a[4])
+        if gid.is_cuda:
+            n = gid.shape[0]
+            lib = self.K._lib()
+            keep = not torch.cuda.is_current_stream_capturing()
+            for lo in range(0, max(len(kinds), 1), 32):
+                k = len(kinds[lo:lo + 32])
+                br = K4_BRANCHES[lib.otbt_grouped_agg_dense_branch(n, g, k)]
+                with self.lock:
+                    c = self.by_path.setdefault(self.path, {})
+                    c[br] = c.get(br, 0) + 1
+                    key = (br, n, g, k)
+                    self.shapes[key] = self.shapes.get(key, 0) + 1
+                    if (br == "block" and keep and len(kinds) <= 32
+                            and (n, g, k) not in self.block_calls):
+                        self.block_calls[(n, g, k)] = (a, kw)
+        return self.orig(*a, **kw)
+
+    def restore(self):
+        self.K.grouped_agg_dense = self.orig
+
+    def report(self, card):
+        say("K4 launches by path and branch (every call, captured ones "
+            "included): " + json.dumps(self.by_path))
+        say("K4 launch shapes (branch, rows, groups, aggregates: "
+            "launches): " + "; ".join(
+                f"{b} {n} x {g} x {k}: {c}"
+                for (b, n, g, k), c in sorted(self.shapes.items())))
+
+
+def block_vs_global(torch, K, tally, card, most=8):
+    """The block branch against the global one on the main path's own
+    calls: each kept block-branch shape (the `most` largest by rows x
+    aggregates) timed device-only in turns (block, global, global,
+    block, 4 a side) against the same call with num_groups raised to the
+    first group count of the global branch at its rows and aggregates
+    (the rows fold into the same slots; the global branch's init writes
+    the extra identities, (k + 1) x the added groups words).  The global
+    call's first num_groups outputs are held against the block call's
+    (ints exact, f64 sums within SUMF_RTOL).  [{shape, ms}]."""
+    lib = K._lib()
+    kept = sorted(tally.block_calls.items(),
+                  key=lambda kv: -kv[0][0] * max(kv[0][2], 1))[:most]
+    out = []
+    for (n, g, k), (a, kw) in kept:
+        _e1, e2 = k4_branch_edges(K, n, k)
+        check(lib.otbt_grouped_agg_dense_branch(n, e2, k) == 2 and e2 > g,
+              f"block_vs_global: no global group count above {g}")
+        b = (a[0], a[1], a[2], e2, a[4])
+        got = K.grouped_agg_dense(*a, **kw)
+        outs_g, pres_g = K.grouped_agg_dense(*b, **kw)
+        compare_agg(got, ([o[:g] for o in outs_g], pres_g[:g]), a[4],
+                    f"K4 block against global, {n} x {g} x {k}")
+        sides = {"block": lambda: K.grouped_agg_dense(*a, **kw),
+                 "global": lambda: K.grouped_agg_dense(*b, **kw)}
+        ms = {s: [] for s in sides}
+        for r in range(4):
+            for s in (("block", "global") if r % 2 == 0
+                      else ("global", "block")):
+                ms[s].append(graph_device_ms(torch, sides[s]))
+        out.append({"rows": n, "groups": g, "aggregates": k,
+                    "global_groups": e2, "device_ms": ms})
+        say(f"K4 {n} rows x {g} groups x {k} aggregates: device-only block "
+            + " ".join(f"{x:.4f}" for x in ms["block"]) + ", global ("
+            f"{e2} groups) " + " ".join(f"{x:.4f}" for x in ms["global"])
+            + f" ms [{card}]")
+    if not kept:
+        say("K4: no main-path call took the block branch")
+    return out
+
+
+def dense_agg_cases(np, rng, K):
+    """(label, gid, valid, inputs, kinds, groups) at K4's edges: one group;
+    Q1's shape (6 slots, 4 occupied, 8 aggregates); group counts on either
+    side of the private / block and block / global edges (gids out of range
+    on both sides); f64 NaN, +-inf and +-0.0 in sums, min and max on each
+    branch; int32 and bool inputs; all rows invalid; 40 aggregates (two
+    launches); views offset by one element at an odd length (scalar
+    loads); 100 rows (one block) on the private and block branches."""
+    n = (1 << 20) + 3
+    i64 = rng.integers(-10**12, 10**12, n)
+    i32 = rng.integers(-10**6, 10**6, n).astype(np.int32)
+    f = rng.normal(0, 1e3, n)
+    b = rng.random(n) < 0.5
+    valid = rng.random(n) < 0.9
+    nf = rng.choice([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.5, -2.25], n)
+    nf[rng.random(n) < 0.999] = 1.0     # a few non-finite values a group
+    kinds3 = ("sumf", "min", "max")
+    e1, e2 = k4_branch_edges(K, n, 3)
+    cases = [
+        ("one group", np.zeros(n, np.int64), valid,
+         (i64, f, f, f, i32, i32, b, i64, b),
+         ("sum", "sumf", "min", "max", "min", "max", "sum", "count", "sumf"),
+         1),
+        ("Q1's shape", rng.choice([0, 1, 3, 5], n), valid, (i64,) * 8,
+         ("sum",) * 7 + ("count",), 6),
+        ("all rows invalid", rng.choice([0, 1, 3, 5], n), np.zeros(n, bool),
+         (i64, f, f, i32), ("sum", "sumf", "min", "max"), 6),
+        ("40 aggregates", rng.integers(-1, 9, n), valid, (i64, f) * 20,
+         ("sum", "max", "min", "sumf") * 10, 7),
+    ]
+    for g in (e1 - 1, e1, e2 - 1, e2):
+        br = K4_BRANCHES[K._lib().otbt_grouped_agg_dense_branch(n, g, 3)]
+        cases.append((f"{g} groups, 3 aggregates ({br})",
+                      rng.integers(-2, g + 2, n), valid, (f, i32, f), kinds3,
+                      g))
+    for g in (5, e1, e2):
+        br = K4_BRANCHES[K._lib().otbt_grouped_agg_dense_branch(n, g, 4)]
+        cases.append((f"f64 NaN, +-inf, +-0.0, {g} groups ({br})",
+                      rng.integers(0, g, n), valid, (nf, nf, nf, nf),
+                      ("sumf", "sum", "min", "max"), g))
+    m = n - 2   # odd; the check offsets each by one element on the card
+    cases.append(("views offset by one element, odd length",
+                  rng.integers(-1, 7, m), rng.random(m) < 0.9,
+                  (i64[:m], i32[:m], f[:m], b[:m]),
+                  ("sum", "min", "max", "sum"), 6))
+    cases.append(("100 rows (one block)", rng.integers(-1, 7, 100),
+                  valid[:100], (i64[:100], f[:100], i32[:100]),
+                  ("sum", "sumf", "max"), 6))
+    cases.append((f"100 rows, {e1} groups (block, one block)",
+                  rng.integers(-1, e1 + 1, 100), valid[:100],
+                  (i64[:100], f[:100], i32[:100]), ("sum", "sumf", "max"),
+                  e1))
+    return cases, (e1, e2)
+
+
+def dense_agg_kernel_check(torch, K, card):
+    """K4 against grouped_agg_dense_plain on dense_agg_cases (ints and
+    min/max exact, f64 sums within SUMF_RTOL, NaN and infinities at the
+    same places); the f64 sums of the private branch twice, bit for bit;
+    Q1's shape on the private branch; the kernel and memset nodes of one
+    call: 1 + 1 on many blocks of the private branch, 1 + 0 on one, 2 + 0
+    on the block and global branches."""
+    import numpy as np
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(15)
+
+    def t(a):
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return x
+    cases, (e1, e2) = dense_agg_cases(np, rng, K)
+    lib = K._lib()
+    check(lib.otbt_grouped_agg_dense_branch((1 << 23), 6, 8) == 0,
+          "grouped_agg_dense: Q1's call (2^23 rows, 6 groups, 8 aggregates) "
+          "is not on the private branch")
+    args = {}
+    for label, gid, valid, ins, kinds, g in cases:
+        if label.startswith("views"):
+            # views of larger tensors on the card, one element in
+            gid_t = t(np.concatenate([[0], gid]))[1:]
+            val_t = t(np.concatenate([[False], valid]))[1:]
+            ins_t = tuple(t(np.concatenate([x[:1], x]))[1:] for x in ins)
+        else:
+            gid_t, val_t = t(gid), t(valid)
+            ins_t = tuple(t(x) for x in ins)
+        a = (gid_t, val_t, ins_t, g, kinds)
+        try:
+            got = K.grouped_agg_dense(*a)
+        except RuntimeError as e:
+            raise SmokeFailure(f"grouped_agg_dense ({label}): {e}") from None
+        compare_agg(got, K.grouped_agg_dense_plain(*a), kinds, label)
+        args[label] = a
+    repeat = [lab for lab in args if lab == "one group"
+              or lab.startswith(f"{e1 - 1} groups")
+              or lab.startswith("f64 NaN, +-inf, +-0.0, 5 ")]
+    for lab in repeat:
+        a = args[lab]
+        runs = [K.grouped_agg_dense(*a)[0] for _ in range(2)]
+        for k, x, y in zip(a[4], *runs):
+            if x.dtype.is_floating_point:
+                check(torch.equal(x.view(torch.int64), y.view(torch.int64)),
+                      f"grouped_agg_dense {k}: two runs differ in their bits "
+                      f"({lab})")
+    nodes = {}
+    for lab, want in (("Q1's shape", (1, 1)), ("100 rows (one block)", (1, 0)),
+                      (f"{e1} groups, 3 aggregates (block)", (2, 0)),
+                      (f"{e2} groups, 3 aggregates (global)", (2, 0))):
+        a = args[lab]
+        nodes[lab] = kernel_launches(torch, lambda a=a: K.grouped_agg_dense(*a))
+        check(nodes[lab] == want, f"grouped_agg_dense {lab}: {nodes[lab]} "
+              f"launches + memsets a call, want {want}")
+    torch.cuda.synchronize()
+    say(f"K4 grouped_agg_dense vs plain ({len(cases)} edge cases: one group, "
+        f"Q1's shape, all rows invalid, 40 aggregates, {e1 - 1} / {e1} "
+        f"groups (private / block edge at 3 aggregates), {e2 - 1} / {e2} "
+        "(block / global), f64 NaN / +-inf / +-0.0 on each branch, offset "
+        "views at an odd length, 100 rows on two branches): ok; f64 sums "
+        "the same bits in "
+        "two runs (" + ", ".join(repeat) + "); kernel launches + memsets a "
+        "call: " + ", ".join(f"{k} {v[0]} + {v[1]}" for k, v in nodes.items())
+        + f" [{card}]")
+
+
+def lloyd_cases(np, rng, tile):
+    """(label, assign, valid, nlist, d) at the Lloyd update's edges: one
+    cluster holding 90% of the rows; runs of tile - 1, tile and tile + 1
+    rows (and 1, 3, 2 tile + 1, 5 tile) between empty clusters, the rows
+    shuffled; all rows invalid; one row; each at 128, 7 and 200
+    dimensions."""
+    out = []
+    n = 100_000
+    big = np.where(rng.random(n) < 0.9, 5, rng.integers(0, 61, n))
+    lengths = [tile - 1, tile, tile + 1, 1, 2 * tile + 1, 3, tile - 1,
+               tile + 1, 5 * tile, tile]
+    runs = np.repeat(2 * np.arange(len(lengths)) + 1, lengths)
+    m = len(runs) + 300
+    edge = np.concatenate([runs, rng.integers(0, 2 * len(lengths), 300)])
+    edge_valid = np.concatenate([np.ones(len(runs), bool),
+                                 np.zeros(300, bool)])
+    perm = rng.permutation(m)
+    for d in (128, 7, 200):
+        out.append((f"one cluster with 90% of {n} rows, d={d}",
+                    big.astype(np.int32), rng.random(n) < 0.95, 64, d))
+        out.append((f"runs of tile - 1, tile, tile + 1 between empty "
+                     f"clusters, d={d}", edge[perm].astype(np.int32),
+                    edge_valid[perm], 2 * len(lengths) + 3, d))
+    out.append(("all rows invalid", rng.integers(0, 10, 5000).astype(
+        np.int32), np.zeros(5000, bool), 10, 128))
+    out.append(("one row", np.asarray([3], np.int32), np.ones(1, bool), 8,
+                128))
+    return out
+
+
+def lloyd_kernel_check(torch, ANN, card):
+    """The Lloyd update against lloyd_update_plain on lloyd_cases (within
+    lloyd_close's tolerance, an empty cluster's centroid unchanged bit for
+    bit); two runs the same bits; the update after the sort 2 kernels and
+    no memset a call."""
+    import numpy as np
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(16)
+    K = ANN.K
+    cases = lloyd_cases(np, rng, ANN.LLOYD_TILE)
+    nodes = None
+    for label, assign, valid, nlist, d in cases:
+        n = len(assign)
+        vecs = torch.from_numpy(rng.normal(size=(n, d)).astype(
+            np.float32)).to(dev)
+        cents = torch.from_numpy(rng.normal(size=(nlist, d)).astype(
+            np.float32)).to(dev)
+        a = (vecs, torch.from_numpy(valid).to(dev),
+             torch.from_numpy(assign).to(dev), cents, nlist)
+        try:
+            got = ANN.lloyd_update(*a)
+        except RuntimeError as e:
+            raise SmokeFailure(f"ann_lloyd_update ({label}): {e}") from None
+        want = ANN.lloyd_update_plain(*a)
+        lloyd_close(torch, got, want, vecs, f"ann_lloyd_update ({label})")
+        live = np.bincount(assign[valid], minlength=nlist)[:nlist] > 0
+        empty = torch.from_numpy(~live).to(dev)
+        check(torch.equal(got[empty], cents[empty]),
+              f"ann_lloyd_update: an empty cluster moved ({label})")
+        again = ANN.lloyd_update(*a)
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"ann_lloyd_update: two runs differ in their bits ({label})")
+        if nodes is None and n > 50_000:
+            keys = torch.where(a[1], a[2].to(torch.int64),
+                               torch.full((), nlist, dtype=torch.int64,
+                                          device=dev))
+            perm, skeys = K._sort_launch(keys.unsqueeze(0), "sort_rows",
+                                         first=True)
+            nodes = kernel_launches(torch, lambda: ANN.lloyd_update_sorted(
+                vecs, skeys, perm, cents, nlist))
+            check(nodes == (2, 0), f"ann_lloyd_update after the sort: "
+                  f"{nodes} launches + memsets a call, want (2, 0)")
+    torch.cuda.synchronize()
+    say(f"K15c Lloyd update vs plain ({len(cases)} edge cases: one cluster "
+        f"with 90% of the rows, runs of tile +- 1 ({ANN.LLOYD_TILE}) between "
+        "empty clusters, d = 128 / 7 / 200, all rows invalid, one row): ok; "
+        "the same bits in two runs; after the sort "
+        f"{nodes[0]} kernels + {nodes[1]} memsets a call [{card}]")
 
 
 MASK_SIZES = (1, 15, 16, 17, (1 << 20) + 3)
@@ -1830,22 +2160,40 @@ def window_call_launches(torch, K, rng, dev):
     return out
 
 
+def _same_nonfinite(torch, g, w):
+    """g and w have NaN at the same places and the same infinities."""
+    gn, wn = g.isnan(), w.isnan()
+    gi = torch.where(gn | g.isfinite(), torch.zeros_like(g), g)
+    wi = torch.where(wn | w.isfinite(), torch.zeros_like(w), w)
+    return torch.equal(gn, wn) and torch.equal(gi, wi)
+
+
 def compare_agg(got, want, kinds, what):
+    """K4 against its plain version: present, counts, ints and min/max
+    exact (NaN at the same places), f64 sums within SUMF_RTOL where
+    finite and their NaN and infinities at the same places."""
     import torch
     (gouts, gp), (wouts, wp) = got, want
     check(torch.equal(gp, wp), f"grouped_agg_dense present differs ({what})")
     err = 0.0
     for k, g, w in zip(kinds, gouts, wouts):
         check(g.dtype == w.dtype, f"grouped_agg_dense {k} dtype ({what})")
-        if g.dtype.is_floating_point and k in ("sum", "sumf"):
-            d = (g - w).abs()
-            tol = SUMF_RTOL * w.abs()
-            check(bool((d <= tol).all()),
+        if not g.dtype.is_floating_point:
+            check(torch.equal(g, w), f"grouped_agg_dense {k} differs "
+                  f"({what})")
+            continue
+        check(_same_nonfinite(torch, g, w), f"grouped_agg_dense {k}: NaN or "
+              f"infinities differ ({what})")
+        fin = w.isfinite()
+        if k in ("sum", "sumf"):
+            d = torch.where(fin, (g - w).abs(), torch.zeros_like(w))
+            check(bool(((d <= SUMF_RTOL * w.abs()) | ~fin).all()),
                   f"grouped_agg_dense {k} beyond rtol {SUMF_RTOL} ({what})")
             err = max(err, float(d.max()) if d.numel() else 0.0)
         else:
-            check(torch.equal(g, w), f"grouped_agg_dense {k} differs "
-                  f"({what})")
+            check(torch.equal(torch.where(fin, g, torch.zeros_like(g)),
+                              torch.where(fin, w, torch.zeros_like(w))),
+                  f"grouped_agg_dense {k} differs ({what})")
     return err
 
 
@@ -2526,10 +2874,12 @@ def main():
     probe_kernel_check(torch, K)
     expand_kernel_check(torch, K, card)
     group_kernel_check(torch, K, card)
+    dense_agg_kernel_check(torch, K, card)
     cluster_kernel_check(torch, K)
     compact_kernel_check(torch, K)
     compose_kernel_check(torch, K)
     ann_kernel_check(torch, ANN)
+    lloyd_kernel_check(torch, ANN, card)
     window_kernel_check(torch, K)
     float_key_check(torch, K)
     int_window_check(torch)
@@ -2563,7 +2913,10 @@ def main():
     names = list(KERNEL_SOURCES)
     plain = plain_versions(K)
 
+    # every K4 launch of the paths below, by path and branch
+    k4_tally = K4Tally(K)
     # ---- slice 1: Q1, Q6 ----
+    k4_tally.path = "q1_q6"
     got1, cold1, calls1, launches1, _pq = run_path(torch, K, s,
                                                    SLICE1_QUERIES, names)
     say(f"slice 1 path launches (Q1 + Q6): {json.dumps(launches1)}")
@@ -2580,6 +2933,7 @@ def main():
         f"{cold1[6]:.1f} ms")
 
     # ---- slice 2: Q3, Q5 (oracles), Q4, Q13, Q22 (the port on the CPU) ----
+    k4_tally.path = "q3_q5_q4_q13_q22"
     got2, cold2, calls2, launches2, pq2 = run_path(torch, K, s,
                                                    SLICE2_QUERIES, names)
     say(f"slice 2 path launches (Q3 + Q5 + Q4 + Q13 + Q22): "
@@ -2613,12 +2967,16 @@ def main():
             f"vectors and {sum(len(a[2]) for a, _kw in sides)} null masks")
 
     # ---- slice 3: the cluster tier ----
+    k4_tally.path = "cluster2_q1_q3_q5"
     cs, got3, calls3, launches3, cold3 = cluster_path(
         torch, K, data, names, {1: got1[1], 3: got2[3], 5: got2[5]},
         {1: want_q1, 3: want_q3, 5: want_q5})
+    k4_tally.path = "cluster3_q5_shape"
     calls_q5s, launches_q5s = q5_shape_path(torch, K, names)
+    k4_tally.path = "mesh_library"
     calls_mesh, launches_mesh = mesh_library_path(torch, K, names)
     # ---- slice 7: the cluster tier's DataNode side as one program ----
+    k4_tally.path = "cluster_program"
     calls7, launches7, k16 = mesh_program_path(
         torch, K, cs, data, names, {1: got1[1], 3: got2[3], 5: got2[5]},
         {1: want_q1, 3: want_q3, 5: want_q5}, card)
@@ -2627,16 +2985,23 @@ def main():
 
     # ---- slice 4: the fused tier and the serving tier ----
     X.Executor._fuse = True
+    k4_tally.path = "fused_q1_q6_q3_q5"
     calls_f, launches_f = fused_path(
         torch, K, s, names, {1: got1[1], 6: got1[6], 3: got2[3],
                              5: got2[5]},
         {1: want_q1, 6: want_q6, 3: want_q3, 5: want_q5}, card)
     fused_kernel_check(torch, K, calls_f, card)
+    k4_tally.path = "serving"
     calls_srv, launches_srv = serving_path(torch, K, node, names, card)
     # ---- slice 5: vector search ----
+    k4_tally.path = "vector"
     vp = vector_path(torch, K, ANN, names, card, args.vectors)
     # ---- slice 6: TPC-DS and window functions ----
+    k4_tally.path = "tpcds (sf1 node, check load, cluster2)"
     tp = tpcds_path(torch, K, card, args.tpcds_sf)
+    k4_tally.restore()
+    k4_tally.report(card)
+    k4_block = block_vs_global(torch, K, k4_tally, card)
     # the timing and profile sections below time the eager tiers, as
     # before; fused_path and mesh_program_path timed the programs against
     # them
@@ -2719,8 +3084,18 @@ def main():
                    "tpcds_check": tp["launches_k"][n],
                    "tpcds_cluster2": tp["launches_c"][n]}
         launches = sum(by_path.values())
-        split = device_split(torch, K, n, qcalls[tq][n], card) \
-            if n in DEVICE_SPLIT else {}
+        if n == "grouped_agg_dense":
+            splits = k4_split(torch, K, {
+                "Q1": qcalls[tq][n], "Q6 (one group)": calls1[6][n],
+                "cluster program Q1": calls7["m1"][n]}, card)
+            split = {**splits["Q1"], "q6": splits["Q6 (one group)"],
+                     "program_q1": splits["cluster program Q1"],
+                     "branch_launches": k4_tally.by_path,
+                     "block_vs_global": k4_block}
+        elif n in DEVICE_SPLIT:
+            split = device_split(torch, K, n, qcalls[tq][n], card)
+        else:
+            split = {}
         records.append({
             "name": n, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches,
@@ -4497,6 +4872,41 @@ def ann_library_ms(torch, name, a, kw):
     return None
 
 
+def lloyd_steps(torch, ANN, calls, card):
+    """The Lloyd update on every step of the first index build (its
+    recorded calls at VEC_LISTS lists): the largest and the median
+    cluster, event-loop ms of the wrapper, its device-only and host ms,
+    the device-only ms of the update after the sort
+    (`lloyd_update_sorted`), and the yardstick's device-only ms."""
+    import inspect
+    iters = inspect.signature(ANN.kmeans).parameters["iters"].default
+    build = [c for c in calls if c[0][3].shape[0] == VEC_LISTS][:iters]
+    out = []
+    for i, (a, kw) in enumerate(build):
+        vecs, valid, assign, cents, nlist = a[:5]
+        sizes = torch.bincount(assign[valid].long(), minlength=nlist)
+        big, med = int(sizes.max()), float(sizes.median())
+        keys = torch.where(valid, assign.to(torch.int64),
+                           torch.full((), nlist, dtype=torch.int64,
+                                      device=vecs.device))
+        perm, skeys = ANN.K._sort_launch(keys.unsqueeze(0), "sort_rows",
+                                         first=True)
+        ms = time_fn(torch, lambda: ANN.lloyd_update(*a, **kw), reps=5)
+        dev, host = device_host_ms(torch, lambda: ANN.lloyd_update(*a, **kw),
+                                   reps=5)
+        upd = graph_device_ms(torch, lambda: ANN.lloyd_update_sorted(
+            vecs, skeys, perm, cents, nlist), reps=5)
+        yard = graph_device_ms(torch, lloyd_yardstick(torch, a), reps=5)
+        out.append({"step": i + 1, "largest": big, "median": med, "ms": ms,
+                    "device_ms": dev, "host_ms": host,
+                    "update_device_ms": upd, "yardstick_device_ms": yard})
+        say(f"Lloyd update, build step {i + 1}: largest cluster {big}, "
+            f"median {med:g}; {ms:.4f} ms, device-only {dev:.4f} (after "
+            f"the sort {upd:.4f}), host {host:.4f}; yardstick (index_add_ "
+            f"of rows and counts, 2 calls) device-only {yard:.4f} [{card}]")
+    return out
+
+
 def vector_measure(torch, K, ANN, vp, err, card, profile=False):
     """Times of the vector path after its launches were read: one Lloyd
     step against its plain version, the sort of its update against
@@ -4515,6 +4925,7 @@ def vector_measure(torch, K, ANN, vp, err, card, profile=False):
                                                         nlist), reps=3)
     say(f"one Lloyd step ({vecs.shape[0]} x {vecs.shape[1]}, {nlist} lists):"
         f" kernels {k_ms:.3f} ms, plain {p_ms:.3f} ms [{card}]")
+    steps = lloyd_steps(torch, ANN, calls["lloyd_update"], card)
     # K10 at the update's main-path call: one order word per row
     keys = torch.where(valid, assign.to(torch.int64),
                        torch.full((), nlist, dtype=torch.int64,
@@ -4585,6 +4996,12 @@ def vector_measure(torch, K, ANN, vp, err, card, profile=False):
                 torch, K, kname, [(a, kw)], card, wrapper=fn,
                 library=lambda a: (lambda m=ANN._masked(a[0], a[1]):
                                    torch.topk(m, a[2], largest=False)))
+        if kname == "ann_lloyd_update":
+            split = device_split(
+                torch, K, kname, [(a, kw)], card, wrapper=fn,
+                library=lambda a: lloyd_yardstick(torch, a),
+                lib_key="yardstick", lib_label=LLOYD_YARDSTICK)
+            split["steps"] = steps
         if kname == "ann_assign":
             split = device_split(
                 torch, K, kname, [(a, kw)], card, wrapper=fn,
@@ -4755,12 +5172,92 @@ def _library_ms(torch, K, name, calls):
 # kernels whose time is also split into device-only and host time
 DEVICE_SPLIT = ("semi_mask", "anti_mask", "window_frame_reduce", "compact",
                 "compose_index", "join_probe_counts", "join_expand",
-                "grouped_agg_sort", "exchange_fixed")
+                "grouped_agg_sort", "exchange_fixed", "grouped_agg_dense",
+                "ann_lloyd_update")
 # kernels whose split also counts the kernel and memset nodes of a call
-SPLIT_NODES = ("exchange_fixed", "ann_topk")
+SPLIT_NODES = ("exchange_fixed", "ann_topk", "grouped_agg_dense",
+               "ann_lloyd_update")
+K4_YARDSTICK = ("yardstick: k + 1 PyTorch calls, index_add_ or "
+                "scatter_reduce_ an aggregate and present")
+LLOYD_YARDSTICK = "yardstick: 2 PyTorch calls, index_add_ of rows and counts"
 
 
-def device_split(torch, K, name, calls, card, wrapper=None, library=None):
+def k4_yardstick(torch, a):
+    """K4's yardstick on the recorded arguments `a`: one index_add_ (sum,
+    sumf, count) or scatter_reduce_ (min, max) an aggregate and one for
+    present, into outputs allocated here; the masked group ids, the
+    widened inputs and the ones are made here too, outside the time.
+    Several calls, not one library call."""
+    gid, valid, ins, g, kinds = a[0], a[1], a[2], int(a[3]), a[4]
+    inrange = valid & (gid >= 0) & (gid < g)
+    slot = torch.where(inrange, gid, torch.full((), g, dtype=gid.dtype,
+                                                device=gid.device))
+    ones = torch.ones_like(slot)
+    plan = []
+    for kind, v in zip(kinds, ins):
+        if kind == "count":
+            src = ones
+        elif kind == "sumf" or v.dtype.is_floating_point:
+            src = v.to(torch.float64)
+        elif kind == "sum":
+            src = v.to(torch.int64)
+        else:
+            src = v
+        plan.append((kind, src, torch.zeros(g + 1, dtype=src.dtype,
+                                            device=src.device)))
+    present = torch.zeros(g + 1, dtype=torch.int64, device=gid.device)
+
+    def run():
+        for kind, src, out in plan:
+            if kind in ("min", "max"):
+                out.scatter_reduce_(0, slot, src,
+                                    "amin" if kind == "min" else "amax")
+            else:
+                out.index_add_(0, slot, src)
+        present.index_add_(0, slot, ones)
+    return run
+
+
+def lloyd_yardstick(torch, a):
+    """The Lloyd update's yardstick on the recorded arguments `a`:
+    index_add_ of the rows and of the counts into outputs allocated
+    here, with the keys made here (two calls, not one library call)."""
+    vecs, valid, assign, _cents, nlist = a[:5]
+    keys = torch.where(valid, assign.to(torch.int64),
+                       torch.full((), nlist, dtype=torch.int64,
+                                  device=vecs.device))
+    ones = torch.ones(vecs.shape[0], dtype=torch.float32, device=vecs.device)
+    sums = torch.zeros(nlist + 1, vecs.shape[1], dtype=torch.float32,
+                       device=vecs.device)
+    counts = torch.zeros(nlist + 1, dtype=torch.float32, device=vecs.device)
+    return lambda: (sums.index_add_(0, keys, vecs),
+                    counts.index_add_(0, keys, ones))
+
+
+def k4_branch(K, a) -> str:
+    """The K4 branch of the recorded call `a` (its first launch)."""
+    return K4_BRANCHES[K._lib().otbt_grouped_agg_dense_branch(
+        a[0].shape[0], int(a[3]), min(len(a[4]), 32))]
+
+
+def k4_split(torch, K, calls, card):
+    """K4's device-only and host times, nodes a call and yardstick on
+    Q1's eager calls, the one-group call of eager Q6 and the cluster
+    program's Q1 calls (recorded outside capture): {label: split}."""
+    out = {}
+    for label, cs in calls.items():
+        say(f"kernel grouped_agg_dense on {label}: " + "; ".join(
+            f"{a[0].shape[0]} rows, {int(a[3])} groups, {len(a[4])} "
+            f"aggregates ({k4_branch(K, a)})" for a, _kw in cs))
+        out[label] = device_split(
+            torch, K, "grouped_agg_dense", cs, card,
+            library=lambda a: k4_yardstick(torch, a), lib_key="yardstick",
+            lib_label=K4_YARDSTICK)
+    return out
+
+
+def device_split(torch, K, name, calls, card, wrapper=None, library=None,
+                 lib_key="torch", lib_label=None):
     """Kernel `name` over its timed calls: device-only ms (device_host_ms:
     a CUDA graph of the calls) and host ms a wrapper call, and the same
     two times of its library call (`library(a)` builds it, by default
@@ -4768,7 +5265,9 @@ def device_split(torch, K, name, calls, card, wrapper=None, library=None):
     searchsorted; for anti_mask the two calls `probe_valid & (counts ==
     0)`; none for compact, whose `x[mask]` syncs with the host and cannot
     be captured).  `wrapper` is the kernel's wrapper where it is not
-    ops/kernels.py's."""
+    ops/kernels.py's; a yardstick of several PyTorch calls in place of
+    the library call is recorded under `lib_key` and printed as
+    `lib_label`."""
     wrapper = wrapper or wrapper_of(K, name)
     dev = host = ldev = lhost = 0.0
     lib_ok = True
@@ -4788,8 +5287,8 @@ def device_split(torch, K, name, calls, card, wrapper=None, library=None):
         ldev += d
         lhost += h
     rec = {"device_ms": dev, "host_ms": host,
-           "torch_device_ms": ldev if lib_ok else None,
-           "torch_host_ms": lhost if lib_ok else None}
+           f"{lib_key}_device_ms": ldev if lib_ok else None,
+           f"{lib_key}_host_ms": lhost if lib_ok else None}
     if name in SPLIT_NODES:
         types = [graph_nodes(torch, lambda a=a, kw=kw: wrapper(*a, **kw))
                  for a, kw in calls]
@@ -4798,8 +5297,8 @@ def device_split(torch, K, name, calls, card, wrapper=None, library=None):
                                for t in types]
         say(f"kernel {name}: kernel + memset nodes of each call, captured: "
             + ", ".join(f"{a} + {b}" for a, b in rec["nodes_a_call"]))
-    label = "probe_valid & (counts == 0)" if name == "anti_mask" else \
-        "library"
+    label = lib_label or ("probe_valid & (counts == 0)"
+                          if name == "anti_mask" else "library")
     lib = f"{ldev:.4f} ms, host {lhost:.4f} ms" if lib_ok else "-"
     say(f"kernel {name} split: device-only (CUDA graph) {dev:.4f} ms, host "
         f"{host:.4f} ms over the calls ({', '.join(_call_names(name, calls))}"
@@ -4857,7 +5356,7 @@ TPCDS_EXTRA = {
             "between 10 preceding and current row) mn from store_sales) z "
             "where rk <= 100 group by ss_store_sk order by ss_store_sk",
 }
-TPCDS_RTOL = SUMF_RTOL       # f64 outputs: the card's atomics add in
+TPCDS_RTOL = SUMF_RTOL       # f64 outputs: the card's kernels add in
                              # another order than the CPU's plain sums
 
 

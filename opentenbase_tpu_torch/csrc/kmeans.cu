@@ -48,12 +48,21 @@
 // them and fails below two blocks.
 //
 // Update.  Reproducible: the same rows give the same centroids bit for
-// bit, so no float atomics.  The wrapper orders the rows by (cluster,
-// row) with the sort kernel (csrc/sort.cu); here one pass finds each
-// cluster's run in that order, and one block per cluster sums its run in
-// a fixed order (warp w takes the run's rows w, w + 8, ...; the eight
-// partial sums are added in warp order).  Bound: bytes (each valid row
-// read once).
+// bit, so no float atomics.  Bound: bytes (each valid row read once).
+// The wrapper orders the rows by (cluster, row) with the sort kernel
+// (csrc/sort.cu), which also writes the sorted keys.  The clusters of an
+// index build are far from equal (on a 1000-centre mixture the largest
+// is about 15x the median), so the work is cut by sorted position, not
+// by cluster: a warp takes a tile of kLloydTile positions, gathers 32
+// row indices at a time ahead of the rows, keeps eight 512-byte rows in
+// flight (one 16-byte load a lane each) and adds them into one
+// accumulator in position order.  A run of one cluster that starts and
+// ends inside the tile is divided there and written; a run that crosses
+// a tile edge leaves one piece a tile, and a second launch adds a
+// cluster's pieces in tile order and divides (or copies the previous
+// centroid of an empty cluster).  The tiles also write each cluster's
+// run bounds, an empty cluster's as (0, 0), so nothing is zeroed first:
+// two launches after the sort, no memset.
 #include "common.cuh"
 
 #include <math.h>
@@ -67,6 +76,8 @@ constexpr int kKC = 16;           // dimensions a pipeline stage
 constexpr int kStages = 3;        // stages in the ring
 constexpr int kAS = kBM + 4;      // k-major row tile stride, in floats
 constexpr int kResidentMaxD = 160;   // dims up to which rows stay resident
+constexpr int kLloydTile = 256;      // sorted positions a warp of the update
+constexpr int kLloydRows = 8;        // rows in flight a warp
 
 enum Metric { kL2 = 0, kCosine = 1, kIp = 2 };
 
@@ -330,59 +341,167 @@ long long assign_ldc(int nlist) {
   return ((long long)nlist + kBN - 1) / kBN * kBN;
 }
 
-// start/end of each cluster's run in the sorted order (zero when empty);
-// keys[row] is the row's cluster, nlist for an invalid row (sorted last)
-__global__ void cluster_bounds_kernel(const long long* __restrict__ keys,
-                                      const long long* __restrict__ perm,
-                                      long long n, int nlist,
-                                      long long* __restrict__ start,
-                                      long long* __restrict__ end) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += stride) {
-    long long c = keys[perm[p]];
-    if (c < 0 || c >= nlist) continue;
-    long long prev = p > 0 ? keys[perm[p - 1]] : -1;
-    long long next = p + 1 < n ? keys[perm[p + 1]] : nlist;
-    if (c != prev) start[c] = p;
-    if (c != next) end[c] = p + 1;
+// lanes' 4 components of row r at dims j .. j + 3 (zero past d)
+template <bool kVec4>
+__device__ __forceinline__ float4 row4(const float* __restrict__ vecs, int d,
+                                       long long r, int j) {
+  const float* v = vecs + r * d + j;
+  if (kVec4) return j < d ? __ldg((const float4*)v) : make_float4(0, 0, 0, 0);
+  float4 x;
+  x.x = j < d ? __ldg(v) : 0.f;
+  x.y = j + 1 < d ? __ldg(v + 1) : 0.f;
+  x.z = j + 2 < d ? __ldg(v + 2) : 0.f;
+  x.w = j + 3 < d ? __ldg(v + 3) : 0.f;
+  return x;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ void store4(float* p, int d, int j, float4 x) {
+  if (j < d) p[j] = x.x;
+  if (j + 1 < d) p[j + 1] = x.y;
+  if (j + 2 < d) p[j + 2] = x.z;
+  if (j + 3 < d) p[j + 3] = x.w;
+}
+
+__device__ __forceinline__ void store_mean(float* p, int d, int j, float4 s,
+                                           long long cnt) {
+  const float f = fmaxf((float)cnt, 1.0f);
+  store4(p, d, j, make_float4(__fdiv_rn(s.x, f), __fdiv_rn(s.y, f),
+                              __fdiv_rn(s.z, f), __fdiv_rn(s.w, f)));
+}
+
+// One warp a tile of kLloydTile sorted positions [b0, b1).  skey: the
+// sorted keys (cluster, or nlist for an invalid row, sorted last).  Run
+// bounds: boundary p (keys p - 1 and p differ, with key -1 before the
+// first row and nlist after the last) ends the run before it and starts
+// the one after; the clusters between get (0, 0).  The tile owns the
+// boundaries in [b0, b1), the last tile also p = n.  Sums: the run pieces
+// of the tile in position order; a whole run is divided and written, a
+// piece that crosses the left edge goes to pieces[2 tile], one that
+// crosses only the right edge to pieces[2 tile + 1] (d floats each).
+template <bool kVec4>
+__global__ void __launch_bounds__(256)
+    lloyd_tiles_kernel(const float* __restrict__ vecs, int d, long long n,
+                       const long long* __restrict__ skey,
+                       const long long* __restrict__ perm, int nlist,
+                       long long tiles, float* __restrict__ pieces,
+                       long long* __restrict__ start,
+                       long long* __restrict__ end, float* __restrict__ out) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long tile = (long long)blockIdx.x * (blockDim.x >> 5) +
+                         (threadIdx.x >> 5);
+  if (tile >= tiles) return;
+  const long long b0 = tile * kLloydTile;
+  const long long b1 = b0 + kLloydTile < n ? b0 + kLloydTile : n;
+  const long long pe = tile == tiles - 1 ? n + 1 : b1;
+  for (long long p = b0 + lane; p < pe; p += 32) {
+    const long long prev = p > 0 ? skey[p - 1] : -1;
+    const long long cur = p < n ? skey[p] : nlist;
+    if (prev == cur) continue;
+    if (prev >= 0 && prev < nlist) end[prev] = p;
+    if (cur < nlist) start[cur] = p;
+    for (long long c = prev + 1; c < cur && c < nlist; ++c) {
+      start[c] = 0;
+      end[c] = 0;
+    }
+  }
+  if (b0 >= b1 || skey[b0] >= nlist) return;
+  // does the tile's first run start before it, its last run go on after
+  const long long first_key = skey[b0];
+  const bool left = b0 > 0 && skey[b0 - 1] == first_key;
+  const long long right_key = b1 < n ? skey[b1] : -1;
+  for (int jc = 0; jc < d; jc += 128) {
+    const int j = jc + 4 * lane;
+    float4 acc = make_float4(0, 0, 0, 0);
+    long long run = -1, run_lo = b0;
+    long long stop = b1;   // the first invalid row's position, if in the tile
+    // a run's piece [run_lo, hi): written whole, or as a piece
+    auto flush = [&](long long hi, bool crosses_right) {
+      const bool crosses_left = run_lo == b0 && left;
+      if (!crosses_left && !crosses_right)
+        store_mean(out + run * d, d, j, acc, hi - run_lo);
+      else
+        store4(pieces + (2 * tile + (crosses_left ? 0 : 1)) * d, d, j, acc);
+    };
+    for (long long p0 = b0; p0 < stop; p0 += 32) {
+      const long long pp = p0 + lane;
+      const long long my_row = pp < b1 ? perm[pp] : 0;
+      const long long my_key = pp < b1 ? skey[pp] : nlist;
+      const int m = b1 - p0 < 32 ? (int)(b1 - p0) : 32;
+      for (int u0 = 0; u0 < m && stop == b1; u0 += kLloydRows) {
+        float4 x[kLloydRows];
+        long long kk[kLloydRows];
+#pragma unroll
+        for (int u = 0; u < kLloydRows; ++u) {
+          const long long r = __shfl_sync(full, my_row, u0 + u);
+          kk[u] = __shfl_sync(full, my_key, u0 + u);
+          x[u] = (u0 + u < m && kk[u] < nlist) ? row4<kVec4>(vecs, d, r, j)
+                                               : make_float4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int u = 0; u < kLloydRows; ++u) {
+          if (u0 + u >= m) break;
+          const long long q = p0 + u0 + u;
+          if (kk[u] >= nlist) {
+            stop = q;
+            break;
+          }
+          if (kk[u] != run) {
+            if (run >= 0) flush(q, false);
+            run = kk[u];
+            run_lo = q;
+            acc = x[u];
+          } else {
+            acc = add4(acc, x[u]);
+          }
+        }
+      }
+    }
+    // the last run ends at an invalid row, at the tile's end or after it
+    const long long hi = stop;
+    flush(hi, hi == b1 && right_key == run);
   }
 }
 
-// one block per cluster: sum its run in a fixed order, divide, or keep the
-// previous centroid when the run is empty
-__global__ void lloyd_update_kernel(const float* __restrict__ vecs, int d,
-                                    const long long* __restrict__ perm,
-                                    const long long* __restrict__ start,
-                                    const long long* __restrict__ end,
-                                    const float* __restrict__ old,
-                                    float* __restrict__ out) {
-  extern __shared__ float part[];   // kWarps x d partial sums
-  const int c = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// One warp a cluster: an empty one keeps its previous centroid; a run
+// inside one tile was written there; a run over tiles t0 .. t1 is
+// pieces[2 t0 + 1] + pieces[2 t] for t = t0 + 1 .. t1, added in that
+// order, over its count.
+__global__ void __launch_bounds__(256)
+    lloyd_finish_kernel(int d, int nlist, const float* __restrict__ pieces,
+                        const long long* __restrict__ start,
+                        const long long* __restrict__ end,
+                        const float* __restrict__ old,
+                        float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long c = (long long)blockIdx.x * (blockDim.x >> 5) +
+                      (threadIdx.x >> 5);
+  if (c >= nlist) return;
   const long long lo = start[c], hi = end[c];
-  for (int jc = 0; jc < d; jc += 128) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (long long p = lo + warp; p < hi; p += kWarps) {
-      const float* v = vecs + perm[p] * d;
-      for (int t = 0; t < 4; ++t) {
-        int j = jc + lane + 32 * t;
-        if (j < d) acc[t] = __fadd_rn(acc[t], v[j]);
-      }
+  const long long t0 = lo / kLloydTile, t1 = (hi - 1) / kLloydTile;
+  if (hi > lo && t0 == t1) return;
+  for (int j = 4 * lane; j < d; j += 128) {
+    if (hi <= lo) {
+      store4(out + c * d, d, j, row4<false>(old, d, c, j));
+      continue;
     }
-    for (int t = 0; t < 4; ++t) {
-      int j = jc + lane + 32 * t;
-      if (j < d) part[warp * d + j] = acc[t];
+    float4 acc = row4<false>(pieces, d, 2 * t0 + 1, j);
+    for (long long t = t0 + 1; t <= t1; t += kLloydRows) {
+      float4 x[kLloydRows];
+#pragma unroll
+      for (int u = 0; u < kLloydRows; ++u)
+        x[u] = t + u <= t1 ? row4<false>(pieces, d, 2 * (t + u), j)
+                           : make_float4(0, 0, 0, 0);
+#pragma unroll
+      for (int u = 0; u < kLloydRows; ++u)
+        if (t + u <= t1) acc = add4(acc, x[u]);
     }
-  }
-  __syncthreads();
-  const long long cnt = hi - lo;
-  const float fcnt = (float)cnt;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    float s = part[j];
-    for (int w = 1; w < kWarps; ++w) s = __fadd_rn(s, part[w * d + j]);
-    out[(long long)c * d + j] =
-        cnt > 0 ? __fdiv_rn(s, fmaxf(fcnt, 1.0f)) : old[(long long)c * d + j];
+    store_mean(out + c * d, d, j, acc, hi - lo);
   }
 }
 
@@ -464,30 +583,50 @@ extern "C" int otbt_ann_assign(const void* vecs, long long n,
   return (int)e;
 }
 
-// keys: n int64 (cluster, or nlist for an invalid row); perm: n int64, the
-// rows in (key, row) order; old/out: nlist x d f32; bounds: 2 nlist int64
-// scratch.
+static long long lloyd_tiles(long long n) {
+  return n > 0 ? (n + kLloydTile - 1) / kLloydTile : 1;
+}
+
+// Bytes of otbt_ann_lloyd_update's scratch: two pieces of d f32 a tile of
+// kLloydTile sorted positions, then each cluster's run start and end
+// (int64).
+extern "C" long long otbt_ann_lloyd_scratch_bytes(long long n, int d,
+                                                  int nlist) {
+  if (n < 0 || d <= 0 || nlist < 1) return -1;
+  return 8 * lloyd_tiles(n) * d + 16LL * nlist;
+}
+
+// skey: n int64 keys in sorted order (cluster, or nlist for an invalid
+// row); perm: n int64, the rows in (key, row) order; old/out: nlist x d
+// f32; scratch: otbt_ann_lloyd_scratch_bytes bytes, 8-byte aligned.  Two
+// launches, no memset.
 extern "C" int otbt_ann_lloyd_update(const void* vecs, long long n, int d,
-                                     const void* keys, const void* perm,
+                                     const void* skey, const void* perm,
                                      int nlist, const void* old, void* out,
-                                     void* bounds, void* stream) {
-  if (n < 0 || d <= 0 || nlist < 1) return (int)cudaErrorInvalidValue;
+                                     void* scratch, long long scratch_bytes,
+                                     void* stream) {
+  if (n < 0 || d <= 0 || nlist < 1 ||
+      scratch_bytes < otbt_ann_lloyd_scratch_bytes(n, d, nlist))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  long long* start = (long long*)bounds;
+  const long long tiles = lloyd_tiles(n);
+  float* pieces = (float*)scratch;
+  long long* start = (long long*)(pieces + 2 * tiles * d);
   long long* end = start + nlist;
-  cudaMemsetAsync(bounds, 0, sizeof(long long) * 2 * (size_t)nlist, st);
-  if (n > 0)
-    cluster_bounds_kernel<<<otbt::grid_for(n), otbt::kThreads, 0, st>>>(
-        (const long long*)keys, (const long long*)perm, n, nlist, start, end);
-  size_t smem = (size_t)kWarps * d * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lloyd_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  lloyd_update_kernel<<<nlist, otbt::kThreads, smem, st>>>(
-      (const float*)vecs, d, (const long long*)perm, start, end,
-      (const float*)old, (float*)out);
+  const bool vec4 = d % 4 == 0 && ((unsigned long long)vecs & 15ull) == 0;
+  const int warps = otbt::kThreads / 32;
+  const int blocks = (int)((tiles + warps - 1) / warps);
+  if (vec4)
+    lloyd_tiles_kernel<true><<<blocks, otbt::kThreads, 0, st>>>(
+        (const float*)vecs, d, n, (const long long*)skey,
+        (const long long*)perm, nlist, tiles, pieces, start, end,
+        (float*)out);
+  else
+    lloyd_tiles_kernel<false><<<blocks, otbt::kThreads, 0, st>>>(
+        (const float*)vecs, d, n, (const long long*)skey,
+        (const long long*)perm, nlist, tiles, pieces, start, end,
+        (float*)out);
+  lloyd_finish_kernel<<<(nlist + warps - 1) / warps, otbt::kThreads, 0, st>>>(
+      d, nlist, pieces, start, end, (const float*)old, (float*)out);
   return (int)cudaGetLastError();
 }

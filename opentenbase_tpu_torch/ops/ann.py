@@ -19,8 +19,10 @@ each launch adds one to ops/kernels.py LAUNCHES under its kernel's name:
   asynchronous copies, with jnp.argmax's arg-best fused behind it; the
   (n, nlist) score matrix is never made);
 - ann_lloyd_update: `lloyd_update`, the centroid update of `_lloyd_step`
-  (rows ordered by cluster with the sort kernel, then fixed-order sums:
-  the same rows build the same centroids bit for bit);
+  (rows ordered by cluster with the sort kernel, then fixed-order sums
+  over equal tiles of the sorted rows, pieces of the runs that cross a
+  tile edge added in tile order: the same rows build the same centroids
+  bit for bit);
 - ann_probe_scan: `probe_scan`, the row pass of `ivf_search` (distances
   only for valid rows of probed lists, +inf elsewhere).
 
@@ -42,6 +44,9 @@ _METRIC = {m: i for i, m in enumerate(METRICS)}
 MAX_TOPK = 1024
 #: rows per chunk of assign_clusters_plain (bounds its score matrix)
 PLAIN_CHUNK = 1 << 14
+#: sorted positions a warp of the Lloyd update sums (csrc/kmeans.cu
+#: kLloydTile): a cluster's run that crosses a tile edge leaves a piece
+LLOYD_TILE = 256
 
 
 def _metric(metric: str) -> int:
@@ -243,7 +248,8 @@ def lloyd_update_plain(vecs, valid, assign, centroids, nlist: int):
 
 def lloyd_update(vecs, valid, assign, centroids, nlist: int):
     """The update of one Lloyd step: rows ordered by (cluster, row) with
-    the sort kernel, then the update kernel's fixed-order sums."""
+    the sort kernel (which also writes the sorted keys), then the update
+    kernels' fixed-order sums (`lloyd_update_sorted`)."""
     if K._on_cpu(vecs, valid, assign, centroids):
         return lloyd_update_plain(vecs, valid, assign, centroids, nlist)
     _check2(vecs, "vecs")
@@ -254,16 +260,31 @@ def lloyd_update(vecs, valid, assign, centroids, nlist: int):
     if centroids.shape[0] != nlist:
         raise ValueError(f"centroids: {centroids.shape[0]} rows, want "
                          f"{nlist}")
-    dev = vecs.device
     keys = torch.where(valid, assign.to(torch.int64),
-                       torch.full((), nlist, dtype=torch.int64, device=dev))
-    perm = K.sort_perm(keys.unsqueeze(0).contiguous())
-    bounds = torch.empty(2 * nlist, dtype=torch.int64, device=dev)
+                       torch.full((), nlist, dtype=torch.int64,
+                                  device=vecs.device))
+    perm, skeys = K._sort_launch(keys.unsqueeze(0), "sort_rows", first=True)
+    K._count("sort_rows")
+    return lloyd_update_sorted(vecs, skeys, perm, centroids, nlist)
+
+
+def lloyd_update_sorted(vecs, skeys, perm, centroids, nlist: int):
+    """The update after the sort, on the card: `skeys` the rows' keys
+    (cluster, nlist for an invalid row) in sorted order, `perm` the rows
+    in that order.  Two launches (csrc/kmeans.cu): tiles of LLOYD_TILE
+    sorted positions a warp, then each cluster's pieces in tile order."""
+    n, d = vecs.shape
+    lib = K._lib()
+    nbytes = lib.otbt_ann_lloyd_scratch_bytes(n, d, nlist)
+    if nbytes < 0:
+        raise ValueError(f"ann_lloyd_update: no list or no dimension "
+                         f"({nlist} x {d})")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=vecs.device)
     out = torch.empty_like(centroids)
-    rc = K._lib().otbt_ann_lloyd_update(K._ptr(vecs), n, d, K._ptr(keys),
-                                        K._ptr(perm), nlist,
-                                        K._ptr(centroids), K._ptr(out),
-                                        K._ptr(bounds), K._stream())
+    rc = lib.otbt_ann_lloyd_update(K._ptr(vecs), n, d, K._ptr(skeys),
+                                   K._ptr(perm), nlist, K._ptr(centroids),
+                                   K._ptr(out), K._ptr(scratch), nbytes,
+                                   K._stream())
     K._ok(rc, "ann_lloyd_update")
     K._count("ann_lloyd_update")
     return out

@@ -35,7 +35,10 @@ SIGNATURES = {
     "otbt_visibility_mask_dev": [_P, _P, _P, _P, _P, _P, _LL, _P, _LL, _P],
     "otbt_decode_column": [_P, _I, _P, _I, _I, _LL, _P, _LL, _P],
     "otbt_cmp_on_codes": [_P, _I, _P, _I, _I, _LL, _I, _LL, _P, _LL, _P],
-    "otbt_grouped_agg_dense": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
+    "otbt_grouped_agg_dense_scratch_bytes": [_LL, _I, _I],
+    "otbt_grouped_agg_dense_branch": [_LL, _I, _I],
+    "otbt_grouped_agg_dense": [_P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P,
+                               _LL, _P],
     "otbt_sort_scratch_bytes": [_I, _LL],
     "otbt_sort_perm": [_P, _I, _LL, _P, _LL, _P, _P, _P],
     "otbt_group_scratch_bytes": [_LL, _I, _I],
@@ -73,7 +76,8 @@ SIGNATURES = {
     "otbt_ann_assign_scratch_bytes": [_LL, _I, _I, _I],
     "otbt_ann_assign_info": [_I, _P, _P, _P],
     "otbt_ann_assign": [_P, _LL, _P, _I, _I, _I, _P, _LL, _P, _P],
-    "otbt_ann_lloyd_update": [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _P],
+    "otbt_ann_lloyd_scratch_bytes": [_LL, _I, _I],
+    "otbt_ann_lloyd_update": [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _LL, _P],
     "otbt_window_bounds": [_P, _I, _I, _LL, _LL] + [_P] * 12,
     "otbt_window_frame_reduce": [_I, _LL] + [_P] * 8 + [_I, _P, _LL, _P, _P,
                                  _I, _D, _P] + [_I] * 3 + [_LL, _I, _LL, _I]
@@ -91,7 +95,9 @@ RESTYPES = {"otbt_exchange_tiles": _LL,
             "otbt_ann_assign_scratch_bytes": _LL,
             "otbt_probe_table_bytes": _LL,
             "otbt_join_expand_scratch_bytes": _LL,
-            "otbt_group_scratch_bytes": _LL}
+            "otbt_group_scratch_bytes": _LL,
+            "otbt_grouped_agg_dense_scratch_bytes": _LL,
+            "otbt_ann_lloyd_scratch_bytes": _LL}
 
 _lock = threading.Lock()
 _lib = None

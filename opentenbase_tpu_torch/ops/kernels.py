@@ -378,7 +378,11 @@ def grouped_agg_dense(group_id, valid, agg_inputs: tuple,
     """Aggregate with a precomputed dense group id in [0, num_groups):
     returns (per-aggregate [num_groups] outputs, present counts).
     Kinds: sum (ints widen to int64), sumf (f64), count, min, max; an
-    empty group's min/max is the dtype's max/min."""
+    empty group's min/max is the dtype's max/min.  On the card one
+    allocation a set of 32 aggregates holds the outputs (8-byte regions
+    of num_groups words, an int32 min/max in the first half of its own),
+    present and the kernel's scratch; the outputs are views of it, and
+    the kernel writes every word of them (csrc/grouped_agg.cu)."""
     num_groups = int(num_groups)
     if any(k not in _AGG_KINDS for k in agg_kinds):
         raise ValueError(f"unknown aggregate kinds {agg_kinds}")
@@ -392,40 +396,38 @@ def grouped_agg_dense(group_id, valid, agg_inputs: tuple,
         raise ValueError("num_groups must be >= 1")
     for v in agg_inputs:
         _check(v, "agg input", tuple(_DT), n)
+    lib = _lib()
     outs, present = [], None
+    g = num_groups
     # one launch per 32 aggregates
     for lo in range(0, max(len(agg_kinds), 1), _MAX_AGGS):
         kinds = agg_kinds[lo:lo + _MAX_AGGS]
         ins = agg_inputs[lo:lo + _MAX_AGGS]
         codes = [_agg_code(k, v.dtype) for k, v in zip(kinds, ins)]
         k = len(kinds)
-        # the workspace starts at each accumulator's identity: 0 for the
-        # sums, counts and present row, dtype max/min for min/max rows;
-        # set on the card so the query path makes no host copy
-        ws = torch.zeros((k + 1, num_groups), dtype=torch.int64,
-                         device=group_id.device)
-        for a, (_c, idv) in enumerate(codes):
-            if idv:
-                ws[a].fill_(idv)
-        ws = ws.reshape(-1)
-        rc = _lib().otbt_grouped_agg_dense(
-            _ptr(group_id), _ptr(valid), n, num_groups, k,
+        nbytes = lib.otbt_grouped_agg_dense_scratch_bytes(n, g, k)
+        if nbytes < 0:
+            raise RuntimeError("CUDA kernel grouped_agg_dense: the card's "
+                               "attributes could not be read")
+        buf = torch.empty((k + 1) * g + (nbytes + 7) // 8,
+                          dtype=torch.int64, device=group_id.device)
+        rc = lib.otbt_grouped_agg_dense(
+            _ptr(group_id), _ptr(valid), n, g, k,
             _llarr(_ptr(v) for v in ins), _iarr(c for c, _ in codes),
             _iarr(_DT[v.dtype] for v in ins), _llarr(i for _, i in codes),
-            _ptr(ws), _stream())
+            _ptr(buf), _ptr(buf) + 8 * (k + 1) * g, nbytes, _stream())
         _ok(rc, "grouped_agg_dense")
         _count("grouped_agg_dense", 1)
-        ws = ws.view(k + 1, num_groups)
         for a, ((code, _i), v) in enumerate(zip(codes, ins)):
-            row = ws[a]
+            row = buf[a * g:(a + 1) * g]
             if code == _K_SUM_FLOAT or (code in (_K_MIN, _K_MAX)
                                         and _is_float(v.dtype)):
                 row = row.view(torch.float64)
-            if code in (_K_MIN, _K_MAX) and row.dtype != v.dtype:
-                row = row.to(v.dtype)
+            elif code in (_K_MIN, _K_MAX) and v.dtype == torch.int32:
+                row = row.view(torch.int32)[:g]
             outs.append(row)
         if present is None:
-            present = ws[k]
+            present = buf[k * g:(k + 1) * g]
     return tuple(outs), present
 
 

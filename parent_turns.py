@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time this tree's K7 (join_probe_counts), K8 (join_expand), K5
-(grouped_agg_sort), K15c (assign_clusters), K12 fixed (exchange_fixed)
-and K15b (topk_nearest) against another checkout of the port, in turns
-in one process, each side through its own tree's wrappers.
+(grouped_agg_sort), K15c (assign_clusters), K12 fixed (exchange_fixed),
+K15b (topk_nearest), K4 (grouped_agg_dense) and the K15c Lloyd update
+(lloyd_update) against another checkout of the port, in turns in one
+process, each side through its own tree's wrappers.
 
 Run from the repository root, on one CUDA card, with the other tree
 unpacked into a git-ignored directory:
@@ -10,7 +11,7 @@ unpacked into a git-ignored directory:
     mkdir -p smoke_tree/parent
     git archive <commit> | tar -x -C smoke_tree/parent
     python3 parent_turns.py smoke_tree/parent [--sf 1.0] [--rounds 2]
-        [--only k12,k15b]
+        [--only k4,lloyd]
 
 The other tree's package is loaded under another name, so its wrappers,
 its C interface and its kernel library (built from its own sources) are
@@ -31,6 +32,12 @@ IVF query's two (k = 125 over 1000 centroid distances, k = 10 over the
 probe scan's output, 7/8 of it +inf).  The other tree's K15b is also
 run on the NaN cases of chip_smoke.py's vector edge check, and whether
 it keeps the NaN rule is printed (a record, not a check).
+K4 is timed on Q1's eager call and on Q6's (one group), recorded with
+K7, K8 and K5's calls, and on four dense-key calls of 2^22 rows at 64,
+512, 2048 and 4096 groups (an int64 sum, an f64 sum, a count); the Lloyd update on every step of one index build
+at the vector path's shape (1 M x 128 rows from chip_smoke.py
+vector_data, seed 11, 1000 lists, the initial centroids as kmeans takes
+them), each step's largest and median cluster printed.
 Then, in turns (other, this, this, other, ...): event-loop ms (CUDA
 events around the wrapper calls), device-only ms (the calls captured
 into a CUDA graph) and, for K8 and K5, host ms (the host clock around
@@ -79,13 +86,14 @@ def in_turns(sides: dict, measure, rounds: int) -> dict:
     return out
 
 
-RECORDED = ("join_probe_counts", "join_expand", "grouped_agg_sort")
-PARTS = ("k7", "k8", "k5", "k15c", "k12", "k15b")
+RECORDED = ("join_probe_counts", "join_expand", "grouped_agg_sort",
+            "grouped_agg_dense")
+PARTS = ("k7", "k8", "k5", "k15c", "k12", "k15b", "k4", "lloyd")
 
 
 def recorded_calls(torch, K, sf: float):
-    """{kernel: {query: [args]}} of RECORDED on TPC-H Q5, Q3 and Q13 at
-    `sf` on this tree's eager executor."""
+    """{kernel: {query: [args]}} of RECORDED on TPC-H Q5, Q3, Q13, Q1 and
+    Q6 at `sf` on this tree's eager executor."""
     import chip_smoke as S
     from opentenbase_tpu_torch.exec import executor as X
     from opentenbase_tpu_torch.exec.session import LocalNode, Session
@@ -98,7 +106,7 @@ def recorded_calls(torch, K, sf: float):
     s.execute(SCHEMA)
     datagen.load_into(s, data, datagen.TABLES)
     out = {n: {} for n in RECORDED}
-    for q in (5, 3, 13):
+    for q in (5, 3, 13, 1, 6):
         calls, restore = S.record_calls(K, list(RECORDED))
         try:
             s.query(Q[q])
@@ -186,6 +194,73 @@ def k5_turns(torch, S, K, PK, rec, rounds, result, card):
             for w in words)
         S.say(f"k5_q{q}: K10's sort alone on the same words, device-only "
               f"{result[f'k5_q{q}_sort_device_ms']:.4f} ms [{card}]")
+
+
+K4_DENSE_GROUPS = (64, 512, 2048, 4096)
+
+
+def k4_dense_calls(torch, np, dev):
+    """{label: [(args, {})]}: one dense-key call for each of
+    K4_DENSE_GROUPS, 2^22 rows (90% valid) with uniform group ids and
+    the aggregates of a grouped total, an int64 sum, an f64 sum and a
+    count (seed 4)."""
+    rng = np.random.default_rng(4)
+    n = 1 << 22
+    t = lambda x: torch.from_numpy(x).to(dev)
+    valid = t(rng.random(n) < 0.9)
+    ins = (t(rng.integers(-10**9, 10**9, n)), t(rng.normal(0, 1e3, n)),
+           t(np.zeros(n, np.int64)))
+    return {f"dense{g}": [((t(rng.integers(0, g, n)), valid, ins, g,
+                            ("sum", "sumf", "count")), {})]
+            for g in K4_DENSE_GROUPS}
+
+
+def k4_turns(torch, S, np, K, PK, rec, rounds, result, card):
+    """K4 on Q1's eager call, on Q6's (one group) and on k4_dense_calls."""
+    dense = {"other": PK.grouped_agg_dense, "this": K.grouped_agg_dense}
+    sets = {f"q{q}": rec["grouped_agg_dense"][q] for q in (1, 6)}
+    sets.update(k4_dense_calls(torch, np, torch.device("cuda")))
+    for q, calls in sets.items():
+        S.say(f"{q}'s K4 calls: " + "; ".join(
+            f"{a[0].shape[0]} rows, {int(a[3])} groups, {len(a[4])} "
+            f"aggregates ({S.k4_branch(K, a)})" for a, _kw in calls))
+        for side, fn in dense.items():
+            for a, kw in calls:
+                S.compare_agg(fn(*a, **kw), K.grouped_agg_dense_plain(*a, **kw),
+                              a[4], f"{side} tree, {q}'s calls")
+        timed_sides(torch, S, dense, dense, calls, rounds, result,
+                    f"k4_{q}", card)
+
+
+def lloyd_turns(torch, S, np, ANN, PANN, dev, rounds, result, card):
+    """The Lloyd update on every step of one index build at the vector
+    path's shape: 1 M x 128 rows (chip_smoke.py vector_data, seed 11),
+    1000 lists, the initial centroids as ops/ann.py kmeans takes them,
+    this tree's assignments; each step's largest and median cluster."""
+    import inspect
+    vecs = torch.from_numpy(S.vector_data(torch, np, 1_000_000, 11)).to(dev)
+    n = vecs.shape[0]
+    pick = np.random.default_rng(17).choice(n, S.VEC_LISTS, replace=False)
+    cents = vecs[torch.from_numpy(pick).to(dev)].contiguous()
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    update = {"other": PANN.lloyd_update, "this": ANN.lloyd_update}
+    iters = inspect.signature(ANN.kmeans).parameters["iters"].default
+    sizes = []
+    for step in range(1, iters + 1):
+        assign = ANN.assign_clusters(vecs, cents)
+        a = (vecs, valid, assign, cents, S.VEC_LISTS)
+        want = ANN.lloyd_update_plain(*a)
+        for side, fn in update.items():
+            S.lloyd_close(torch, fn(*a), want, vecs,
+                          f"{side} tree's ann_lloyd_update, step {step}")
+        counts = torch.bincount(assign.long(), minlength=S.VEC_LISTS)
+        sizes.append((int(counts.max()), float(counts.median())))
+        S.say(f"lloyd step {step}: largest cluster {sizes[-1][0]}, median "
+              f"{sizes[-1][1]:g}")
+        timed_sides(torch, S, update, update, [(a, {})], rounds, result,
+                    f"lloyd_step{step}", card)
+        cents = ANN.lloyd_update(*a)
+    result["lloyd_sizes"] = sizes
 
 
 def k15c_turns(torch, S, np, ANN, PANN, dev, rounds, result, card):
@@ -340,7 +415,7 @@ def main() -> int:
               f"rule: {json.dumps(nan_rule)}")
         result["nan_rule_other"] = nan_rule
 
-    if only & {"k7", "k8", "k5"}:
+    if only & {"k7", "k8", "k5", "k4"}:
         rec = recorded_calls(torch, K, args.sf)
     if "k7" in only:
         calls = [a for a, _kw in rec["join_probe_counts"][5]]
@@ -371,6 +446,10 @@ def main() -> int:
         k12_turns(torch, S, K, PK, args.sf, args.rounds, result, card)
     if "k15b" in only:
         k15b_turns(torch, S, np, ANN, PANN, dev, args.rounds, result, card)
+    if "k4" in only:
+        k4_turns(torch, S, np, K, PK, rec, args.rounds, result, card)
+    if "lloyd" in only:
+        lloyd_turns(torch, S, np, ANN, PANN, dev, args.rounds, result, card)
     print(json.dumps(result))
     return 0
 

@@ -373,6 +373,47 @@ def test_lloyd_empty_cluster_keeps_its_centroid():
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL)
 
 
+def _lloyd_layout(case, rng, tile):
+    """(labels, valid, nlist) of a Lloyd step whose clusters have a chosen
+    shape: `skewed`, one cluster holding 90% of the rows; `tile_edges`,
+    runs of tile - 1, tile and tile + 1 rows (and 1, 3, 2 tile + 1)
+    between empty clusters; `invalid`, a tenth of the rows invalid."""
+    if case == "skewed":
+        n, nlist = 6000, 12
+        lab = np.where(rng.random(n) < 0.9, 4, rng.integers(0, 9, n))
+        return lab, rng.random(n) < 0.97, nlist
+    lengths = [tile - 1, tile, tile + 1, 1, 2 * tile + 1, 3]
+    lab = np.repeat(2 * np.arange(len(lengths)) + 1, lengths)
+    lab = lab[rng.permutation(len(lab))]
+    valid = np.ones(len(lab), bool) if case == "tile_edges" \
+        else rng.random(len(lab)) < 0.9
+    return lab, valid, 2 * len(lengths) + 2
+
+
+@pytest.mark.parametrize("case", ["skewed", "tile_edges", "invalid"])
+def test_lloyd_step_on_skewed_clusters_matches_reference(case):
+    """_lloyd_step's plain version against the reference where the card's
+    update cuts the sorted rows into tiles of ANN.LLOYD_TILE: one
+    cluster holding most rows, runs one short of, equal to and one past a
+    tile, empty clusters between them (their centroids kept exactly) and
+    invalid rows.  The rows sit close to well separated centroids, so
+    both assign them alike and only the order of the f32 sums differs."""
+    rng = np.random.default_rng(31)
+    lab, valid, nlist = _lloyd_layout(case, rng, ANN.LLOYD_TILE)
+    d = 8
+    cents = rng.normal(scale=50.0, size=(nlist, d)).astype(np.float32)
+    vecs = (cents[lab] + rng.normal(scale=0.5, size=(len(lab), d))).astype(
+        np.float32)
+    want = np.asarray(RANN._lloyd_step(jnp.asarray(vecs), jnp.asarray(valid),
+                                       jnp.asarray(cents), nlist))
+    got = ANN._lloyd_step(torch.from_numpy(vecs), torch.from_numpy(valid),
+                          torch.from_numpy(cents), nlist).numpy()
+    empty = np.bincount(lab[valid], minlength=nlist) == 0
+    assert empty.any()
+    np.testing.assert_array_equal(got[empty], cents[empty])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL)
+
+
 @pytest.mark.parametrize("n,nlist", [(300, 16), (10, 16)])
 def test_kmeans_first_centroids_are_the_references(n, nlist):
     """Same generator calls, so the same initial centroids (and the same

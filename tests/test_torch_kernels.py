@@ -7,6 +7,8 @@ decimal and bool outputs must be equal exactly; f64 sums ("sumf") within
 relative 1e-10, the only difference being the order of the summation.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -118,6 +120,9 @@ def _agg_inputs(rng, n):
 
 
 def _compare_agg(got, want, kinds):
+    """Present, counts, ints and min/max exactly (NaN where the reference
+    has NaN); f64 sums within SUMF_RTOL, their NaN and infinities at the
+    same places."""
     (gouts, gpres), (wouts, wpres) = got, want
     np.testing.assert_array_equal(_np(gpres), np.asarray(wpres))
     for k, g, w in zip(kinds, gouts, wouts):
@@ -161,6 +166,141 @@ def test_grouped_agg_dense_all_invalid_and_many_aggs():
         got = TK.grouped_agg_dense(_t(gid), _t(valid),
                                    tuple(_t(a) for a in args), groups, kinds)
         _compare_agg(got, want, kinds)
+
+
+# The card's K4 takes one of three branches by the table's words, (k + 1)
+# x groups, against its shared memory (csrc/grouped_agg.cu plan_for): on
+# the H100 at 3 aggregates the thread-private tables end at 28 groups and
+# the block tables at 3616.  The plain version has no branches; these
+# cases hold it to the reference at those edges and at the shapes each
+# branch exists for.
+K4_EDGE_GROUPS = (28, 29, 3616, 3617)
+
+
+def _k4_case(case, rng, n=3000):
+    """(gid, valid, inputs, kinds, groups) of a named K4 case."""
+    valid = rng.random(n) < 0.85
+    i64 = rng.integers(-10**12, 10**12, n).astype(np.int64)
+    i32 = rng.integers(-10**6, 10**6, n).astype(np.int32)
+    f = rng.normal(0, 1e3, n)
+    if case == "one_group":
+        return (np.zeros(n, np.int64), valid,
+                (i64, f, f, i32, i32, i64, i32, rng.random(n) < 0.5),
+                ("sum", "sumf", "min", "max", "min", "count", "sum", "sumf"),
+                1)
+    if case == "q1_shape":
+        gid = rng.choice([0, 1, 3, 5], n).astype(np.int64)
+        return gid, valid, (i64,) * 8, ("sum",) * 7 + ("count",), 6
+    if case == "nonfinite":
+        nf = rng.choice([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.5, -2.25], n)
+        nf[rng.random(n) < 0.9] = 1.0
+        gid = rng.integers(0, 5, n).astype(np.int64)
+        gid[gid == 2] = 1                       # group 2 stays empty
+        return gid, valid, (nf, nf, nf, nf), ("sumf", "sum", "min", "max"), 5
+    if case == "out_of_range":
+        gid = rng.integers(-3, 10, n).astype(np.int64)
+        return gid, valid, (i32, i64, f), ("max", "sum", "min"), 7
+    if case == "all_invalid":
+        gid = rng.integers(0, 6, n).astype(np.int64)
+        return (gid, np.zeros(n, bool), (i64, f, f, i32),
+                ("sum", "sumf", "min", "max"), 6)
+    groups = int(case)
+    gid = rng.integers(-2, groups + 2, n).astype(np.int64)
+    return gid, valid, (f, i32, f), ("sumf", "min", "max"), groups
+
+
+@pytest.mark.parametrize("case", ["one_group", "q1_shape", "nonfinite",
+                                  "out_of_range", "all_invalid"]
+                         + [str(g) for g in K4_EDGE_GROUPS])
+def test_grouped_agg_dense_branch_cases_match_reference(case):
+    """One group, Q1's shape (6 slots, 4 occupied, 8 aggregates), NaN and
+    infinities in sumf / min / max, int32 and bool inputs, out-of-range
+    ids, all rows invalid, and group counts on either side of the card's
+    branch edges: the plain version equals the reference."""
+    gid, valid, ins, kinds, groups = _k4_case(case, np.random.default_rng(9))
+    want = RK.grouped_agg_dense(jnp.asarray(gid), jnp.asarray(valid),
+                                tuple(jnp.asarray(a) for a in ins), groups,
+                                kinds)
+    got = TK.grouped_agg_dense(_t(gid), _t(valid), tuple(_t(a) for a in ins),
+                               groups, kinds)
+    _compare_agg(got, want, kinds)
+
+
+class _FakeDenseLib:
+    """K4's C interface without a card: each launch writes the plain
+    version's outputs (computed before the call) through the output
+    pointer, an int32 output into the first half of its region; records
+    each call."""
+
+    def __init__(self, want_sets):
+        self.want_sets = list(want_sets)
+        self.calls = []
+
+    def otbt_grouped_agg_dense_scratch_bytes(self, n, g, k):
+        return 8 * 3 * (k + 1) * g + 16
+
+    def otbt_grouped_agg_dense(self, gid, valid, n, g, k, ins, kinds, dtypes,
+                               idents, out, scratch, scratch_bytes, stream):
+        outs, present = self.want_sets[len(self.calls)]
+        for a, o in enumerate(outs):
+            ctypes.memmove(out + 8 * a * g, o.data_ptr(),
+                           o.numel() * o.element_size())
+        ctypes.memmove(out + 8 * k * g, present.data_ptr(), 8 * g)
+        self.calls.append((n, g, k, out, scratch, scratch_bytes))
+        return 0
+
+
+def test_grouped_agg_dense_makes_one_allocation_and_no_fill(monkeypatch):
+    """On the card the K4 wrapper makes one allocation a set of 32
+    aggregates (the outputs, present, then the kernel's scratch; the
+    outputs are views of it), fills nothing (the kernel writes every
+    word, an empty group's identity too), makes one library call and
+    counts one launch a set; the outputs equal the plain version's (the
+    library faked with it: no card here)."""
+    rng = np.random.default_rng(10)
+    n, g = 700, 5
+    gid = _t(rng.integers(-1, g + 1, n).astype(np.int64))
+    valid = _t(rng.random(n) < 0.8)
+    cols = (_t(rng.integers(-9, 9, n).astype(np.int32)),
+            _t(rng.normal(size=n)), _t(rng.integers(-9, 9, n)))
+    kinds = ("min", "max", "sumf", "sum", "count") * 8
+    ins = (cols[0], cols[1], cols[1], cols[2], cols[0]) * 8
+    want = TK.grouped_agg_dense_plain(gid, valid, ins, g, kinds)
+    sets = [TK.grouped_agg_dense_plain(gid, valid, ins[lo:lo + 32], g,
+                                       kinds[lo:lo + 32])
+            for lo in (0, 32)]
+    lib = _FakeDenseLib(sets)
+    allocs = []
+    real_empty = torch.empty
+
+    def empty(*a, **kw):
+        allocs.append(real_empty(*a, **kw))
+        return allocs[-1]
+
+    def no_fill(*a, **kw):
+        raise AssertionError("a fill on the K4 path")
+    monkeypatch.setattr(TK, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(TK, "_lib", lambda: lib)
+    monkeypatch.setattr(TK, "_stream", lambda: 0)
+    monkeypatch.setattr(torch, "empty", empty)
+    for name in ("zeros", "zeros_like", "full", "full_like"):
+        monkeypatch.setattr(torch, name, no_fill)
+    for name in ("zero_", "fill_"):
+        monkeypatch.setattr(torch.Tensor, name, no_fill)
+    TK.reset_launches()
+    got = TK.grouped_agg_dense(gid, valid, ins, g, kinds)
+    monkeypatch.undo()
+    assert len(allocs) == 2 and len(lib.calls) == 2
+    assert TK.LAUNCHES["grouped_agg_dense"] == 2
+    for buf, (n_, g_, k, out, scratch, sbytes) in zip(allocs, lib.calls):
+        assert (n_, g_) == (n, g) and k in (32, 8)
+        assert out == buf.data_ptr() and scratch == out + 8 * (k + 1) * g
+        assert buf.untyped_storage().nbytes() >= 8 * (k + 1) * g + sbytes
+    for o, a in zip(got[0], range(40)):
+        buf = allocs[a // 32]
+        assert o.untyped_storage().data_ptr() == buf.data_ptr()
+        assert o.is_contiguous()
+    _compare_agg(got, want, kinds)
 
 
 def test_q1_step_matches_reference_entry():
