@@ -52,10 +52,22 @@ bulk-load all eight tables at SF1 (6.0 M lineitem rows), then
   statements and 8 plain queries against the port on the CPU over the
   same stores, the other 56 plain queries the same way at sf 72.01 in a
   second load (q85 runs there only: its many-to-many join outgrows the
-  card at SF1 size); the 27 queries outside the slice raise; the 8 window
-  queries on Cluster(2) (each as a cluster program) against the single
-  node; warm ms of each window query, eager against the default tier, in
-  turns, and their busy share.
+  card at SF1 size); the 4 queries outside the slice (DISTINCT
+  aggregates) raise; the 8 window queries on Cluster(2) (each as a
+  cluster program) against the single node; warm ms of each window
+  query, eager against the default tier, in turns, and their busy share.
+- slice 15, Append and set operations: the 23 TPC-DS set-operation
+  queries (UNION [ALL], ROLLUP, INTERSECT, EXCEPT) in the same load on
+  the default tier, each against the port on the CPU over the same
+  stores and again in the sf 72.01 load, with the kernel launches inside
+  each Append (K9's TEXT remap, K3's pack) and SetOp (K5, K8, K9) by
+  query, cold ms and warm ms eager against default in turns; the
+  operators run again through the kernels and through their plain
+  versions on the path's inputs, timed, with a bytes bound (the
+  exec_setop and exec_append records).  In the check phase: INT / DATE
+  min and max over no rows on the fused tier (K14), and
+  tests/test_sql_surface.py's set-operation statements on the card's
+  Session and on Cluster(2) as cluster programs.
 The slices 1-3 phases run the eager tiers (Executor._fuse = False,
 MeshRunner._capture = False), as before the fused tier and the cluster
 program existed.
@@ -2883,6 +2895,7 @@ def main():
     window_kernel_check(torch, K)
     float_key_check(torch, K)
     int_window_check(torch)
+    setop_check(torch, K)
     say(f"launch counts from captured graphs: torch.profiler agreed on "
         f"{PROFILER_COUNTS['agreed']}, lost its device events on "
         f"{PROFILER_COUNTS['lost']}")
@@ -3018,6 +3031,8 @@ def main():
                 for a, kw in qcalls.get(n, ()):
                     max_err[n] = max(max_err[n], compare_call(
                         torch, K, plain, n, a, kw))
+    for n, e in tp["setop_err"].items():
+        max_err[n] = max(max_err[n], e)
     say("kernels vs plain (main-path inputs of every path): ok")
     ann_err = vector_compare(torch, ANN, vp)
 
@@ -3082,7 +3097,8 @@ def main():
                    "vector": vp["launches"][n],
                    "tpcds_sf1": tp["launches"][n],
                    "tpcds_check": tp["launches_k"][n],
-                   "tpcds_cluster2": tp["launches_c"][n]}
+                   "tpcds_cluster2": tp["launches_c"][n],
+                   "tpcds_setops": tp["launches_s"][n]}
         launches = sum(by_path.values())
         if n == "grouped_agg_dense":
             splits = k4_split(torch, K, {
@@ -3113,6 +3129,7 @@ def main():
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}; launches "
             f"{' + '.join(str(v) for v in by_path.values())} [{card}]")
     records.append(k16)
+    records += tp["setop_records"]
     records += vector_measure(torch, K, ANN, vp, ann_err, card,
                               profile=args.profile)
     del vp
@@ -5322,10 +5339,14 @@ WINDOW_KERNELS = ("window_bounds", "window_frame_reduce", "range_minmax")
 # 2,880,400 at sf 720.1
 TPCDS_SF = 720.1
 TPCDS_WINDOW = (12, 20, 44, 53, 63, 67, 89, 98)
-TPCDS_NOT_IN_SLICE = (2, 4, 5, 11, 14, 16, 18, 22, 28, 33, 36, 38, 49, 56,
-                      60, 66, 70, 71, 74, 75, 76, 77, 80, 86, 87, 94, 95)
+# slice 15: the 23 set-operation queries (UNION [ALL], ROLLUP through its
+# UNION ALL expansion, and the INTERSECT / EXCEPT of TPCDS_SETOP_SETOP)
+TPCDS_SETOP = (2, 4, 5, 11, 14, 18, 22, 33, 36, 38, 49, 56, 60, 66, 70, 71,
+               74, 75, 76, 77, 80, 86, 87)
+TPCDS_SETOP_SETOP = (14, 38, 87)
+TPCDS_NOT_IN_SLICE = (16, 28, 94, 95)   # DISTINCT aggregates
 TPCDS_PLAIN = tuple(q for q in range(1, 100) if q not in TPCDS_WINDOW
-                    and q not in TPCDS_NOT_IN_SLICE)
+                    and q not in TPCDS_SETOP and q not in TPCDS_NOT_IN_SLICE)
 # plain queries the port on the CPU checks at SF1 (the rest in a second
 # load at a tenth of the scale)
 TPCDS_CPU_SF1 = (3, 7, 19, 42, 43, 52, 55, 96)
@@ -5424,11 +5445,12 @@ def tpcds_path(torch, K, card, sf):
     statements and the plain queries but q85, the launch counters set to 0
     before the path and read after it (and per query), the K13 calls
     recorded; the window statements and TPCDS_CPU_SF1 against the port
-    on the CPU over the same stores, the other plain queries the same
-    way in a second load at sf / 10; the 27 queries outside the slice
-    raise; the 8 window queries on Cluster(2) against the single node;
-    warm ms of each window query, eager against the default tier, in
-    turns, and the window queries' busy share."""
+    on the CPU over the same stores, the other plain queries and the
+    set-operation queries the same way in a second load at sf / 10; the
+    4 queries outside the slice raise; the 8 window queries on
+    Cluster(2) against the single node; slice 15's set-operation queries
+    (tpcds_setop_path); warm ms of each window query, eager against the
+    default tier, in turns, and the window queries' busy share."""
     from opentenbase_tpu_torch.exec import executor as X, fused
     from opentenbase_tpu_torch.exec import mesh_exec as ME
     from opentenbase_tpu_torch.exec.session import Session
@@ -5484,7 +5506,8 @@ def tpcds_path(torch, K, card, sf):
     # the other plain queries at a tenth of the scale: card against CPU
     check_sf = round(sf / 10, 6)
     sk, _dk, t_load_k = _tpcds_load(torch, check_sf)
-    kq = [f"dsk{q}" for q in TPCDS_PLAIN if q not in TPCDS_CPU_SF1]
+    kq = [f"dsk{q}" for q in TPCDS_PLAIN if q not in TPCDS_CPU_SF1] \
+        + [f"dsk{q}" for q in TPCDS_SETOP]
     got_k, _cold, _calls, launches_k, _pq = run_path(torch, K, sk, kq,
                                                      WINDOW_KERNELS)
     ck_cpu = Session(_cpu_twin(sk.node))
@@ -5492,8 +5515,8 @@ def tpcds_path(torch, K, card, sf):
     for q in kq:
         rows_close(got_k[q], ck_cpu.query(Q_TEXT[q]),
                    f"{_qname(q)} (card vs the port on the CPU)")
-    say(f"{len(kq)} plain queries at sf={check_sf} on the card = the port "
-        f"on the CPU ({time.perf_counter() - t0:.1f} s)")
+    say(f"{len(kq)} plain and set-operation queries at sf={check_sf} on the "
+        f"card = the port on the CPU ({time.perf_counter() - t0:.1f} s)")
     del sk, ck_cpu, got_k
     # the window queries on Cluster(2), against the single node
     tables = ("date_dim", "item", "store", "store_sales", "catalog_sales",
@@ -5524,6 +5547,10 @@ def tpcds_path(torch, K, card, sf):
     say(f"the {len(cq)} window queries on Cluster(2) (device tier) = the "
         f"single node; launches {json.dumps(launches_c)}")
     del cs
+    # slice 15 after the check load and the cluster: its measurements hold
+    # the set operations' inputs while they run (q85 at sf 72.01 needs the
+    # card's memory)
+    sp = tpcds_setop_path(torch, K, card, s)
     # warm ms, eager tier against the default tier, in turns
     warm = {}
     for q in TPCDS_WINDOW:
@@ -5547,6 +5574,8 @@ def tpcds_path(torch, K, card, sf):
     return {"session": s, "calls": calls, "calls_c": calls_c,
             "launches": launches, "launches_k": launches_k,
             "launches_c": launches_c, "per_q": per_q,
+            "launches_s": sp["launches"], "setop_err": sp["err"],
+            "setop_records": sp["records"],
             "load_s": t_load + t_load_k + t_load_c}
 
 
@@ -5630,6 +5659,497 @@ def window_bytes_ops(name, a, kw, out):
     by = sum(nbytes(t) for t in ins if t is not None) + extra \
         + nbytes(val) + (nbytes(nul) if nul is not None else 0)
     return by, 12 * n
+
+
+# ---------------------------------------------------------------------------
+# slice 15: Append and set operations
+# ---------------------------------------------------------------------------
+
+# the fused tier's int32 min / max over no rows (ROADMAP queue 3): K14
+# keeps them in int64 with the int64 identities; the output is the INT /
+# DATE dtype's own identities, as in the reference
+FAULT_DDL = ("create table fe (k bigint, x int)",
+             "create table fw (k bigint, x int, d date)",
+             "insert into fw values (1, 5, date '1995-01-01'), "
+             "(2, -7, date '1996-01-01'), (3, 9, date '1997-01-01')")
+FAULT_SQL = (
+    ("select min(x), max(x) from fe", [(2147483647, -2147483648)]),
+    ("select count(*), sum(x), min(x) from fw where k > 100",
+     [(0, 0, 2147483647)]),
+    ("select min(x), max(x), min(d), max(d) from fw where k > 100",
+     [(2147483647, -2147483648, "5881580-07-11", "-5877641-06-23")]),
+    ("select min(x), max(x), count(*) from fw where k > 1", [(-7, 9, 2)]))
+
+# tests/test_sql_surface.py's set-operation and grouping-set statements
+# over its tables (t; u, sharded), and TEXT branches with different
+# dictionaries (a, b); each with whether its rows come in a defined order
+SETOP_DDL = (
+    "create table t (g varchar(2), x bigint, v decimal(6,1))",
+    "insert into t values ('a',1,10.0),('a',2,20.0),('a',2,30.0),"
+    "('b',5,1.5),('b',7,2.5),(null, null, null)",
+    "create table u (k bigint primary key, g varchar(2), x bigint, "
+    "v decimal(6,1)) distribute by shard(k)",
+    "insert into u values " + ", ".join(
+        f"({i}, 'g{i % 3}', {i % 7}, {i}.5)" for i in range(30)),
+    "create table a (k bigint, s varchar(4), n int) distribute by shard(k)",
+    "insert into a values (1, 'p', 10), (2, 'q', 20), (3, 'zz', null), "
+    "(4, 'p', 40)",
+    "create table b (k bigint, s varchar(4), n int) distribute by shard(k)",
+    "insert into b values (5, 'a', 1), (6, 'q', 2), (7, null, 3), "
+    "(8, 'mm', null)")
+SETOP_SQL = (
+    ("select x from t where g = 'a' intersect select x from t order by x",
+     True),
+    ("select x from t intersect all select x from t order by x", True),
+    ("select x from t except select x from t where g = 'a' order by x",
+     True),
+    ("select x from t except all select x from t where x = 2 order by x",
+     True),
+    ("select g from t intersect select g from t where g is null", False),
+    ("select x from t where x = 1 union select x from t where x = 2 "
+     "intersect select x from t where x = 2 order by x", True),
+    ("select k from u where k < 10 except select k from u where k < 5 "
+     "order by k", True),
+    ("select g, x, sum(v) as s from t group by rollup (g, x) "
+     "order by g nulls last, x nulls last", True),
+    ("select g, x, count(*) as n from t group by cube (g, x)", False),
+    ("select g, count(*) as n from u group by rollup (g) "
+     "order by g nulls last", True),
+    ("select s, count(*), sum(n) from (select s, n from a union all "
+     "select s, n from b) z group by s order by s", True),
+    ("select s from a union select s from b order by 1 desc", True),
+    ("select s from a except all select s from b order by s", True))
+
+# the executor's set-operation steps and the kernels they launch
+SETOP_STEPS = ("_concat", "_pack", "_set_rows")
+SETOP_KERNELS = ("grouped_agg_sort", "join_expand", "compose_index",
+                 "compact")
+SETOP_REPLACES = {"exec_setop": "opentenbase_tpu/exec/executor.py:968",
+                  "exec_append": "opentenbase_tpu/exec/executor.py:1040"}
+
+
+def _sorted_rows(rows):
+    return sorted(rows, key=lambda r: tuple(
+        (v is None, str(type(v)), v if v is not None and v == v else 0)
+        for v in r))
+
+
+def setop_check(torch, K):
+    """The fused tier's int32 min / max over no rows on the card (each
+    statement one fused_scan_agg launch at least, rows = the reference's
+    answer), then SETOP_SQL through the port's Session on the card
+    (eager and default tiers) against the port on the CPU, and on
+    Cluster(2) on the card as cluster programs: the first call captures
+    its program (or hits one captured for another statement of the same
+    shape), every warm call is one graph replay with one ladder read,
+    rows = the single node on the card."""
+    from opentenbase_tpu_torch.exec import executor as X
+    from opentenbase_tpu_torch.exec import mesh_exec as ME
+    from opentenbase_tpu_torch.exec.dist_session import ClusterSession
+    from opentenbase_tpu_torch.exec.session import LocalNode, Session
+    from opentenbase_tpu_torch.parallel.cluster import Cluster
+    s = Session(LocalNode())
+    check(s.node.device.type == DEVICE, f"node on {s.node.device}")
+    for stmt in FAULT_DDL:
+        s.execute(stmt)
+    fuse, capture = X.Executor._fuse, ME.MeshRunner._capture
+    X.Executor._fuse = True
+    try:
+        for sql, want in FAULT_SQL:
+            for _ in range(2):    # the first call captures, the second replays
+                before = K.LAUNCHES["fused_scan_agg"]
+                rows = s.query(sql)
+                torch.cuda.synchronize()
+                check(K.LAUNCHES["fused_scan_agg"] > before,
+                      f"{sql}: not on the fused scan-aggregate kernel")
+                check(rows == want, f"fused tier on the card: {sql} gave "
+                      f"{rows}, want {want}")
+        say(f"int32 / date min and max over no rows on the card's fused tier "
+            f"(K14, {len(FAULT_SQL)} statements, captured and replayed) = "
+            "the reference's identities: ok")
+        cpu = Session(LocalNode(device="cpu"))
+        cs = ClusterSession(Cluster(2))
+        for stmt in SETOP_DDL:
+            s.execute(stmt)
+            cpu.execute(stmt)
+            cs.execute(stmt)
+        single = {}
+        for sql, ordered in SETOP_SQL:
+            want = cpu.query(sql)
+            for fused in (False, True):
+                X.Executor._fuse = fused
+                got = s.query(sql)
+                torch.cuda.synchronize()
+                if not ordered:
+                    got, want = _sorted_rows(got), _sorted_rows(want)
+                tier = "default" if fused else "eager"
+                check(got == want, f"{sql} on the card ({tier} tier) gave "
+                      f"{got}, the CPU {want}")
+            single[sql] = got
+        say(f"{len(SETOP_SQL)} set-operation statements on the card's "
+            "Session (eager and default tiers) = the port on the CPU: ok")
+        X.Executor._fuse = True
+        ME.MeshRunner._capture = True
+        captured = 0
+        for sql, ordered in SETOP_SQL:
+            cap0, lr0, rp0, hit0 = _mesh_counters(K)
+            rows = cs.query(sql)
+            torch.cuda.synchronize()
+            cap1, lr1, rp1, hit1 = _mesh_counters(K)
+            check(cs.last_tier == "mesh" and cs.fallbacks == [],
+                  f"Cluster(2) {sql}: tier {cs.last_tier}")
+            check(rp1 == rp0 and (cap1 - cap0 == 1 or hit1 - hit0 == 1),
+                  f"Cluster(2) {sql}: {cap1 - cap0} captures, {rp1 - rp0} "
+                  f"replays, {hit1 - hit0} program hits on the first call")
+            captured += cap1 - cap0
+            want = single[sql]
+            for _ in range(2):
+                got = cs.query(sql)
+                check((got if ordered else _sorted_rows(got)) == want,
+                      f"Cluster(2) {sql} gave {got}, the single node {want}")
+            torch.cuda.synchronize()
+            cap2, lr2, rp2, _hit2 = _mesh_counters(K)
+            check(cap2 == cap1 and rp2 - rp1 == 2 and lr2 - lr1 == 2,
+                  f"Cluster(2) {sql}: {cap2 - cap1} captures, {rp2 - rp1} "
+                  f"replays, {lr2 - lr1} ladder reads in 2 warm calls")
+        say(f"{len(SETOP_SQL)} set-operation statements on Cluster(2) on the "
+            f"card as cluster programs ({captured} captured; each warm call "
+            "one replay and one ladder read) = the single node: ok")
+    finally:
+        X.Executor._fuse, ME.MeshRunner._capture = fuse, capture
+
+
+class OpTally:
+    """Every call of the executor's set-operation steps while installed:
+    `_concat` (the device concat of an Append or a SetOp's sides, K9's
+    TEXT remap), `_pack` (the eager Append's K3) and `_set_rows` (SetOp's
+    K5 + K8 + K9).  For each: the query it ran for, its arguments (and a
+    concat's output), whether it ran traced, and its kernel launches
+    (LAUNCHES read before and after it: its inputs exist before it
+    starts, so every launch in between is its own); and the kernel calls
+    made inside the
+    steps, by query (for the checks against the plain versions).  A step
+    recorded into a CUDA graph under capture launches nothing and is not
+    kept."""
+
+    def __init__(self, torch, X, K):
+        self.torch, self.X, self.K = torch, X, K
+        self.query = None
+        self.steps: list = []
+        self.kcalls: dict = {}
+        self._inside = False
+        self._orig = {}
+        for step in SETOP_STEPS:
+            fn = getattr(X.Executor, step)
+            self._orig[("X", step)] = fn
+            setattr(X.Executor, step, self._step(step, fn))
+        for n in SETOP_KERNELS:
+            attr = WRAPPERS.get(n, n)
+            fn = getattr(K, attr)
+            self._orig[("K", attr)] = fn
+            setattr(K, attr, self._kernel(n, fn))
+
+    def _step(self, step, fn):
+        def run(ex, *a):
+            capturing = self.torch.cuda.is_current_stream_capturing()
+            before = dict(self.K.LAUNCHES)
+            prev, self._inside = self._inside, not capturing
+            try:
+                out = fn(ex, *a)
+            finally:
+                self._inside = prev
+            if not capturing:
+                self.steps.append({
+                    "step": step, "query": self.query, "ex": ex, "args": a,
+                    "out": out if step == "_concat" else None,
+                    "traced": ex._traced,
+                    "launches": {n: self.K.LAUNCHES[n] - before[n]
+                                 for n in SETOP_KERNELS}})
+            return out
+        return run
+
+    def _kernel(self, n, fn):
+        def run(*a, **kw):
+            if self._inside:
+                self.kcalls.setdefault(self.query, {}).setdefault(
+                    n, []).append((a, kw))
+            return fn(*a, **kw)
+        return run
+
+    def restore(self):
+        for (where, name), fn in self._orig.items():
+            setattr(self.X.Executor if where == "X" else self.K, name, fn)
+
+    def original(self, step):
+        return self._orig[("X", step)]
+
+    def units(self, kind, queries):
+        """(concat step, pack or set_rows step) of every eager Append
+        ("exec_append") or SetOp ("exec_setop") of `queries`: the step
+        whose input is the concat's output."""
+        step = "_pack" if kind == "exec_append" else "_set_rows"
+        concats = {id(c["out"]): c for c in self.steps
+                   if c["step"] == "_concat"}
+        out = []
+        for c in self.steps:
+            if c["step"] == step and c["query"] in queries:
+                b = c["args"][0] if step == "_pack" else c["args"][1]
+                out.append((concats[id(b)], c))
+        return out
+
+
+def _has_text(b) -> bool:
+    from opentenbase_tpu_torch.catalog.types import TypeKind
+    return any(t.kind == TypeKind.TEXT for t in b.types.values())
+
+
+def setop_launch_check(tally, queries, per_q):
+    """Per query: each SetOp launched K5, K8 and K9 (one K9 for its keys,
+    one more where its columns hold TEXT), each eager Append's pack one
+    K3 (one a set of 128 columns) and each concat one K9 where its
+    columns hold TEXT and none where they do not; the 3 INTERSECT /
+    EXCEPT queries ran a SetOp, the other 20 an eager Append."""
+    lines = []
+    for q in queries:
+        steps = [c for c in tally.steps if c["query"] == q]
+        sets = [c for c in steps if c["step"] == "_set_rows"]
+        packs = [c for c in steps if c["step"] == "_pack"]
+        concats = [c for c in steps if c["step"] == "_concat"]
+        num = int(q.lstrip("dsk"))
+        op = "SetOp" if num in TPCDS_SETOP_SETOP else "Append"
+        check(len(sets if op == "SetOp" else packs) > 0,
+              f"{_qname(q)}: no {op} ran")
+        for c in sets:
+            ln = c["launches"]
+            check(ln["grouped_agg_sort"] >= 1 and ln["join_expand"] == 1
+                  and ln["compose_index"] == 1 and ln["compact"] == 0,
+                  f"{_qname(q)}: a SetOp launched {ln}")
+        for c in packs:
+            ln = c["launches"]
+            check(ln["compact"] >= 1 and sum(ln.values()) == ln["compact"],
+                  f"{_qname(q)}: an Append's pack launched {ln}")
+        for c in concats:
+            ln = c["launches"]
+            want = 1 if _has_text(c["out"]) else 0
+            check(ln["compose_index"] == want
+                  and sum(ln.values()) == want,
+                  f"{_qname(q)}: a concat launched {ln}, want {want} K9")
+        tot = {n: sum(c["launches"][n] for c in steps) for n in SETOP_KERNELS}
+        lines.append(f"{_qname(q)} {len(sets)} SetOp + {len(packs)} Append "
+                     f"({len(concats)} concats): K5 {tot['grouped_agg_sort']}"
+                     f", K8 {tot['join_expand']}, K9 {tot['compose_index']}, "
+                     f"K3 {tot['compact']} of the query's "
+                     f"{per_q[q]['grouped_agg_sort']} / "
+                     f"{per_q[q]['join_expand']} / "
+                     f"{per_q[q]['compose_index']} / {per_q[q]['compact']}")
+    say("set-operation launches by query (inside Append / SetOp, of the "
+        "query's K5 / K8 / K9 / K3): " + "; ".join(lines))
+
+
+class plain_kernels:
+    """Within the block the set-operation kernels are their plain
+    versions (on the card's tensors)."""
+
+    def __init__(self, K):
+        self.K = K
+
+    def __enter__(self):
+        self.saved = {}
+        for n in SETOP_KERNELS:
+            attr = WRAPPERS.get(n, n)
+            self.saved[attr] = getattr(self.K, attr)
+            setattr(self.K, attr, getattr(self.K, attr + "_plain"))
+
+    def __exit__(self, *exc):
+        for attr, fn in self.saved.items():
+            setattr(self.K, attr, fn)
+
+
+def _batch_tensors(b):
+    return list(b.cols.values()) + [b.valid] + list(b.nulls.values())
+
+
+def _batch_err(torch, got, want) -> float:
+    """0.0 when the two batches are the same bits, else the count of
+    differing entries (f64 compared as their bit patterns)."""
+    err = 0.0
+    check(list(got.cols) == list(want.cols)
+          and list(got.nulls) == list(want.nulls)
+          and got.dicts == want.dicts, "batch layouts differ")
+    for g, w in zip(_batch_tensors(got), _batch_tensors(want)):
+        if g.dtype == torch.float64:
+            g, w = g.view(torch.int64), w.view(torch.int64)
+        check(g.shape == w.shape, "batch shapes differ")
+        err += float((g != w).sum())
+    return err
+
+
+def _unit_run(tally, unit):
+    """The set operation of one recorded unit: its concat, then its pack
+    or its rows."""
+    concat, last = unit
+    fn_c = tally.original("_concat")
+    fn_l = tally.original(last["step"])
+    b = fn_c(concat["ex"], *concat["args"])
+    if last["step"] == "_pack":
+        return fn_l(last["ex"], b)
+    return fn_l(last["ex"], last["args"][0], b, last["args"][2])
+
+
+def _append_yardstick(torch, parts):
+    """The Append's concat in PyTorch calls: torch.cat of every column,
+    null mask and valid, and each TEXT column's codes through its LUT
+    with index_select."""
+    from opentenbase_tpu_torch.catalog.types import TypeKind
+    from opentenbase_tpu_torch.exec import executor as X
+    first = parts[0]
+    dev = first.valid.device
+    text = [n for n in first.cols if first.types[n].kind == TypeKind.TEXT]
+    luts = {}
+    for n in text:
+        _vals, ls = X._union_dict(tuple(p.dicts.get(n, ()) for p in parts))
+        luts[n] = [torch.from_numpy(x).to(dev) for x in ls]
+
+    def run():
+        out = []
+        for n, a in first.cols.items():
+            if n in luts:
+                out.append(torch.cat([lut.index_select(0, torch.clamp(
+                    p.cols[n].long(), 0, lut.shape[0] - 1))
+                    for lut, p in zip(luts[n], parts)]))
+            else:
+                out.append(torch.cat([p.cols[n] for p in parts]))
+        for n in dict.fromkeys(m for p in parts for m in p.nulls):
+            out.append(torch.cat([p.nulls.get(n, torch.zeros(
+                p.padded, dtype=torch.bool, device=dev)) for p in parts]))
+        out.append(torch.cat([p.valid for p in parts]))
+        return out
+    return run
+
+
+def setop_records(torch, K, tally, queries, card):
+    """The kernel line's exec_setop and exec_append records: every unit of
+    the path run again through the kernels and through their plain
+    versions on the same inputs (the same bits, or the check fails);
+    launches = the kernel launches inside the operators on the path;
+    ms, plain ms and the bound on the unit with the most input rows (the
+    bound: its inputs read once and its output written once at 3.35 TB/s);
+    library ms for the Append: its concat in PyTorch calls (a yardstick,
+    several calls)."""
+    records = []
+    for kind in ("exec_setop", "exec_append"):
+        units = tally.units(kind, queries)
+        check(units, f"no {kind} ran on the path")
+        err = 0.0
+        for unit in units:
+            got = _unit_run(tally, unit)
+            with plain_kernels(K):
+                want = _unit_run(tally, unit)
+            torch.cuda.synchronize()
+            err = max(err, _batch_err(torch, got, want))
+        check(err == 0.0, f"{kind} differs from its plain version ({err})")
+        launches = sum(sum(c["launches"].values()) for u in units
+                       for c in u)
+        unit = max(units, key=lambda u: u[0]["out"].padded)
+        ms = time_fn(torch, lambda: _unit_run(tally, unit), reps=5)
+        with plain_kernels(K):
+            pms = time_fn(torch, lambda: _unit_run(tally, unit), reps=5)
+        parts = unit[0]["args"][0]
+        out = _unit_run(tally, unit)
+        by = sum(nbytes(t) for p in parts for t in _batch_tensors(p)) \
+            + sum(nbytes(t) for t in _batch_tensors(out))
+        lib = None
+        if kind == "exec_append":
+            lib = time_fn(torch, _append_yardstick(torch, parts), reps=5)
+        bound = by / HBM_BYTES_PER_S * 1e3
+        rows = [p.padded for p in parts]
+        lib_text = "-" if lib is None else \
+            f"{lib:.4f} ms (yardstick: torch.cat + index_select)"
+        say(f"{kind} on {_qname(unit[0]['query'])} (inputs of {rows} rows, "
+            f"output {out.padded}): {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by / 1e6:.1f} MB), library {lib_text}; "
+            f"{len(units)} on the path, {launches} kernel launches inside "
+            f"them, max err {err:g} [{card}]")
+        records.append({
+            "name": kind, "route": "cuda",
+            "source": "opentenbase_tpu_torch/exec/executor.py",
+            "replaces": SETOP_REPLACES[kind], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib,
+            "timed_on": _qname(unit[0]["query"]),
+            "kernels": "K5 + K8 + K9" if kind == "exec_setop"
+            else "K9 + K3"})
+    return records
+
+
+def tpcds_setop_path(torch, K, card, s):
+    """Slice 15 on TPC-DS at store_sales' SF1 size (`s`, tpcds_path's
+    session): the 23 set-operation queries through Session.query on the
+    default tier, the launch counters set to 0 before the path and read
+    after it; per query, the launches inside its Append / SetOp steps
+    (OpTally); rows against the port on the CPU over the same stores;
+    cold ms, and warm ms eager against default in turns; the kernel
+    calls made inside the steps against their plain versions, and the
+    exec_setop / exec_append records, before the steps' inputs are
+    dropped."""
+    from opentenbase_tpu_torch.exec import executor as X
+    from opentenbase_tpu_torch.exec.session import Session
+    sq = [f"ds{q}" for q in TPCDS_SETOP]
+    X.Executor._fuse = True
+    tally = OpTally(torch, X, K)
+    tally.query = sq[0]
+    order = iter(sq[1:] + [None])
+
+    def on_query(_q):
+        tally.query = next(order)
+    try:
+        got, cold, _calls, launches, per_q = run_path(torch, K, s, sq, (),
+                                                      on_query)
+    finally:
+        tally.restore()
+    say(f"slice 15 path launches (the 23 TPC-DS set-operation queries at "
+        f"store_sales' SF1 size, default tier): {json.dumps(launches)}")
+    for n in SETOP_KERNELS:
+        check(launches[n] > 0, f"kernel {n} was not launched on slice 15's "
+              "path")
+    setop_launch_check(tally, sq, per_q)
+    check(sum(len(got[q]) for q in sq) > 0, "the set-operation queries "
+          "returned no rows")
+    say("set-operation queries, rows and cold ms: " + ", ".join(
+        f"q{q[2:]} {len(got[q])} {cold[q]:.1f}" for q in sq))
+    cpu = Session(_cpu_twin(s.node))
+    t0 = time.perf_counter()
+    for q in sq:
+        rows_close(got[q], cpu.query(Q_TEXT[q]),
+                   f"{_qname(q)} (card vs the port on the CPU)")
+    say(f"the {len(sq)} set-operation queries on the card = the port on the "
+        f"CPU over the same stores ({time.perf_counter() - t0:.1f} s)")
+    warm = []
+    for q in sq:
+        ms = {True: [], False: []}
+        for r in range(REPS):
+            for fuse in ((False, True) if r % 2 == 0 else (True, False)):
+                X.Executor._fuse = fuse
+                ms[fuse].append(_wall(torch, lambda: s.query(Q_TEXT[q])))
+        warm.append(f"q{q[2:]} {statistics.median(ms[False]):.3f} / "
+                    f"{statistics.median(ms[True]):.3f}")
+    X.Executor._fuse = True
+    say(f"set-operation queries' warm medians, eager / default tier, ms, "
+        f"{REPS} a side in turns: {', '.join(warm)} [{card}]")
+    plain, err = plain_versions(K), {}
+    for qcalls in tally.kcalls.values():
+        for n, calls in qcalls.items():
+            for a, kw in calls:
+                err[n] = max(err.get(n, 0.0),
+                             compare_call(torch, K, plain, n, a, kw))
+    say("the kernel calls inside the set-operation steps = their plain "
+        "versions: " + ", ".join(
+            f"{n} {sum(len(c.get(n, ())) for c in tally.kcalls.values())}"
+            for n in SETOP_KERNELS))
+    tally.kcalls.clear()
+    records = setop_records(torch, K, tally, sq, card)
+    tally.steps.clear()
+    return {"launches": launches, "err": err, "records": records}
 
 if __name__ == "__main__":
     try:

@@ -3,8 +3,9 @@
 The counterpart of opentenbase_tpu/exec/executor.py's eager tier, for
 single-node plans of scan / filter / project / hash join (inner, left,
 full, semi, anti, cross) / grouped aggregate (dense and sort-based) /
-sort / limit.  Each operator consumes and produces a DBatch: padded
-device tensors plus a validity mask.  Padding follows the buffer cache's
+sort / limit / window / Append (UNION ALL) / SetOp (INTERSECT,
+EXCEPT).  Each operator consumes and produces a DBatch: padded device
+tensors plus a validity mask.  Padding follows the buffer cache's
 size classes; padded rows are masked by the scan's row-count belt.
 
 The scan stages table columns through the node's device cache once per
@@ -43,8 +44,9 @@ of the program's batch at once (ExecContext.batch).  `_fuse = False`
 keeps a statement on the eager tier.
 
 EXEC_STATS counts per tier (single = eager, fused = traced programs) the
-joins and the host reads (`host_syncs`: one per eager join) and the
-fused tier's program hits on join fragments (`fused_join_hits`).
+joins and the host reads (`host_syncs`: one per eager join, Append and
+SetOp) and the fused tier's program hits on join fragments
+(`fused_join_hits`).
 
 AnnSearch (ORDER BY vec <-> q LIMIT k) runs exact or IVF top-k through
 the K15 kernels of ops/ann.py, eagerly.
@@ -52,9 +54,16 @@ the K15 kernels of ops/ann.py, eagerly.
 Window functions (K13) sort each (partition, order) spec with K10 and
 run the ops/kernels.py window kernels over the sorted rows.
 
-Still raising NotImplementedError: DISTINCT aggregates, set operations,
-Append, btree index scans, HNSW search, and the reference's morsel /
-spill / work-sharing tiers.  Nothing is done another way.
+Append and SetOp (UNION ALL, INTERSECT / EXCEPT [ALL]; a UNION is an
+Agg over an Append, ROLLUP / GROUPING SETS a UNION ALL) concatenate
+their inputs on the device, TEXT codes remapped into a union dictionary
+by K9.  The eager Append packs the live rows with K3, the traced one
+(inside the cluster program) is the concat alone; SetOp, eager only,
+counts each group's rows per side with K5 and expands the copies with K8.
+
+Still raising NotImplementedError: DISTINCT aggregates, btree index
+scans, HNSW search, and the reference's morsel / spill / work-sharing
+tiers.  Nothing is done another way.
 """
 
 from __future__ import annotations
@@ -391,8 +400,8 @@ class Executor:
 
     # ------------------------------------------------------------------
     def exec_node(self, node: P.PhysNode) -> DBatch:
-        """Run one plan node; a node type of a later slice (set
-        operations, Append, index scans) is not yet ported."""
+        """Run one plan node; a node type of a later slice (index
+        scans) is not yet ported."""
         if not self._traced and self._fuse:
             from .fused import try_fused
             out = try_fused(self, node)
@@ -1108,8 +1117,7 @@ class Executor:
             return None
         ws, out_dtypes, (key_types, key_dicts, doms), out_specs = hit
         table = ws[self.ctx.slot]
-        outs = [row if dt == torch.int64 else row.to(dt)
-                for row, dt in zip(table, out_dtypes)]
+        outs = [_narrow(row, dt) for row, dt in zip(table, out_dtypes)]
         present = table[len(out_dtypes)]
         dev = self.device
         if not doms:
@@ -1511,6 +1519,135 @@ class Executor:
         """An exchange input, bound in place of its ExchangeRef."""
         return node.batch
 
+    # ---- Append and set operations ----
+    def _concat(self, parts: list) -> DBatch:
+        """The batches one after another, on the device: their columns
+        (named alike: the planner renames every branch positionally),
+        `valid` and null masks (all-false where a branch has none).  TEXT
+        codes move into a union dictionary built on the host from the
+        branches' dictionaries (_union_text: metadata, never rows), with
+        one K9 gather for every TEXT column of every branch: each
+        branch's codes, clamped into its dictionary so that padding rows
+        never read past its LUT, index the concatenated LUTs."""
+        parts = [p.ensure_all() for p in parts]
+        first, dev = parts[0], self.device
+        text = [n for n in first.cols if first.types[n].kind == TypeKind.TEXT]
+        codes, dicts = {}, {}
+        if text:
+            values, lut, offs = _union_text(
+                tuple(tuple(p.dicts.get(n, ()) for p in parts)
+                      for n in text))
+            takes = []
+            for n, col_offs in zip(text, offs):
+                for p, (lo, hi) in zip(parts, col_offs):
+                    takes.append(torch.clamp(p.cols[n], 0, hi)
+                                 .to(torch.int64) + lo)
+            (flat,), _m = K.compose_indices((device_const(lut, dev),),
+                                            torch.cat(takes))
+            rows = sum(p.padded for p in parts)
+            for i, n in enumerate(text):
+                codes[n] = flat[i * rows:(i + 1) * rows].to(torch.int32)
+                dicts[n] = values[i]
+        cols = {n: codes[n] if n in codes else
+                torch.cat([p.cols[n].to(a.dtype) for p in parts])
+                for n, a in first.cols.items()}
+        nulls = {n: torch.cat([p.nulls.get(n, torch.zeros(
+            p.padded, dtype=torch.bool, device=dev)) for p in parts])
+            for n in dict.fromkeys(m for p in parts for m in p.nulls)}
+        valid = torch.cat([p.valid for p in parts])
+        return DBatch(cols, valid, dict(first.types), dicts, nulls)
+
+    def _exec_append(self, node: P.Append) -> DBatch:
+        """UNION ALL: the branches' device concat.  In a traced program
+        (the cluster program) that is all, with no host read; eagerly the
+        rows stay on the device and _pack compacts them (the reference
+        takes the host wire format here and gives the same rows and
+        padding)."""
+        b = self._concat([self.exec_node(c) for c in node.inputs])
+        return b if self._traced else self._pack(b)
+
+    def _pack(self, b: DBatch) -> DBatch:
+        """The eager Append's output: one host read of the live count
+        sizes it at next_pow2(count), and K3 packs the live rows to its
+        front in branch order."""
+        _bump("host_syncs")
+        count = b.count()
+        size = next_pow2(max(count, 1))
+        names, nnames = list(b.cols), list(b.nulls)
+        _n, outs = K.compact(b.valid, tuple(b.cols[n] for n in names)
+                             + tuple(b.nulls[n] for n in nnames), size)
+        valid = torch.arange(size, device=self.device) < count
+        return DBatch(dict(zip(names, outs)), valid, b.types, b.dicts,
+                      dict(zip(nnames, outs[len(names):])))
+
+    def _exec_setop(self, node: P.SetOp) -> DBatch:
+        """INTERSECT / EXCEPT [ALL] (reference: exec/executor.py:968,
+        nodeSetOp.c's per-side counting), eagerly: SetOp is outside the
+        fused tier's and the cluster program's plans.  The two sides
+        concatenated on the device, then _set_rows."""
+        parts = [self.exec_node(c) for c in node.inputs]
+        return self._set_rows(node, self._concat(parts), parts[0].padded)
+
+    def _set_rows(self, node: P.SetOp, b: DBatch, n_left: int) -> DBatch:
+        """The rows of a set operation over the sides' concat `b` (its
+        first n_left rows the left side's).  It groups by every column
+        (NULLs equal: a null flag key after each nullable column; a
+        FLOAT64 by its float_word, so -0.0 = +0.0 and NaN = NaN), K5
+        counting each group's rows of either side; a group's copies are
+        min(c1, c2) (at most 1 without ALL), max(c1 - c2, 0), or 1 where
+        c1 > 0 and c2 = 0 (EXCEPT); K8 expands the copies (its probe index
+        is each output row's group), and one K9 launch gathers the group
+        keys.  One host read, the total, sizes the output: K5 leaves the
+        slots past its groups with counts of 0, so they make no copies
+        without reading n_groups."""
+        n, dev = b.padded, self.device
+        left = torch.arange(n, device=dev) < n_left
+        c_left = (b.valid & left).to(torch.int64)
+        c_right = (b.valid & ~left).to(torch.int64)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        keys = []
+        for name in node.names:
+            t, nm = b.types[name], b.nulls.get(name)
+            arr = _key_word(b.cols[name], t) if t.kind == TypeKind.FLOAT64 \
+                else b.cols[name].to(torch.int64)
+            if nm is None:
+                keys.append(arr)
+            else:
+                keys += [torch.where(nm, zero, arr), nm.to(torch.int64)]
+        gkeys, (c1, c2), _ng = K.grouped_agg_sort(
+            tuple(keys), b.valid, (c_left, c_right), n, ("sum", "sum"))
+        if node.op == "intersect":
+            copies = torch.minimum(c1, c2)
+            if not node.all:
+                copies = torch.clamp(copies, max=1)
+        elif node.all:
+            copies = torch.clamp(c1 - c2, min=0)
+        else:
+            copies = ((c1 > 0) & (c2 == 0)).to(torch.int64)
+        _bump("host_syncs")
+        total = int(copies.sum())
+        size = next_pow2(max(total, 1))
+        # K8's build side reads perm[lo[g] + r] for r < copies[g] <= n:
+        # zeros of the concat's length keep those reads in bounds, and
+        # the build index is not used
+        lo = torch.zeros(n, dtype=torch.int64, device=dev)
+        group, _bi, _t = K.join_expand(lo, copies, lo, size)
+        outs, _m = K.compose_indices(gkeys, group)
+        cols, types, nulls = {}, {}, {}
+        ki = 0
+        for name in node.names:
+            t = types[name] = b.types[name]
+            arr = outs[ki]
+            ki += 1
+            if name in b.nulls:
+                nulls[name] = outs[ki].to(torch.bool)
+                ki += 1
+            cols[name] = word_float(arr) if t.kind == TypeKind.FLOAT64 \
+                else arr.to(dev_dtype(t))
+        valid = torch.arange(size, device=dev) < total
+        return DBatch(cols, valid, types,
+                      {n: d for n, d in b.dicts.items() if n in cols}, nulls)
+
     def _exec_result(self, node: P.Result) -> DBatch:
         cols, types, nulls = {}, {}, {}
         one = torch.ones(1, dtype=torch.bool, device=self.device)
@@ -1601,6 +1738,51 @@ def _text_ranks(d: list, device):
     return device_const(hit[1], device), device_const(hit[2], device)
 
 
+#: a TEXT column's branch dictionaries -> its union dictionary and LUTs,
+#: cached like _RANKS (the entry holds its dictionaries)
+_UNIONS: dict = {}          # guarded_by: _UNIONS_LOCK
+_UNIONS_LOCK = threading.Lock()
+
+
+def _union_dict(ds: tuple):
+    """(values, luts) of one TEXT column's branch dictionaries `ds`:
+    the union of their strings in sorted order, as the reference's host
+    re-encode orders them (np.unique), so groups and rows that follow
+    code order come out in its order; luts[i] maps branch i's codes to
+    union codes (one entry, 0, for a branch with no dictionary)."""
+    key = tuple((id(d), len(d)) for d in ds)
+    with _UNIONS_LOCK:
+        hit = _UNIONS.get(key)
+    if hit is None or any(a is not b for a, b in zip(hit[0], ds)):
+        values = sorted(set().union(*ds))
+        index = {v: i for i, v in enumerate(values)}
+        luts = tuple(np.fromiter((index[v] for v in d), np.int64, len(d))
+                     if len(d) else np.zeros(1, np.int64) for d in ds)
+        hit = (ds, values, luts)
+        with _UNIONS_LOCK:
+            _UNIONS[key] = hit
+            while len(_UNIONS) > _RANKS_MAX:
+                _UNIONS.pop(next(iter(_UNIONS)))
+    return hit[1], hit[2]
+
+
+def _union_text(col_dicts: tuple):
+    """(values per column, every LUT concatenated, per column and branch
+    (offset of its LUT, its last code)) for the TEXT columns of a concat:
+    col_dicts[c][i] is branch i's dictionary of column c."""
+    values, luts, offs, at = [], [], [], 0
+    for ds in col_dicts:
+        vals, col_luts = _union_dict(ds)
+        values.append(vals)
+        col_offs = []
+        for x in col_luts:
+            col_offs.append((at, len(x) - 1))
+            at += len(x)
+        offs.append(col_offs)
+        luts += col_luts
+    return values, np.concatenate(luts), offs
+
+
 def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
@@ -1663,6 +1845,19 @@ def materialize(b: DBatch, names: Optional[list[str]] = None):
         out_cols.append(vals)
     rows = list(zip(*out_cols)) if out_cols else []
     return names, rows
+
+
+def _narrow(row, dt: torch.dtype):
+    """One int64 row of K14's table in its output dtype.  K14 holds every
+    min / max in int64 with the int64 identities, so a slot with no rows
+    holds INT64_MAX or INT64_MIN; a narrower integer output clamps into
+    its own range first, which turns those into the dtype's identities
+    (kernels._fill) rather than their low words (-1 and 0), and leaves
+    every value of a column of that dtype as it is."""
+    if dt.is_floating_point or dt in (torch.int64, torch.bool):
+        return row.to(dt)
+    info = torch.iinfo(dt)
+    return torch.clamp(row, info.min, info.max).to(dt)
 
 
 def _key_word(arr, t: SqlType):

@@ -510,3 +510,38 @@ def test_nullable_columns_answer_as_eagerly(sql):
     s.execute("insert into nt values (1, 10, 'a'), (2, null, 'b'), "
               "(3, 30, 'a'), (4, null, 'a')")
     assert s.query(sql) == eager(s, sql)
+
+
+@pytest.mark.parametrize("sql, want", [
+    ("select min(x), max(x) from e", (2147483647, -2147483648)),
+    ("select count(*), sum(x), min(x) from w where k > 100",
+     (0, 0, 2147483647)),
+    ("select min(x), max(x), min(d), max(d), count(*) from w where k > 100",
+     None),
+    ("select min(x), max(x), count(*) from w where k > 1", (-7, 9, 2))])
+def test_int32_min_max_over_no_rows_on_the_fused_tier(sql, want,
+                                                       monkeypatch):
+    """K14 keeps an INT / DATE min or max in int64 with the int64
+    identities; over no rows the port gives the output dtype's own
+    identities (2147483647, -2147483648), as the reference does, not the
+    low words of the int64 ones (-1, 0)."""
+    launches = []
+    real = K.fused_scan_agg
+
+    def spy(*a, **kw):
+        launches.append(a[0])
+        return real(*a, **kw)
+    monkeypatch.setattr(K, "fused_scan_agg", spy)
+    ddl = ["create table e (k bigint, x int)",
+           "create table w (k bigint, x int, d date)",
+           "insert into w values (1, 5, date '1995-01-01'), "
+           "(2, -7, date '1996-01-01'), (3, 9, date '1997-01-01')"]
+    r, t = RSession(RNode()), TSession(_node())
+    for stmt in ddl:
+        r.execute(stmt)
+        t.execute(stmt)
+    got = t.query(sql)
+    assert len(launches) == 1
+    assert got == r.query(sql) == eager(t, sql)
+    if want is not None:
+        assert got == [want]

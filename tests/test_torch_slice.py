@@ -210,6 +210,7 @@ SMALL_QUERIES = [
     "select sum(cast(d as double precision)), max(cast(i as bigint)) "
     "from t where i <> 0",
     "select k, row_number() over (order by k) from t",
+    "select k from t union select k from t",
 ]
 
 
@@ -221,7 +222,7 @@ def test_small_select_matches_reference(small_sessions, sql):
 
 @pytest.mark.parametrize("sql", [
     "select count(distinct i) from t",               # DISTINCT aggregate
-    "select k from t union select k from t",         # Append
+    "update t set i = 1 where k = 1",
     "begin",                                         # explicit txn
     "delete from t where k = 1",
 ])

@@ -2,12 +2,14 @@
 query text, the 8 window queries and the plain queries that have a
 pandas oracle, single node and (the window queries) on the port's
 Cluster(2).  tests/test_torch_tpcds_plain.py holds the other plain
-queries and the 27 that raise.
+queries, the 23 set-operation queries and the 4 that raise.
 
 The slice: the 64 "plain" TPC-DS queries (no window, set operation,
-GROUPING SETS/ROLLUP or DISTINCT aggregate) and the 8 window-only ones.
-The other 27 wait for Append, set operations and DISTINCT aggregates
-and raise NotImplementedError in the port.  Both packages run single
+GROUPING SETS/ROLLUP or DISTINCT aggregate), the 8 window-only ones, and
+the 23 whose set operations (UNION [ALL], INTERSECT, EXCEPT, and ROLLUP
+through its UNION ALL expansion) run on Append and SetOp, 3 of them with
+windows.  The other 4 wait for DISTINCT aggregates and raise
+NotImplementedError in the port.  Both packages run single
 node at the reference suite's scale (sf 0.3: 1,200 store_sales rows),
 loaded once per module; the reference runs only through its
 single-node Session, never its ClusterSession or mesh tier, whose
@@ -44,10 +46,12 @@ SF = 0.3
 F64_RTOL = 1e-12
 
 WINDOW_QUERIES = (12, 20, 44, 53, 63, 67, 89, 98)
-NOT_IN_SLICE = (2, 4, 5, 11, 14, 16, 18, 22, 28, 33, 36, 38, 49, 56, 60,
-                66, 70, 71, 74, 75, 76, 77, 80, 86, 87, 94, 95)
+SETOP_QUERIES = (2, 4, 5, 11, 14, 18, 22, 33, 36, 38, 49, 56, 60, 66, 70,
+                 71, 74, 75, 76, 77, 80, 86, 87)
+NOT_IN_SLICE = (16, 28, 94, 95)
 PLAIN_QUERIES = tuple(q for q in range(1, 100)
-                      if q not in WINDOW_QUERIES and q not in NOT_IN_SLICE)
+                      if q not in WINDOW_QUERIES + SETOP_QUERIES
+                      + NOT_IN_SLICE)
 #: slice queries with a pandas oracle method in tests/test_tpcds.py
 ORACLES = {1: "TestTpcdsExpansion", 3: "TestTpcdsStarter",
            6: "TestTpcdsExpansion", 7: "TestTpcdsExpansion",
@@ -156,9 +160,9 @@ def test_datagen_equal_at_store_sales_sf1_size():
 
 def test_queries_and_schema_are_the_same_text():
     assert TQ == Q and TSCHEMA == SCHEMA
-    assert sorted(WINDOW_QUERIES + PLAIN_QUERIES + NOT_IN_SLICE) == \
-        list(range(1, 100))
-    assert len(PLAIN_QUERIES) == 64
+    assert sorted(WINDOW_QUERIES + PLAIN_QUERIES + SETOP_QUERIES
+                  + NOT_IN_SLICE) == list(range(1, 100))
+    assert len(PLAIN_QUERIES) == 64 and len(SETOP_QUERIES) == 23
 
 
 @pytest.mark.parametrize("q", WINDOW_QUERIES + PLAIN_HERE)
